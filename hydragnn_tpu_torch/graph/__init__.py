@@ -1,0 +1,17 @@
+from hydragnn_tpu_torch.graph.batch import GraphBatch, collate_graphs, pad_sizes_for
+from hydragnn_tpu_torch.graph.segment import (
+    segment_count,
+    segment_minmax_fused,
+    segment_moments_fused,
+    segment_sum,
+)
+
+__all__ = [
+    "GraphBatch",
+    "collate_graphs",
+    "pad_sizes_for",
+    "segment_count",
+    "segment_minmax_fused",
+    "segment_moments_fused",
+    "segment_sum",
+]
