@@ -11,21 +11,27 @@ Phases, in order; any failure raises and exits non-zero:
 2. Build: compiles every kernel of the path from ``hydragnn_tpu_torch/csrc``
    with nvcc for sm_90a and prints the build time.
 3. Kernels: calls each kernel's wrapper (K1 segment_sum, K2
-   segment_moments, K3 fused_gather_moments) on card tensors at the main
-   path's shapes, holds the result against the plain PyTorch version on the
-   same inputs (tolerance ``1e-5 * (max |partial sum| + 1)``: atomics add in
-   a run-dependent order), and times kernel, plain version and, for K1,
-   one ``index_add_`` call, with CUDA events; then samples the SM clock
-   and power draw.
-4. Serve: the MXU_HEADLINE model (PNA, hidden 256, 3 conv layers, a graph
-   head and a node head of 64-wide layers; random weights from a seed,
-   non-trivial BatchNorm statistics) served by ``InferenceServer`` to 320
-   molecule-sized graphs (80-90 atoms, 12 edges per atom) from four
-   threads, once per aggregation mode. Launch counters are zeroed just
-   before each mode and read just after; every kernel of that mode's path
-   must have launched. Every response is held against a CPU copy of the
-   model (the plain versions) run on the graphs of its batch, packed into
-   the same bucket.
+   segment_moments, K3 fused_gather_moments, K4 fused_gather_sum, K5
+   fused_gather_mean, K6 fused_gather_weighted_sum, K7
+   fused_egnn_edge_phase) on card tensors at the main path's shapes, holds
+   the result against the plain PyTorch version on the same inputs
+   (tolerance ``1e-5 * (max |partial sum| + 1)``: atomics add in a
+   run-dependent order; K7 ``1e-4 * (max |out| + 1)``: its two 256-term
+   dot products per edge also sum in another order), and times kernel,
+   plain version and, for K1, one ``index_add_`` call, with CUDA events;
+   then samples the SM clock and power draw.
+4. Serve: bench.py's MXU-scale row for each of PNA, GIN, SAGE, SchNet and
+   EGNN (hidden 256, 3 conv layers, a graph head and a node head of
+   64-wide layers, ``benchmarks/model_bench.py:_arch``; random weights from
+   a seed, non-trivial BatchNorm statistics where the stack has any)
+   served by ``InferenceServer`` to 320 molecule-sized graphs (80-90
+   atoms, 12 edges per atom) from four threads, once per aggregation mode.
+   Launch counters are zeroed just before each run and read just after;
+   every kernel of that family's and mode's path must have launched as
+   often as its forwards need. Every response is held against a CPU copy
+   of the model (the plain versions) run on the graphs of its batch,
+   packed into the same bucket. One full batch of each run is broken down
+   on the device.
 5. Prints one JSON line per kernel case, the card's name and power limit,
    the ``{"kernels": [...]}`` summary, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -54,6 +60,7 @@ from hydragnn_tpu_torch.ops import (
     launch_counts,
     reset_launch_counts,
 )
+from hydragnn_tpu_torch.ops.fused_mp import egnn_tolerance
 from hydragnn_tpu_torch.ops.segment_kernels import atomic_tolerance
 from hydragnn_tpu_torch.serve import (
     InferenceServer,
@@ -73,24 +80,55 @@ SOURCE = {
     "segment_sum": "hydragnn_tpu_torch/csrc/segment.cu",
     "segment_moments": "hydragnn_tpu_torch/csrc/segment.cu",
     "fused_gather_moments": "hydragnn_tpu_torch/csrc/fused_mp.cu",
+    "fused_gather_sum": "hydragnn_tpu_torch/csrc/fused_mp.cu",
+    "fused_gather_mean": "hydragnn_tpu_torch/csrc/fused_mp.cu",
+    "fused_gather_weighted_sum": "hydragnn_tpu_torch/csrc/fused_mp.cu",
+    "fused_egnn_edge_phase": "hydragnn_tpu_torch/csrc/fused_egnn.cu",
 }
+# the pallas_call each kernel replaces (K3-K7 are the edge ops of one)
 REPLACES = {
     "segment_sum": "hydragnn_tpu/ops/pallas_segment.py:125",
     "segment_moments": "hydragnn_tpu/ops/pallas_segment.py:200",
     "fused_gather_moments": "hydragnn_tpu/ops/fused_mp.py:322",
+    "fused_gather_sum": "hydragnn_tpu/ops/fused_mp.py:322",
+    "fused_gather_mean": "hydragnn_tpu/ops/fused_mp.py:322",
+    "fused_gather_weighted_sum": "hydragnn_tpu/ops/fused_mp.py:322",
+    "fused_egnn_edge_phase": "hydragnn_tpu/ops/fused_mp.py:322",
 }
-# the kernels each aggregation mode's forward runs
-MODE_KERNELS = {
-    "fused": ("fused_gather_moments", "segment_sum"),
-    "segment": ("segment_moments", "segment_sum"),
+FAMILIES = ("PNA", "GIN", "SAGE", "SchNet", "EGNN")
+# each family's conv aggregation in "fused" mode (in "segment" mode PNA's
+# is K2 and the others' the gather in PyTorch, then K1)
+FUSED_KERNEL = {
+    "PNA": "fused_gather_moments",
+    "GIN": "fused_gather_sum",
+    "SAGE": "fused_gather_mean",
+    "SchNet": "fused_gather_weighted_sum",
+    "EGNN": "fused_egnn_edge_phase",
 }
+SCHNET_FILTERS = 50  # model_bench's num_gaussians: SchNet's filters (swapped)
 SERVE_RTOL, SERVE_ATOL = 1e-3, 1e-4  # card (atomics, cuBLAS) against CPU
 
 
-def arch(size):
+def launches_per_forward(cfg, mode):
+    """``{kernel: launches}`` one forward of ``cfg``'s stack needs."""
+    family, layers = cfg["model_type"], cfg["num_conv_layers"]
+    counts = {name: 0 for name in KERNELS}
+    counts["segment_sum"] = 1  # global_mean_pool
+    if mode == "fused":
+        counts[FUSED_KERNEL[family]] = layers
+    elif family == "PNA":
+        counts["segment_moments"] = layers
+    else:
+        counts["segment_sum"] += layers
+    if family == "SchNet" and cfg["equivariance"]:
+        counts["segment_sum"] += layers - 1  # the coordinate update's sum
+    return counts
+
+
+def arch(size, model_type="PNA"):
     shared = max(32, size["hidden"] // 4)
     return {
-        "model_type": "PNA",
+        "model_type": model_type,
         "input_dim": 1,
         "hidden_dim": size["hidden"],
         "output_dim": [1, 1],
@@ -109,6 +147,10 @@ def arch(size):
         "num_nodes": size["nodes"],
         "edge_dim": None,
         "pna_deg": [0, 0, 16, 32, 64, 32],
+        "equivariance": model_type == "EGNN",
+        "num_gaussians": SCHNET_FILTERS,
+        "num_filters": size["hidden"],
+        "radius": 5.0,
     }
 
 
@@ -177,8 +219,8 @@ def phase_card():
 def phase_build():
     t0 = time.perf_counter()
     out_dir = _build.build_all()
-    for name in ("segment", "fused_mp"):
-        _build.load(name)
+    for src in _build.SOURCES:
+        _build.load(src[: -len(".cu")])
     took = time.perf_counter() - t0
     print(f"build: {took:.2f} s into {out_dir.relative_to(_build.REPO_ROOT)}", flush=True)
     for line in _build.build_log().splitlines():
@@ -306,6 +348,82 @@ def phase_kernels(plan, graphs, hidden, device):
                 bound=bound(nbytes, e_pad * d * (4 + with_ze) + e_pad),
             ))
 
+    # K4 / K5: GIN's sum and SAGE's mean at the receivers, D = 1 (layer 0)
+    # and hidden; the node table's padding rows are zero, as after a layer
+    ids_bytes = 2 * e_pad * 4 + e_pad  # senders, receivers, bool mask
+    fgs, fgs_plain = KERNELS["fused_gather_sum"]
+    fgmean, fgmean_plain = KERNELS["fused_gather_mean"]
+    for d in (1, hidden):
+        x = rand(n_pad, d, node_mask)
+        tol = atomic_tolerance(fgs_plain(x.abs(), snd, rcv, n_pad, edge_mask))
+        got, ref = fgs(x, snd, rcv, n_pad, edge_mask), fgs_plain(x, snd, rcv, n_pad, edge_mask)
+        cases.append(dict(
+            kernel="fused_gather_sum", case=f"gather+sum x [{n_pad},{d}] E {e_pad}",
+            main=d == hidden, err=float((got - ref).abs().max()), tol=tol,
+            ms=time_ms(lambda: fgs(x, snd, rcv, n_pad, edge_mask), device),
+            plain_ms=time_ms(lambda: fgs_plain(x, snd, rcv, n_pad, edge_mask), device),
+            library_ms=None,
+            bound=bound(2 * n_pad * d * 4 + ids_bytes, 2 * e_pad * d),
+        ))
+        got = fgmean(x, snd, rcv, n_pad, edge_mask)
+        ref = fgmean_plain(x, snd, rcv, n_pad, edge_mask)
+        cases.append(dict(
+            kernel="fused_gather_mean", case=f"gather+mean x [{n_pad},{d}] E {e_pad}",
+            main=d == hidden, err=max(float((g - r).abs().max()) for g, r in zip(got, ref)),
+            tol=tol,
+            ms=time_ms(lambda: fgmean(x, snd, rcv, n_pad, edge_mask), device),
+            plain_ms=time_ms(lambda: fgmean_plain(x, snd, rcv, n_pad, edge_mask), device),
+            library_ms=None,
+            bound=bound(n_pad * (2 * d + 1) * 4 + ids_bytes, e_pad * (2 * d + 1) + n_pad * d),
+        ))
+
+    # K6: SchNet's filtered sum, D = its 50 filters, w masked
+    fgw, fgw_plain = KERNELS["fused_gather_weighted_sum"]
+    d = SCHNET_FILTERS
+    h, w = rand(n_pad, d), rand(e_pad, d, edge_mask[:, None])
+    got, ref = fgw(h, w, snd, rcv, n_pad), fgw_plain(h, w, snd, rcv, n_pad)
+    cases.append(dict(
+        kernel="fused_gather_weighted_sum", case=f"gather*w+sum h [{n_pad},{d}] w [{e_pad},{d}]",
+        main=True, err=float((got - ref).abs().max()),
+        tol=atomic_tolerance(fgw_plain(h.abs(), w.abs(), snd, rcv, n_pad)),
+        ms=time_ms(lambda: fgw(h, w, snd, rcv, n_pad), device),
+        plain_ms=time_ms(lambda: fgw_plain(h, w, snd, rcv, n_pad), device),
+        library_ms=None,
+        bound=bound((2 * n_pad * d + e_pad * d) * 4 + 2 * e_pad * 4, 2 * e_pad * d),
+    ))
+
+    # K7: EGNN's edge phase at the senders, with the coordinate parameters
+    # (layers 0-1 of the main path) and without (the last layer); the
+    # batch's own positions, so padded edges have zero length
+    egnn, egnn_plain = KERNELS["fused_egnn_edge_phase"]
+    lim = 1.0 / np.sqrt(hidden)
+
+    def unif(*shape):
+        return torch.from_numpy(rng.uniform(-lim, lim, shape).astype(np.float32)).to(device)
+
+    y_snd, y_rcv, pos = rand(n_pad, hidden), rand(n_pad, hidden), batch.pos
+    for coord in (True, False):
+        params = [unif(hidden), unif(hidden, hidden), unif(hidden)]
+        if coord:
+            params += [unif(hidden, hidden), unif(hidden), unif(hidden, 1)]
+        args = (y_snd, y_rcv, pos, params, snd, rcv, n_pad, edge_mask)
+        got, ref = egnn(*args), egnn_plain(*args)
+        g = 2 if coord else 1  # H x H products per edge
+        nbytes = (
+            (2 * n_pad * hidden + 3 * n_pad + sum(p.numel() for p in params)) * 4
+            + ids_bytes + n_pad * (hidden + (4 if coord else 1)) * 4
+        )
+        ops = e_pad * (2 * hidden * hidden * g + 9 * hidden + 4 * hidden * (g - 1) + 34)
+        cases.append(dict(
+            kernel="fused_egnn_edge_phase",
+            case=f"edge MLP H {hidden} E {e_pad}" + (" +coord" if coord else ""),
+            main=coord, err=float((got - ref).abs().max()), tol=egnn_tolerance(ref),
+            ms=time_ms(lambda: egnn(*args), device),
+            plain_ms=time_ms(lambda: egnn_plain(*args), device),
+            library_ms=None,
+            bound=bound(nbytes, ops),
+        ))
+
     if device.type == "cuda":
         torch.cuda.synchronize()
         print(f"clocks after the kernel timings: {clocks_line()}", flush=True)
@@ -321,8 +439,8 @@ def phase_kernels(plan, graphs, hidden, device):
         "built, launched and within tolerance" if device.type == "cuda"
         else "not built (cpu rehearsal: plain version against itself)"
     )
-    print(f"kernels: K1 segment_sum, K2 segment_moments, K3 fused_gather_moments "
-          f"{status} ({len(cases)} cases)", flush=True)
+    print(f"kernels: K1-K7 ({', '.join(KERNELS)}) {status} ({len(cases)} cases)",
+          flush=True)
     return cases
 
 
@@ -342,10 +460,11 @@ def set_bn_stats(model, seed):
 
 
 def phase_serve(mode, cfg, plan, graphs, device, card, threads=4):
+    family = cfg["model_type"]
     model = create_model_config(cfg, device=device, aggregation=mode, seed=0)
     set_bn_stats(model, seed=0)
     registry = ModelRegistry()
-    registry.register("pna", model)
+    registry.register(family.lower(), model)
     submitted = [0.0] * len(graphs)
     futures = [None] * len(graphs)
 
@@ -376,10 +495,9 @@ def phase_serve(mode, cfg, plan, graphs, device, card, threads=4):
 
     forwards = snap["batches_total"] + plan.num_buckets  # + one warmup per bucket
     if device.type == "cuda":
-        expected = {"segment_sum": forwards, "segment_moments": 0, "fused_gather_moments": 0}
-        expected[MODE_KERNELS[mode][0]] = forwards * cfg["num_conv_layers"]
+        expected = {k: forwards * v for k, v in launches_per_forward(cfg, mode).items()}
         if counts != expected:
-            raise AssertionError(f"{mode}: launches {counts}, expected {expected}")
+            raise AssertionError(f"{family} {mode}: launches {counts}, expected {expected}")
 
     # every response against a CPU copy of the model (the plain versions)
     # run on the graphs of its batch, packed into the same bucket; a graph's
@@ -399,13 +517,14 @@ def phase_serve(mode, cfg, plan, graphs, device, card, threads=4):
                     want = outs[ihead][g] if kind == "graph" else outs[ihead][off : off + n]
                     got = answers[i][ihead]
                     if got.shape != want.shape or not np.isfinite(got).all():
-                        raise AssertionError(f"{mode}: bad response {i} head {ihead}")
+                        raise AssertionError(f"{family} {mode}: bad response {i} head {ihead}")
                     np.testing.assert_allclose(got, want, rtol=SERVE_RTOL, atol=SERVE_ATOL)
                     worst = max(worst, float(np.abs(got - want).max()))
 
     lat = np.asarray([f.done_at - s for f, s in zip(futures, submitted)]) * 1e3
     wall = max(f.done_at for f in futures) - t0
     result = {
+        "family": family,
         "mode": mode,
         "requests": len(graphs),
         "batches": snap["batches_total"],
@@ -420,11 +539,11 @@ def phase_serve(mode, cfg, plan, graphs, device, card, threads=4):
     }
     emit({"serve": result})
     if device.type == "cuda":
-        breakdown(mode, model, plan, graphs, device, card)
+        breakdown(family, mode, model, plan, graphs, device, card)
     return result
 
 
-def breakdown(mode, model, plan, graphs, device, card, iters=5):
+def breakdown(family, mode, model, plan, graphs, device, card, iters=5):
     """Where one full batch's time goes: host packing, the forward with
     its transfers (host clock, synchronised), and the device's share of it
     by kernel (``torch.profiler``; "not measured" where it shows none)."""
@@ -461,6 +580,7 @@ def breakdown(mode, model, plan, graphs, device, card, iters=5):
     device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     emit({"breakdown": {
+        "family": family,
         "mode": mode,
         "batch": f"n_pad {batch.num_nodes} e_pad {batch.num_edges} g_pad {batch.num_graphs}",
         "pack_ms_host": float(np.median(packs)),
@@ -489,7 +609,6 @@ def main(argv=None):
         phase_build()
         device, size = torch.device("cuda"), FULL
 
-    cfg = arch(size)
     graphs = make_graphs(size["graphs"], size["nodes"], size["degree"], seed=0)
     plan = plan_from_samples(graphs, max_batch_graphs=size["batch"], num_buckets=3)
     for lay in plan.layouts:
@@ -497,10 +616,12 @@ def main(argv=None):
 
     cases = phase_kernels(plan, graphs, size["hidden"], device)
     launches = {name: 0 for name in KERNELS}
-    for mode in ("fused", "segment"):
-        served = phase_serve(mode, cfg, plan, graphs, device, card)
-        for name in MODE_KERNELS[mode]:
-            launches[name] += served["launches"][name]
+    for family in FAMILIES:
+        cfg = arch(size, family)
+        for mode in ("fused", "segment"):
+            served = phase_serve(mode, cfg, plan, graphs, device, card)
+            for name, n in served["launches"].items():
+                launches[name] += n
 
     summary = []
     for name in KERNELS:

@@ -9,9 +9,18 @@ from hydragnn_tpu_torch.models.common import (
     global_mean_pool,
 )
 from hydragnn_tpu_torch.models.create import MODEL_TYPES, create_model_config
+from hydragnn_tpu_torch.models.egnn import E_GCL, EGCLStack
+from hydragnn_tpu_torch.models.gin import GINConv, GINStack
 from hydragnn_tpu_torch.models.pna import PNAConv, PNAStack, pna_degree_averages
+from hydragnn_tpu_torch.models.sage import SAGEConv, SAGEStack
+from hydragnn_tpu_torch.models.schnet import CFConv, SCFStack
 
 __all__ = [
+    "CFConv",
+    "EGCLStack",
+    "E_GCL",
+    "GINConv",
+    "GINStack",
     "HydraBase",
     "MLP",
     "MLPNode",
@@ -19,6 +28,9 @@ __all__ = [
     "MaskedBatchNorm",
     "PNAConv",
     "PNAStack",
+    "SAGEConv",
+    "SAGEStack",
+    "SCFStack",
     "SplitLinear",
     "TorchLinear",
     "create_model_config",

@@ -1,6 +1,7 @@
 """HydraBase — the multi-headed GNN stack (port of ``models/base.py``).
 
-Conv stack -> masked BatchNorm + activation per layer -> masked global
+Conv stack -> masked BatchNorm (unless the stack has none:
+``conv_use_batchnorm``) + activation per layer -> masked global
 mean pool -> shared graph MLP + per-head MLPs (graph heads); node heads as
 a shared MLP (``mlp``), a per-node MLP bank (``mlp_per_node``) or conv
 stacks (``conv``). Submodules carry the JAX package's parameter names
@@ -24,6 +25,7 @@ from hydragnn_tpu_torch.graph.batch import GraphBatch
 from hydragnn_tpu_torch.models.common import (
     MLP,
     MaskedBatchNorm,
+    check_aggregation,
     get_activation,
     global_mean_pool,
     uniform_,
@@ -77,7 +79,16 @@ class MLPNode(nn.Module):
 
 class HydraBase(nn.Module):
     """Multi-headed stack; subclasses provide ``make_conv``, returning a
-    module with ``forward(x, pos, batch) -> (x, pos)``."""
+    module with ``forward(x, pos, batch) -> (x, pos)``.
+
+    ``aggregation`` picks the kernels of the convs' message passing:
+    ``"fused"`` (the JAX package's ``HYDRAGNN_AGG=fused``) or
+    ``"segment"`` (its ``HYDRAGNN_PALLAS=1``)."""
+
+    # SchNet and EGNN keep the activation but have no encoder BatchNorm
+    # (the JAX package's ``conv_use_batchnorm``, ``base.py:244-251``); node
+    # conv heads keep theirs in every stack
+    conv_use_batchnorm = True
 
     def __init__(
         self,
@@ -92,6 +103,8 @@ class HydraBase(nn.Module):
         edge_dim: Optional[int] = None,
         initial_bias: Optional[float] = None,
         loss_weights: Tuple[float, ...] = (),
+        equivariance: bool = False,
+        aggregation: str = "fused",
     ):
         super().__init__()
         self.input_dim = input_dim
@@ -106,6 +119,8 @@ class HydraBase(nn.Module):
         self.edge_dim = edge_dim
         self.initial_bias = initial_bias
         self.loss_weights = tuple(loss_weights)
+        self.equivariance = bool(equivariance)
+        self.aggregation = check_aggregation(aggregation)
 
     @property
     def use_edge_attr(self) -> bool:
@@ -115,7 +130,11 @@ class HydraBase(nn.Module):
     def num_heads(self) -> int:
         return len(self.output_dim)
 
-    def make_conv(self, in_dim: int, out_dim: int, device=None) -> nn.Module:
+    def make_conv(self, in_dim: int, out_dim: int, last_layer: bool = False,
+                  device=None) -> nn.Module:
+        """The conv of one layer; ``last_layer`` is True for the encoder's
+        last conv and each conv head's output conv (EGNN and SchNet turn
+        their coordinate update off there)."""
         raise NotImplementedError
 
     def build(self, device=None):
@@ -123,8 +142,12 @@ class HydraBase(nn.Module):
         its own conv settings are in place)."""
         for i in range(self.num_conv_layers):
             in_dim = self.input_dim if i == 0 else self.hidden_dim
-            self.add_module(f"encoder_conv_{i}", self.make_conv(in_dim, self.hidden_dim, device))
-            self.add_module(f"encoder_bn_{i}", MaskedBatchNorm(self.hidden_dim, device=device))
+            last = i == self.num_conv_layers - 1
+            self.add_module(f"encoder_conv_{i}", self.make_conv(
+                in_dim, self.hidden_dim, last_layer=last, device=device,
+            ))
+            if self.conv_use_batchnorm:
+                self.add_module(f"encoder_bn_{i}", MaskedBatchNorm(self.hidden_dim, device=device))
         heads = self.config_heads
         if "graph" in heads:
             g = heads["graph"]
@@ -160,7 +183,9 @@ class HydraBase(nn.Module):
                     dims = list(hidden_dims[: node_cfg["num_headlayers"]]) + [head_dim]
                     prev = self.hidden_dim
                     for il, od in enumerate(dims):
-                        self.add_module(f"head_{ihead}_conv_{il}", self.make_conv(prev, od, device))
+                        self.add_module(f"head_{ihead}_conv_{il}", self.make_conv(
+                            prev, od, last_layer=il == len(dims) - 1, device=device,
+                        ))
                         self.add_module(f"head_{ihead}_bn_{il}", MaskedBatchNorm(od, device=device))
                         prev = od
                     self.node_conv_layers[ihead] = len(dims)
@@ -192,7 +217,8 @@ class HydraBase(nn.Module):
         x, pos = batch.x, batch.pos
         for i in range(self.num_conv_layers):
             c, pos = getattr(self, f"encoder_conv_{i}")(x, pos, batch)
-            c = getattr(self, f"encoder_bn_{i}")(c, batch.node_mask)
+            if self.conv_use_batchnorm:
+                c = getattr(self, f"encoder_bn_{i}")(c, batch.node_mask)
             x = self.act(c)
 
         x_graph = global_mean_pool(x, batch.node_graph, batch.n_node, batch.num_graphs)

@@ -15,9 +15,11 @@ JAX package's names, so a variable's path is its module's path:
 | ``.../kernel_{k}``, ``.../bias_{k}`` of an MLPNode bank | the same, as they are |
 | ``.../scale`` of a BatchNorm | ``.../weight`` |
 | ``batch_stats/.../mean``, ``.../var`` | ``.../running_mean``, ``.../running_var`` |
+| raw ``self.param`` arrays: GIN's ``eps`` (0-d), SchNet's ``lin1``, ``lin2``, ``bias2``, ``coord_mlp_1`` of SchNet and EGNN | the same name, as they are (the port keeps them in the ``x @ W`` layout) |
 
-Every parameter and buffer of the port must be filled, and every variable
-must land, or the load raises.
+A stack without encoder BatchNorm (SchNet, EGNN) has no ``encoder_bn_*``
+on either side. Every parameter and persistent buffer of the port must be
+filled, and every variable must land, or the load raises.
 """
 
 from typing import Dict, Iterator, Tuple
@@ -74,8 +76,9 @@ def _target(model: nn.Module, path: Tuple[str, ...], collection: str):
 
 def load_flax_variables(model: nn.Module, variables: Dict) -> nn.Module:
     """Fill ``model`` from the JAX package's variables (numpy leaves)."""
+    persistent = model.state_dict().keys()
     targets = dict(model.named_parameters())
-    targets.update(model.named_buffers())
+    targets.update((k, b) for k, b in model.named_buffers() if k in persistent)
     filled = set()
     for collection in ("params", "batch_stats"):
         for path, value in _flatten(variables.get(collection, {})):
@@ -83,7 +86,9 @@ def load_flax_variables(model: nn.Module, variables: Dict) -> nn.Module:
             if name not in targets:
                 raise ValueError(f"{collection}/{'/'.join(path)}: the model has no {name}")
             tensor = targets[name]
-            src = torch.from_numpy(np.ascontiguousarray(value.T if transpose else value))
+            value = value.T if transpose else value
+            # ascontiguousarray makes a 0-d leaf (GIN's eps) 1-d: reshape back
+            src = torch.from_numpy(np.ascontiguousarray(value).reshape(value.shape))
             if tuple(src.shape) != tuple(tensor.shape):
                 raise ValueError(
                     f"{collection}/{'/'.join(path)}: shape {tuple(src.shape)} "

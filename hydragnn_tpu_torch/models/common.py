@@ -4,7 +4,12 @@ Parameters follow PyTorch's layout (``nn.Linear`` weight ``[out, in]``);
 ``models/bridge.py`` carries weights across from the JAX package's
 ``[in, out]`` kernels. Every module draws its initial values in
 ``reset_parameters(generator)`` from an explicit ``torch.Generator``:
-torch-style ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))`` for weights and biases.
+torch-style ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))`` for weights and biases,
+and the JAX package's own inits for its raw ``x @ W`` matrices
+(:func:`glorot_uniform_`, :func:`small_uniform_`).
+
+The aggregation helpers at the end are the convs' message passing in the
+two modes (:data:`AGGREGATIONS`).
 """
 
 import math
@@ -14,7 +19,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from hydragnn_tpu_torch.graph.segment import segment_sum
+from hydragnn_tpu_torch.graph.segment import segment_count, segment_sum
+from hydragnn_tpu_torch.ops import (
+    fused_gather_mean,
+    fused_gather_sum,
+    fused_gather_weighted_sum,
+)
 
 
 def uniform_(param: torch.Tensor, bound: float, generator: torch.Generator):
@@ -160,3 +170,81 @@ def global_mean_pool(x, node_graph, n_node, num_graphs: int):
     total = segment_sum(x, node_graph, num_graphs)
     denom = torch.clamp(n_node.to(x.dtype), min=1.0)[:, None]
     return total / denom
+
+
+def safe_sqrt(x):
+    """sqrt that gives 0 (never NaN, nor a NaN gradient) at 0: the
+    double-where of the JAX package's ``_safe_sqrt``."""
+    nonzero = x > 0
+    return torch.where(nonzero, torch.sqrt(torch.where(nonzero, x, 1.0)), 0.0)
+
+
+def glorot_uniform_(param: torch.Tensor, generator: torch.Generator):
+    """flax's ``xavier_uniform`` for a raw ``[fan_in, fan_out]`` matrix:
+    ``U(-b, b)``, ``b = sqrt(6 / (fan_in + fan_out))``."""
+    fan_in, fan_out = param.shape
+    uniform_(param, math.sqrt(6.0 / (fan_in + fan_out)), generator)
+
+
+def small_uniform_(param: torch.Tensor, generator: torch.Generator):
+    """The JAX package's init of the coordinate MLP's last layer,
+    ``variance_scaling(1e-6 / 3, "fan_avg", "uniform")`` (xavier at gain
+    1e-3 in the reference): ``U(-b, b)``, ``b = sqrt(1e-6 / fan_avg)``."""
+    fan_in, fan_out = param.shape
+    uniform_(param, math.sqrt(1e-6 / ((fan_in + fan_out) / 2.0)), generator)
+
+
+# ---------------------------------------------------------------------------
+# aggregation: the fused kernels (K4-K6) or the gather in PyTorch + K1
+# ---------------------------------------------------------------------------
+
+# "fused" is the JAX package's HYDRAGNN_AGG=fused (the fused message-passing
+# kernels), "segment" its HYDRAGNN_PALLAS=1 (a gather, then the segment
+# kernels)
+AGGREGATIONS = ("fused", "segment")
+
+
+def check_aggregation(aggregation: str) -> str:
+    if aggregation not in AGGREGATIONS:
+        raise ValueError(
+            f"aggregation must be one of {AGGREGATIONS}, got {aggregation!r}"
+        )
+    return aggregation
+
+
+def _masked_gather(x, senders, edge_mask):
+    return torch.where(edge_mask[:, None], x[senders.to(torch.int64)], 0.0)
+
+
+def gather_segment_sum(x, senders, receivers, num_segments, edge_mask,
+                       aggregation: str):
+    """``segment_sum(where(mask, x[senders], 0), receivers)`` — GIN's
+    aggregation: K4 (``"fused"``) or the gather in PyTorch and K1
+    (``"segment"``). Returns ``[S, D]`` in ``x.dtype``."""
+    if check_aggregation(aggregation) == "fused":
+        return fused_gather_sum(x, senders, receivers, num_segments, edge_mask).to(x.dtype)
+    return segment_sum(_masked_gather(x, senders, edge_mask), receivers, num_segments)
+
+
+def gather_segment_mean(x, senders, receivers, num_segments, edge_mask,
+                        aggregation: str):
+    """Masked mean over real incoming edges — SAGE's aggregation: sum and
+    real in-degree from one reduction (K5), or the gather in PyTorch, K1
+    for the sum and a count of the mask. Returns ``[S, D]`` in
+    ``x.dtype``."""
+    if check_aggregation(aggregation) == "fused":
+        mean, _deg = fused_gather_mean(x, senders, receivers, num_segments, edge_mask)
+        return mean.to(x.dtype)
+    total = segment_sum(_masked_gather(x, senders, edge_mask), receivers, num_segments)
+    deg = segment_count(receivers, num_segments, weights=edge_mask)
+    return total / torch.clamp(deg, min=1.0)[:, None]
+
+
+def gather_weighted_segment_sum(h, w, senders, receivers, num_segments,
+                                aggregation: str):
+    """``segment_sum(h[senders] * w, receivers)`` — SchNet's CFConv
+    aggregation (``w`` comes masked): K6 or the gather in PyTorch and
+    K1."""
+    if check_aggregation(aggregation) == "fused":
+        return fused_gather_weighted_sum(h, w, senders, receivers, num_segments).to(h.dtype)
+    return segment_sum(h[senders.to(torch.int64)] * w, receivers, num_segments)

@@ -2,8 +2,9 @@
 
 ``create_model_config(config["NeuralNetwork"]["Architecture"], ...)``
 builds the stack named by ``model_type`` on the device, with its weights
-drawn from a seeded ``torch.Generator``, in eval mode. Only PNA is ported;
-the other eight stacks raise ``NotImplementedError`` (see ``ROADMAP.md``).
+drawn from a seeded ``torch.Generator``, in eval mode. PNA, GIN, SAGE,
+SchNet and EGNN are ported; GAT, MFC, CGCNN and DimeNet raise
+``NotImplementedError`` (see ``ROADMAP.md``).
 """
 
 from typing import Optional
@@ -12,7 +13,11 @@ import torch
 
 from hydragnn_tpu_torch.models.base import HydraBase
 from hydragnn_tpu_torch.models.bridge import init_params
+from hydragnn_tpu_torch.models.egnn import EGCLStack
+from hydragnn_tpu_torch.models.gin import GINStack
 from hydragnn_tpu_torch.models.pna import PNAStack
+from hydragnn_tpu_torch.models.sage import SAGEStack
+from hydragnn_tpu_torch.models.schnet import SCFStack
 from hydragnn_tpu_torch.utils.device import resolve_device
 
 MODEL_TYPES = ["GIN", "PNA", "GAT", "MFC", "CGCNN", "SAGE", "SchNet", "DimeNet", "EGNN"]
@@ -40,14 +45,15 @@ def create_model_config(config: dict, device=None, aggregation: str = "fused",
     JAX package's ``update_config``).
 
     ``device``: ``None`` means the card (raises without one); ``"cpu"``
-    runs the plain PyTorch versions. ``aggregation``: ``"fused"`` (K3) or
-    ``"segment"`` (K2) for PNA's statistics pass. ``seed`` seeds the
+    runs the plain PyTorch versions. ``aggregation``: ``"fused"`` (the
+    fused message-passing kernels, K3-K7) or ``"segment"`` (a gather in
+    PyTorch, then K2 for PNA and K1 for the rest). ``seed`` seeds the
     ``torch.Generator`` the weights are drawn from."""
     dev = resolve_device(device)
     model_type = config["model_type"]
     if model_type not in MODEL_TYPES:
         raise ValueError(f"Unknown model_type: {model_type}")
-    if model_type != "PNA":
+    if model_type not in ("PNA", "GIN", "SAGE", "SchNet", "EGNN"):
         raise _not_ported(f"the {model_type} stack")
     if config.get("partition_axis") is not None:
         raise _not_ported("partition_axis (graph-partition parallelism)")
@@ -55,11 +61,8 @@ def create_model_config(config: dict, device=None, aggregation: str = "fused",
         raise _not_ported("the uncertainty-weighted NLL loss")
     if config.get("conv_checkpointing", False):
         raise _not_ported("conv_checkpointing")
-    if config.get("pna_deg") is None:
-        raise ValueError("PNA requires degree input.")
     output_dim = tuple(config["output_dim"])
-    model = PNAStack(
-        deg=tuple(config["pna_deg"]),
+    common = dict(
         aggregation=aggregation,
         device=dev,
         input_dim=config["input_dim"],
@@ -73,6 +76,30 @@ def create_model_config(config: dict, device=None, aggregation: str = "fused",
         edge_dim=config.get("edge_dim"),
         initial_bias=config.get("initial_bias"),
         loss_weights=_normalize_weights(config.get("task_weights"), len(output_dim)),
+        equivariance=config.get("equivariance", False),
     )
+    if model_type == "PNA":
+        if config.get("pna_deg") is None:
+            raise ValueError("PNA requires degree input.")
+        model = PNAStack(deg=tuple(config["pna_deg"]), **common)
+    elif model_type == "GIN":
+        model = GINStack(**common)
+    elif model_type == "SAGE":
+        model = SAGEStack(**common)
+    elif model_type == "SchNet":
+        for key in ("num_gaussians", "num_filters", "radius"):
+            if config.get(key) is None:
+                raise ValueError(f"SchNet requires {key} input.")
+        # the JAX package passes the two widths swapped, for parity with
+        # the reference (its models/create.py:118-127): the stack gets
+        # num_filters = config["num_gaussians"] and the other way round
+        model = SCFStack(
+            num_filters=config["num_gaussians"],
+            num_gaussians=config["num_filters"],
+            radius=config["radius"],
+            **common,
+        )
+    else:
+        model = EGCLStack(**{**common, "edge_dim": config.get("edge_dim") or 0})
     init_params(model, torch.Generator().manual_seed(int(seed)))
     return model.eval()

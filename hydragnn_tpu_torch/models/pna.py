@@ -27,10 +27,8 @@ from torch import nn
 
 from hydragnn_tpu_torch.graph.segment import segment_minmax_fused
 from hydragnn_tpu_torch.models.base import HydraBase
-from hydragnn_tpu_torch.models.common import SplitLinear, TorchLinear
+from hydragnn_tpu_torch.models.common import SplitLinear, TorchLinear, check_aggregation
 from hydragnn_tpu_torch.ops import fused_gather_moments, segment_moments
-
-AGGREGATIONS = ("fused", "segment")
 
 
 def pna_degree_averages(deg_histogram) -> Tuple[float, float]:
@@ -46,10 +44,7 @@ class PNAConv(nn.Module):
                  avg_deg_lin: float, edge_dim: Optional[int] = None,
                  aggregation: str = "fused", device=None):
         super().__init__()
-        if aggregation not in AGGREGATIONS:
-            raise ValueError(
-                f"aggregation must be one of {AGGREGATIONS}, got {aggregation!r}"
-            )
+        check_aggregation(aggregation)
         self.in_dim = in_dim
         self.out_dim = out_dim
         self.avg_deg_log = avg_deg_log
@@ -115,18 +110,13 @@ class PNAConv(nn.Module):
 class PNAStack(HydraBase):
     """PNA with the degree histogram ``deg`` and an aggregation mode."""
 
-    def __init__(self, deg, aggregation: str = "fused", device=None, **common):
+    def __init__(self, deg, device=None, **common):
         super().__init__(**common)
-        if aggregation not in AGGREGATIONS:
-            raise ValueError(
-                f"aggregation must be one of {AGGREGATIONS}, got {aggregation!r}"
-            )
         self.deg = tuple(deg)
-        self.aggregation = aggregation
         self.avg_deg_log, self.avg_deg_lin = pna_degree_averages(self.deg)
         self.build(device=device)
 
-    def make_conv(self, in_dim, out_dim, device=None):
+    def make_conv(self, in_dim, out_dim, last_layer=False, device=None):
         return PNAConv(
             in_dim,
             out_dim,

@@ -1,0 +1,137 @@
+"""SchNet stack (SCF) — continuous-filter convolutions (port of
+``models/schnet.py``).
+
+Per conv: the edge length (from ``pos`` by a safe square root, or the norm
+of ``edge_attr``) expanded in Gaussians, a filter network ``filter_1(ssp(
+filter_0(rbf)))`` times a cosine cutoff and the edge mask, ``h = x @
+lin1``, the filtered sum ``sum_{j->i} h_j * w_ij`` (K6,
+``fused_gather_weighted_sum``, in ``"fused"`` mode; the gather in PyTorch
+and K1 in ``"segment"`` mode), then ``aggr @ lin2 + bias2``. No encoder
+BatchNorm. With ``equivariance``, every conv but the last moves the
+positions by the mean of a bounded coordinate update, summed at the
+senders through K1.
+
+``lin1``, ``lin2``, ``bias2`` and ``coord_mlp_1`` are raw parameters in
+the JAX package's ``x @ W`` layout (so the bridge copies them as they are);
+the filter and coordinate layers are ``TorchLinear``s.
+"""
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from hydragnn_tpu_torch.graph.segment import segment_sum
+from hydragnn_tpu_torch.models.base import HydraBase
+from hydragnn_tpu_torch.models.common import (
+    TorchLinear,
+    check_aggregation,
+    gather_weighted_segment_sum,
+    glorot_uniform_,
+    safe_sqrt,
+    small_uniform_,
+)
+
+
+def shifted_softplus(x):
+    return F.softplus(x) - math.log(2.0)
+
+
+class GaussianSmearing(nn.Module):
+    def __init__(self, start: float, stop: float, num_gaussians: int):
+        super().__init__()
+        offset = torch.linspace(start, stop, num_gaussians, dtype=torch.float32)
+        self.register_buffer("offset", offset, persistent=False)
+        self.coeff = -0.5 / float(offset[1] - offset[0]) ** 2
+
+    def forward(self, dist):
+        d = dist[..., None] - self.offset
+        # coeff < 0, so the clamp changes nothing but bounds the exp
+        return torch.exp(torch.clamp(self.coeff * d * d, max=0.0))
+
+
+class CFConv(nn.Module):
+    def __init__(self, in_dim: int, out_dim: int, num_filters: int,
+                 num_gaussians: int, cutoff: float, equivariant: bool,
+                 use_edge_attr: bool, aggregation: str = "fused", device=None):
+        super().__init__()
+        self.aggregation = check_aggregation(aggregation)
+        self.cutoff = cutoff
+        self.equivariant = equivariant
+        self.use_edge_attr = use_edge_attr
+        self.smearing = GaussianSmearing(0.0, cutoff, num_gaussians).to(device)
+        self.filter_0 = TorchLinear(num_gaussians, num_filters, device=device)
+        self.filter_1 = TorchLinear(num_filters, num_filters, device=device)
+        self.lin1 = nn.Parameter(torch.empty(in_dim, num_filters, device=device))
+        if equivariant:
+            self.coord_mlp_0 = TorchLinear(num_filters, num_filters, device=device)
+            self.coord_mlp_1 = nn.Parameter(torch.empty(num_filters, 1, device=device))
+        self.lin2 = nn.Parameter(torch.empty(num_filters, out_dim, device=device))
+        self.bias2 = nn.Parameter(torch.empty(out_dim, device=device))
+
+    def reset_parameters(self, generator: torch.Generator):
+        glorot_uniform_(self.lin1, generator)
+        glorot_uniform_(self.lin2, generator)
+        if self.equivariant:
+            small_uniform_(self.coord_mlp_1, generator)
+        with torch.no_grad():
+            self.bias2.zero_()
+
+    def forward(self, x, pos, batch):
+        n = x.shape[0]
+        send = batch.senders.to(torch.int64)
+        recv = batch.receivers.to(torch.int64)
+        emask = batch.edge_mask[:, None]
+        if self.use_edge_attr:
+            edge_weight = torch.linalg.vector_norm(batch.edge_attr, dim=-1)
+        else:
+            diff = pos[send] - pos[recv]
+            edge_weight = safe_sqrt((diff * diff).sum(-1))
+        rbf = self.smearing(edge_weight)
+
+        w = self.filter_1(shifted_softplus(self.filter_0(rbf)))
+        cos_cut = 0.5 * (torch.cos(edge_weight * math.pi / self.cutoff) + 1.0)
+        w = torch.where(emask, w * cos_cut[:, None], 0.0)
+        h = x @ self.lin1
+
+        if self.equivariant:
+            diff = pos[send] - pos[recv]
+            coord_diff = diff / (safe_sqrt((diff * diff).sum(-1, keepdim=True)) + 1.0)
+            cw = F.relu(self.coord_mlp_0(w)) @ self.coord_mlp_1
+            trans = torch.where(emask, torch.clamp(coord_diff * cw, -100.0, 100.0), 0.0)
+            # the update and the real out-degree from one pass at the senders
+            both = segment_sum(
+                torch.cat([trans, batch.edge_mask.to(trans.dtype)[:, None]], -1),
+                batch.senders, n,
+            )
+            pos = pos + both[:, :3] / torch.clamp(both[:, 3], min=1.0)[:, None]
+
+        aggr = gather_weighted_segment_sum(
+            h, w, batch.senders, batch.receivers, n, self.aggregation
+        )
+        return aggr @ self.lin2 + self.bias2, pos
+
+
+class SCFStack(HydraBase):
+    conv_use_batchnorm = False  # Identity feature layers, as the reference
+
+    def __init__(self, num_filters: int, num_gaussians: int, radius: float,
+                 device=None, **common):
+        super().__init__(**common)
+        self.num_filters = num_filters
+        self.num_gaussians = num_gaussians
+        self.radius = radius
+        self.build(device=device)
+
+    def make_conv(self, in_dim, out_dim, last_layer=False, device=None):
+        return CFConv(
+            in_dim, out_dim,
+            num_filters=self.num_filters,
+            num_gaussians=self.num_gaussians,
+            cutoff=self.radius,
+            equivariant=self.equivariance and not last_layer,
+            use_edge_attr=self.use_edge_attr,
+            aggregation=self.aggregation,
+            device=device,
+        )

@@ -5,11 +5,23 @@
 | K1 | ``segment_kernels.segment_sum`` | ``pallas_segment.segment_sum_onehot`` | ``csrc/segment.cu`` |
 | K2 | ``segment_kernels.segment_moments`` | ``pallas_segment.segment_moments`` | ``csrc/segment.cu`` |
 | K3 | ``fused_mp.fused_gather_moments`` | ``fused_mp.fused_message_reduce`` op ``moments`` | ``csrc/fused_mp.cu`` |
+| K4 | ``fused_mp.fused_gather_sum`` | ``fused_mp.fused_message_reduce`` op ``copy`` | ``csrc/fused_mp.cu`` |
+| K5 | ``fused_mp.fused_gather_mean`` | ``fused_mp.fused_message_reduce`` op ``copy_count`` | ``csrc/fused_mp.cu`` |
+| K6 | ``fused_mp.fused_gather_weighted_sum`` | ``fused_mp.fused_message_reduce`` op ``mul`` | ``csrc/fused_mp.cu`` |
+| K7 | ``fused_mp.fused_egnn_edge_phase`` | ``fused_mp.fused_message_reduce`` op ``egnn`` | ``csrc/fused_egnn.cu`` |
 """
 
 from hydragnn_tpu_torch.ops.fused_mp import (
+    fused_egnn_edge_phase,
+    fused_egnn_edge_phase_plain,
+    fused_gather_mean,
+    fused_gather_mean_plain,
     fused_gather_moments,
     fused_gather_moments_plain,
+    fused_gather_sum,
+    fused_gather_sum_plain,
+    fused_gather_weighted_sum,
+    fused_gather_weighted_sum_plain,
 )
 from hydragnn_tpu_torch.ops.segment_kernels import (
     segment_moments,
@@ -18,11 +30,15 @@ from hydragnn_tpu_torch.ops.segment_kernels import (
     segment_sum_plain,
 )
 
-# kernel wrapper -> its plain version, in kernel-id order (K1, K2, K3)
+# kernel wrapper -> its plain version, in kernel-id order (K1 ... K7)
 KERNELS = {
     "segment_sum": (segment_sum, segment_sum_plain),
     "segment_moments": (segment_moments, segment_moments_plain),
     "fused_gather_moments": (fused_gather_moments, fused_gather_moments_plain),
+    "fused_gather_sum": (fused_gather_sum, fused_gather_sum_plain),
+    "fused_gather_mean": (fused_gather_mean, fused_gather_mean_plain),
+    "fused_gather_weighted_sum": (fused_gather_weighted_sum, fused_gather_weighted_sum_plain),
+    "fused_egnn_edge_phase": (fused_egnn_edge_phase, fused_egnn_edge_phase_plain),
 }
 
 
@@ -38,8 +54,16 @@ def reset_launch_counts():
 
 __all__ = [
     "KERNELS",
+    "fused_egnn_edge_phase",
+    "fused_egnn_edge_phase_plain",
+    "fused_gather_mean",
+    "fused_gather_mean_plain",
     "fused_gather_moments",
     "fused_gather_moments_plain",
+    "fused_gather_sum",
+    "fused_gather_sum_plain",
+    "fused_gather_weighted_sum",
+    "fused_gather_weighted_sum_plain",
     "launch_counts",
     "reset_launch_counts",
     "segment_moments",

@@ -24,7 +24,7 @@ from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[2]
-SOURCES = ("segment.cu", "fused_mp.cu")
+SOURCES = ("segment.cu", "fused_mp.cu", "fused_egnn.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,6 +47,18 @@ _SIGNATURES = {
         "hg_fused_gather_moments_f32": [
             _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P,
         ],
+        # table, mask or w, senders, receivers, out, E, N, D, S, stream
+        "hg_fused_gather_sum_f32": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P],
+        "hg_fused_gather_count_f32": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P],
+        "hg_fused_gather_mul_f32": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P],
+    },
+    "fused_egnn": {
+        # H -> dynamic shared memory bytes, or -1
+        "hg_fused_egnn_smem_bytes": [_I32],
+        # y_snd, y_rcv, pos, ze, mask, senders, receivers, w_rad, W2, b2,
+        # Wc0, bc0, Wc1 (the last three nullable together), out,
+        # E, N, H, S, stream
+        "hg_fused_egnn_f32": [_P] * 14 + [_I64, _I32, _I32, _I32, _P],
     },
 }
 

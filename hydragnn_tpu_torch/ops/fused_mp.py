@@ -1,20 +1,29 @@
 """Fused message passing: gather -> edge op -> segment reduce in one kernel.
 
-Port of ``hydragnn_tpu/ops/fused_mp.py``. Of its edge ops, the PNA path
-runs only ``moments``, through :func:`fused_gather_moments` (K3), a
-wrapper over the CUDA kernel in ``csrc/fused_mp.cu`` with a plain PyTorch
-version beside it. The other ops (``copy``, ``copy_count``, ``mul``,
-``egnn``) belong to stacks the port does not have yet and raise
-``NotImplementedError``; ``ROADMAP.md`` queues them.
+Port of ``hydragnn_tpu/ops/fused_mp.py``. Every edge op of its one Pallas
+kernel (``fused_message_reduce``) becomes a CUDA kernel here, each behind
+a wrapper with a plain PyTorch version beside it:
 
-The wrapper takes the plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises. The kernel is forward-only.
-Launches are counted in ``fused_gather_moments.launches``. Kernel against
-plain on the card: relative tolerance ``1e-5 * (max |partial sum| + 1)``
-(atomics add in a run-dependent order).
+| Id | Wrapper | Edge op | Stack | Source |
+|----|---------|---------|-------|--------|
+| K3 | :func:`fused_gather_moments` | ``moments`` | PNA | ``csrc/fused_mp.cu`` |
+| K4 | :func:`fused_gather_sum` | ``copy`` | GIN | ``csrc/fused_mp.cu`` |
+| K5 | :func:`fused_gather_mean` | ``copy_count`` | SAGE | ``csrc/fused_mp.cu`` |
+| K6 | :func:`fused_gather_weighted_sum` | ``mul`` | SchNet | ``csrc/fused_mp.cu`` |
+| K7 | :func:`fused_egnn_edge_phase` | ``egnn`` | EGNN | ``csrc/fused_egnn.cu`` |
+
+The padding contract is the TPU kernel's: a gather id outside the node
+table reads a zero row, a reduce id outside ``[0, S)`` adds nothing, and a
+count sums the edge mask.
+
+A wrapper takes the plain version only for tensors on the CPU; for CUDA
+tensors it launches the kernel or raises. The kernels are forward-only.
+Launches are counted in ``<wrapper>.launches``. Kernel against plain on
+the card: relative tolerance ``1e-5 * (max |partial sum| + 1)`` (atomics
+add in a run-dependent order); K7 :func:`egnn_tolerance`.
 """
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -27,27 +36,62 @@ from hydragnn_tpu_torch.ops.segment_kernels import (
 )
 
 
-def _check_moments_inputs(yj, senders, receivers, num_segments, edge_mask, ze):
-    if yj.ndim != 2 or yj.dtype != torch.float32:
-        raise TypeError(
-            f"yj must be 2-D float32, got {yj.dtype} shape {tuple(yj.shape)}"
-        )
+def _check_ids(senders, receivers, device):
     e = senders.shape[0]
     for name, ids in (("senders", senders), ("receivers", receivers)):
         if ids.dtype != torch.int32 or ids.ndim != 1 or ids.shape[0] != e:
             raise TypeError(f"{name} must be 1-D int32 of length {e}")
+        if ids.device != device:
+            raise ValueError("all inputs must be on one device")
+    return e
+
+
+def _check_f32(name, t, shape, device):
+    if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape):
+        raise TypeError(
+            f"{name} must be float32 {list(shape)}, got {t.dtype} shape {tuple(t.shape)}"
+        )
+    if t.device != device:
+        raise ValueError("all inputs must be on one device")
+
+
+def _check_mask(edge_mask, e, device):
     if edge_mask.ndim != 1 or edge_mask.shape[0] != e:
         raise ValueError(f"edge_mask must be 1-D of length {e}")
-    if ze is not None and (ze.dtype != torch.float32 or tuple(ze.shape) != (e, yj.shape[1])):
-        raise TypeError(
-            f"ze must be float32 [{e}, {yj.shape[1]}], got {ze.dtype} "
-            f"shape {tuple(ze.shape)}"
-        )
-    for t in (senders, receivers, edge_mask) + (() if ze is None else (ze,)):
-        if t.device != yj.device:
-            raise ValueError("all inputs must be on one device")
+    if edge_mask.device != device:
+        raise ValueError("all inputs must be on one device")
+
+
+def _check_segments(num_segments):
     if not 0 <= int(num_segments) < 2**31:
         raise ValueError(f"num_segments out of range: {num_segments}")
+
+
+def _check_node_table(name, x):
+    if x.ndim != 2 or x.dtype != torch.float32:
+        raise TypeError(
+            f"{name} must be 2-D float32, got {x.dtype} shape {tuple(x.shape)}"
+        )
+
+
+def _gather_rows(table, ids):
+    """``table[ids]`` with a zero row where an id is outside the table."""
+    valid = (ids >= 0) & (ids < table.shape[0])
+    return torch.where(valid[:, None], table[torch.where(valid, ids, 0)], 0.0)
+
+
+# ---------------------------------------------------------------------------
+# K3: op "moments" (PNA)
+# ---------------------------------------------------------------------------
+
+
+def _check_moments_inputs(yj, senders, receivers, num_segments, edge_mask, ze):
+    _check_node_table("yj", yj)
+    e = _check_ids(senders, receivers, yj.device)
+    _check_mask(edge_mask, e, yj.device)
+    if ze is not None:
+        _check_f32("ze", ze, (e, yj.shape[1]), yj.device)
+    _check_segments(num_segments)
 
 
 def fused_gather_moments_plain(yj, senders, receivers, num_segments,
@@ -56,9 +100,8 @@ def fused_gather_moments_plain(yj, senders, receivers, num_segments,
     reads a zero row for out-of-range senders, then one ``index_add_`` of
     the packed ``[z, z^2, mask]`` columns at the receivers."""
     _check_moments_inputs(yj, senders, receivers, num_segments, edge_mask, ze)
-    n, d = yj.shape
-    valid = (senders >= 0) & (senders < n)
-    xs = torch.where(valid[:, None], yj[torch.where(valid, senders, 0)], 0.0)
+    d = yj.shape[1]
+    xs = _gather_rows(yj, senders)
     if ze is not None:
         xs = xs + ze
     mask = edge_mask.to(torch.float32)[:, None]
@@ -104,19 +147,253 @@ def fused_gather_moments(yj: torch.Tensor, senders: torch.Tensor,
 fused_gather_moments.launches = 0
 
 
-def _not_ported(name: str, stack: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} ({stack}) is not ported yet: see ROADMAP.md, queue 2"
+# ---------------------------------------------------------------------------
+# K4 op "copy" (GIN), K5 op "copy_count" (SAGE), K6 op "mul" (SchNet):
+# one templated kernel, one C entry each
+# ---------------------------------------------------------------------------
+
+
+def _check_gather_inputs(x, senders, receivers, num_segments, edge_mask):
+    _check_node_table("x", x)
+    e = _check_ids(senders, receivers, x.device)
+    _check_mask(edge_mask, e, x.device)
+    _check_segments(num_segments)
+
+
+def _launch_gather_reduce(entry, name, x, ef, senders, receivers,
+                          num_segments, width):
+    """Launch one of the gather -> op -> reduce entries of ``fused_mp.cu``
+    into a zeroed ``[S, width]`` output."""
+    check_cuda_launch(name, x, ef, senders, receivers)
+    n, d = x.shape
+    out = torch.zeros((num_segments, width), dtype=torch.float32, device=x.device)
+    rc = getattr(_build.load("fused_mp"), entry)(
+        x.data_ptr(), ef.data_ptr(), senders.data_ptr(), receivers.data_ptr(),
+        out.data_ptr(), senders.shape[0], n, d, num_segments, _stream(x.device),
+    )
+    _build.check(rc, name)
+    return out
+
+
+def fused_gather_sum_plain(x, senders, receivers, num_segments, edge_mask):
+    """Plain PyTorch version of :func:`fused_gather_sum`."""
+    _check_gather_inputs(x, senders, receivers, num_segments, edge_mask)
+    msg = _gather_rows(x, senders) * edge_mask.to(torch.float32)[:, None]
+    return segment_sum_plain(msg, receivers, num_segments)
+
+
+def fused_gather_sum(x: torch.Tensor, senders: torch.Tensor,
+                     receivers: torch.Tensor, num_segments: int,
+                     edge_mask: torch.Tensor) -> torch.Tensor:
+    """K4, GIN's aggregation: ``out[r] += x[s] * mask`` over the edges
+    ``s -> r``. Returns ``[S, D]`` float32."""
+    _check_gather_inputs(x, senders, receivers, num_segments, edge_mask)
+    if _on_cpu(x):
+        return fused_gather_sum_plain(x, senders, receivers, num_segments, edge_mask)
+    out = _launch_gather_reduce(
+        "hg_fused_gather_sum_f32", "fused_gather_sum", x,
+        edge_mask.to(torch.float32), senders, receivers, num_segments, x.shape[1],
+    )
+    fused_gather_sum.launches += 1
+    return out
+
+
+fused_gather_sum.launches = 0
+
+
+def _mean_from_packed(out, d):
+    deg = out[:, d:]
+    return out[:, :d] / torch.clamp(deg, min=1.0), deg
+
+
+def fused_gather_mean_plain(x, senders, receivers, num_segments, edge_mask):
+    """Plain PyTorch version of :func:`fused_gather_mean`: one
+    ``index_add_`` of the packed ``[x[s] * mask, mask]`` columns."""
+    _check_gather_inputs(x, senders, receivers, num_segments, edge_mask)
+    mask = edge_mask.to(torch.float32)[:, None]
+    packed = torch.cat([_gather_rows(x, senders) * mask, mask], dim=1)
+    return _mean_from_packed(segment_sum_plain(packed, receivers, num_segments), x.shape[1])
+
+
+def fused_gather_mean(x: torch.Tensor, senders: torch.Tensor,
+                      receivers: torch.Tensor, num_segments: int,
+                      edge_mask: torch.Tensor):
+    """K5, SAGE's aggregation: the masked sum at the receivers and the real
+    in-degree (the sum of the mask) from one reduction; the mean is
+    ``sum / max(deg, 1)``. Returns ``(mean [S, D], deg [S, 1])`` float32."""
+    _check_gather_inputs(x, senders, receivers, num_segments, edge_mask)
+    if _on_cpu(x):
+        return fused_gather_mean_plain(x, senders, receivers, num_segments, edge_mask)
+    d = x.shape[1]
+    out = _launch_gather_reduce(
+        "hg_fused_gather_count_f32", "fused_gather_mean", x,
+        edge_mask.to(torch.float32), senders, receivers, num_segments, d + 1,
+    )
+    fused_gather_mean.launches += 1
+    return _mean_from_packed(out, d)
+
+
+fused_gather_mean.launches = 0
+
+
+def _check_weighted_inputs(h, w, senders, receivers, num_segments):
+    _check_node_table("h", h)
+    e = _check_ids(senders, receivers, h.device)
+    _check_f32("w", w, (e, h.shape[1]), h.device)
+    _check_segments(num_segments)
+
+
+def fused_gather_weighted_sum_plain(h, w, senders, receivers, num_segments):
+    """Plain PyTorch version of :func:`fused_gather_weighted_sum`."""
+    _check_weighted_inputs(h, w, senders, receivers, num_segments)
+    return segment_sum_plain(_gather_rows(h, senders) * w, receivers, num_segments)
+
+
+def fused_gather_weighted_sum(h: torch.Tensor, w: torch.Tensor,
+                              senders: torch.Tensor, receivers: torch.Tensor,
+                              num_segments: int) -> torch.Tensor:
+    """K6, SchNet's CFConv aggregation: ``out[r] += h[s] * w[e]`` over the
+    edges ``e = s -> r``; ``w [E, F]`` comes masked. Returns ``[S, F]``
+    float32."""
+    _check_weighted_inputs(h, w, senders, receivers, num_segments)
+    if _on_cpu(h):
+        return fused_gather_weighted_sum_plain(h, w, senders, receivers, num_segments)
+    out = _launch_gather_reduce(
+        "hg_fused_gather_mul_f32", "fused_gather_weighted_sum", h, w,
+        senders, receivers, num_segments, h.shape[1],
+    )
+    fused_gather_weighted_sum.launches += 1
+    return out
+
+
+fused_gather_weighted_sum.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7: op "egnn" (EGNN's edge phase)
+# ---------------------------------------------------------------------------
+
+
+def _check_egnn_inputs(y_snd, y_rcv, pos, edge_params, senders, receivers,
+                       num_segments, edge_mask, ze):
+    _check_node_table("y_snd", y_snd)
+    n, h = y_snd.shape
+    dev = y_snd.device
+    _check_f32("y_rcv", y_rcv, (n, h), dev)
+    _check_f32("pos", pos, (n, 3), dev)
+    e = _check_ids(senders, receivers, dev)
+    _check_mask(edge_mask, e, dev)
+    if ze is not None:
+        _check_f32("ze", ze, (e, h), dev)
+    _check_segments(num_segments)
+    if len(edge_params) not in (3, 6):
+        raise ValueError(
+            "edge_params must be (w_rad, W2, b2) or (w_rad, W2, b2, Wc0, bc0, Wc1), "
+            f"got {len(edge_params)} tensors"
         )
+    names = ("w_rad", "W2", "b2", "Wc0", "bc0", "Wc1")
+    shapes = ((h,), (h, h), (h,), (h, h), (h,), (h, 1))
+    for name, p, shape in zip(names, edge_params, shapes):
+        _check_f32(name, p, shape, dev)
 
-    fn.__name__ = name
-    return fn
+
+def fused_egnn_edge_phase_plain(y_snd, y_rcv, pos, edge_params, senders,
+                                receivers, num_segments, edge_mask, ze=None):
+    """Plain PyTorch version of :func:`fused_egnn_edge_phase`: the edge
+    MLP on gathered rows, then one ``index_add_`` of the packed messages at
+    the senders."""
+    _check_egnn_inputs(y_snd, y_rcv, pos, edge_params, senders, receivers,
+                       num_segments, edge_mask, ze)
+    w_rad, w2, b2 = edge_params[:3]
+    mask = edge_mask.to(torch.float32)[:, None]
+    coord_diff = _gather_rows(pos, senders) - _gather_rows(pos, receivers)
+    radial = (coord_diff * coord_diff).sum(-1, keepdim=True)
+    # the double-where safe sqrt: a zero distance gives 0, never NaN
+    nonzero = radial > 0
+    norm = torch.where(nonzero, torch.sqrt(torch.where(nonzero, radial, 1.0)), 0.0)
+    coord_diff = coord_diff / (norm + 1.0)
+    pre = _gather_rows(y_snd, senders) + _gather_rows(y_rcv, receivers) + radial * w_rad
+    if ze is not None:
+        pre = pre + ze
+    e = torch.relu(torch.relu(pre) @ w2 + b2) * mask
+    if len(edge_params) == 6:
+        wc0, bc0, wc1 = edge_params[3:]
+        cw = torch.tanh(torch.relu(e @ wc0 + bc0) @ wc1)
+        trans = torch.clamp(coord_diff * cw, -100.0, 100.0) * mask
+        msg = torch.cat([e, trans, mask], dim=1)
+    else:
+        msg = torch.cat([e, mask], dim=1)
+    return segment_sum_plain(msg, senders, num_segments)
 
 
-fused_gather_sum = _not_ported("fused_gather_sum", "edge op 'copy', GIN")
-fused_gather_mean = _not_ported("fused_gather_mean", "edge op 'copy_count', SAGE")
-fused_gather_weighted_sum = _not_ported(
-    "fused_gather_weighted_sum", "edge op 'mul', SchNet"
-)
-fused_egnn_edge_phase = _not_ported("fused_egnn_edge_phase", "edge op 'egnn', EGNN")
+def egnn_tolerance(out: torch.Tensor) -> float:
+    """K7 against its plain version: ``1e-4 * (max |out| + 1)``. Each
+    message element ends two H-term dot products (256 terms on the main
+    path) that the kernel sums in another order than PyTorch's matmul, and
+    the atomics add in a run-dependent order; the message columns are
+    ``relu(...) * mask >= 0``, so no partial sum exceeds the final one."""
+    return 1e-4 * (float(out.abs().max()) + 1.0) if out.numel() else 1e-4
+
+
+def egnn_shared_bytes(hidden: int) -> int:
+    """Dynamic shared memory K7 needs at width ``hidden`` (its C entry's
+    own count), or -1 when the kernel has no instantiation that wide."""
+    return int(_build.load("fused_egnn").hg_fused_egnn_smem_bytes(int(hidden)))
+
+
+EGNN_MAX_SHARED_BYTES = 232448  # what one block may use on sm_90
+
+
+def fused_egnn_edge_phase(y_snd: torch.Tensor, y_rcv: torch.Tensor,
+                          pos: torch.Tensor, edge_params: Sequence[torch.Tensor],
+                          senders: torch.Tensor, receivers: torch.Tensor,
+                          num_segments: int, edge_mask: torch.Tensor,
+                          ze: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K7, EGNN's whole edge phase fused with its sender-side reduction.
+
+    Per edge ``s -> r``: ``coord_diff = pos[s] - pos[r]``, ``radial =
+    |coord_diff|^2``, ``e = relu(relu(y_snd[s] + y_rcv[r] + radial * w_rad
+    (+ ze)) @ W2 + b2) * mask``; with the coordinate parameters present,
+    ``cw = tanh(relu(e @ Wc0 + bc0) @ Wc1)`` and ``trans = clip(coord_diff
+    / (sqrt(radial) + 1) * cw, -100, 100) * mask``. ``[e, (trans,) mask]``
+    is summed at the **senders**.
+
+    ``edge_params`` is ``(w_rad [H], W2 [H, H], b2 [H])`` or that plus
+    ``(Wc0 [H, H], bc0 [H], Wc1 [H, 1])``, matrices in the ``x @ W``
+    layout. Returns ``[S, H + 4]`` (coordinate parameters present) or
+    ``[S, H + 1]`` float32."""
+    _check_egnn_inputs(y_snd, y_rcv, pos, edge_params, senders, receivers,
+                       num_segments, edge_mask, ze)
+    if _on_cpu(y_snd):
+        return fused_egnn_edge_phase_plain(
+            y_snd, y_rcv, pos, edge_params, senders, receivers, num_segments,
+            edge_mask, ze,
+        )
+    n, h = y_snd.shape
+    mask = edge_mask.to(torch.float32)
+    params = list(edge_params) + [None] * (6 - len(edge_params))
+    tensors = [y_snd, y_rcv, pos, senders, receivers, mask]
+    tensors += [t for t in [ze] + params if t is not None]
+    check_cuda_launch("fused_egnn_edge_phase", *tensors)
+    smem = egnn_shared_bytes(h)
+    if not 0 < smem <= EGNN_MAX_SHARED_BYTES:
+        raise ValueError(
+            f"fused_egnn_edge_phase: hidden width {h} does not fit the kernel "
+            f"({smem} bytes of shared memory; widths up to 256 are built)"
+        )
+    coord = len(edge_params) == 6
+    out = torch.zeros(
+        (num_segments, h + (4 if coord else 1)), dtype=torch.float32, device=y_snd.device
+    )
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rc = _build.load("fused_egnn").hg_fused_egnn_f32(
+        y_snd.data_ptr(), y_rcv.data_ptr(), pos.data_ptr(), ptr(ze), mask.data_ptr(),
+        senders.data_ptr(), receivers.data_ptr(), *[ptr(p) for p in params],
+        out.data_ptr(), senders.shape[0], n, h, num_segments, _stream(y_snd.device),
+    )
+    _build.check(rc, "fused_egnn_edge_phase")
+    fused_egnn_edge_phase.launches += 1
+    return out
+
+
+fused_egnn_edge_phase.launches = 0

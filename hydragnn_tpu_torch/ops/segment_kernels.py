@@ -53,13 +53,15 @@ def check_segment_inputs(data: torch.Tensor, segment_ids: torch.Tensor,
 
 
 def check_cuda_launch(name: str, *tensors: torch.Tensor):
-    """The conditions every CUDA launch needs beyond the shape contract."""
+    """The conditions every CUDA launch needs beyond the shape contract.
+    A parameter that requires grad is taken where autograd records nothing
+    (under ``torch.inference_mode()`` or ``torch.no_grad()``)."""
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: expected CUDA tensors, got one on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-        if t.requires_grad:
+        if t.requires_grad and torch.is_grad_enabled():
             raise NotImplementedError(
                 f"{name}: the CUDA kernel is forward-only; its backward rule "
                 "is queued in ROADMAP.md (run under torch.inference_mode())"

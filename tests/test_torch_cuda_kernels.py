@@ -1,4 +1,4 @@
-"""K1-K3 on the card: each CUDA kernel against its plain PyTorch version on
+"""K1-K7 on the card: each CUDA kernel against its plain PyTorch version on
 the same CUDA tensors, at small and main-path-like shapes; and a host batch
 carried to the card in one copy.
 
@@ -8,7 +8,9 @@ On the H100 run ``python -m pytest tests/test_torch_cuda_kernels.py -q
 suite's ``conftest.py`` imports the JAX package, which a machine set up
 for the port alone does not have. Tolerance: ``atomic_tolerance`` —
 ``1e-5 * (max |partial sum| + 1)``, since atomics add in a run-dependent
-order; ``z`` of K3 is elementwise and held to the same bound.
+order; ``z`` of K3 is elementwise and held to the same bound. K7 (two
+H-term products per edge, summed in another order than PyTorch's matmul):
+``egnn_tolerance``, ``1e-4 * (max |out| + 1)``.
 """
 
 import numpy as np
@@ -17,13 +19,22 @@ import torch
 
 from hydragnn_tpu_torch.graph import collate_graphs, pad_sizes_for
 from hydragnn_tpu_torch.ops import (
+    fused_egnn_edge_phase,
+    fused_egnn_edge_phase_plain,
+    fused_gather_mean,
+    fused_gather_mean_plain,
     fused_gather_moments,
     fused_gather_moments_plain,
+    fused_gather_sum,
+    fused_gather_sum_plain,
+    fused_gather_weighted_sum,
+    fused_gather_weighted_sum_plain,
     segment_moments,
     segment_moments_plain,
     segment_sum,
     segment_sum_plain,
 )
+from hydragnn_tpu_torch.ops.fused_mp import egnn_tolerance
 from hydragnn_tpu_torch.ops.segment_kernels import atomic_tolerance
 
 pytestmark = pytest.mark.cuda
@@ -101,17 +112,90 @@ def pytest_fused_gather_moments_kernel_matches_plain(card, e, d, s, with_ze):
         assert float((g - r).abs().max()) <= tol
 
 
+def _gather_case(card, e, d, s, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((s, d)).astype(np.float32)).to(card)
+    snd = torch.from_numpy(_ids(e, s, seed + 1)).to(card)
+    rcv = torch.from_numpy(_ids(e, s, seed + 2)).to(card)
+    mask = torch.from_numpy(np.arange(e) < e - e // 10).to(card)
+    return rng, x, snd, rcv, mask
+
+
+@pytest.mark.parametrize("e,d,s", SHAPES + [(20000, 50, 1700)])
+def pytest_fused_gather_sum_mean_weighted_kernels_match_plain(card, e, d, s):
+    rng, x, snd, rcv, mask = _gather_case(card, e, d, s, e + d)
+    w = torch.from_numpy(rng.standard_normal((e, d)).astype(np.float32)).to(card) * mask[:, None]
+    # partial sums are bounded by the segment sums of |message|
+    tol_copy = atomic_tolerance(fused_gather_sum_plain(x.abs(), snd, rcv, s, mask))
+    tol_mul = atomic_tolerance(fused_gather_weighted_sum_plain(x.abs(), w.abs(), snd, rcv, s))
+    cases = [
+        (fused_gather_sum, fused_gather_sum_plain, (x, snd, rcv, s, mask), tol_copy),
+        (fused_gather_mean, fused_gather_mean_plain, (x, snd, rcv, s, mask), tol_copy),
+        (fused_gather_weighted_sum, fused_gather_weighted_sum_plain, (x, w, snd, rcv, s), tol_mul),
+    ]
+    for kernel, plain, args, tol in cases:
+        before = kernel.launches
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        ref = plain(*args)
+        got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+        for g, r in zip(got, ref):
+            assert g.shape == r.shape
+            assert float((g - r).abs().max()) <= tol, kernel.__name__
+
+
+@pytest.mark.parametrize("e,h,s", [(300, 8, 40), (1000, 33, 77), (20000, 256, 1700)])
+@pytest.mark.parametrize("coord", [False, True])
+def pytest_fused_egnn_edge_phase_kernel_matches_plain(card, e, h, s, coord):
+    rng, y_snd, snd, rcv, mask = _gather_case(card, e, h, s, e + h)
+    f32 = lambda *shape, scale=1.0: torch.from_numpy(  # noqa: E731
+        (rng.standard_normal(shape) * scale).astype(np.float32)).to(card)
+    y_rcv, pos = f32(s, h), f32(s, 3, scale=2.0)
+    pos[s - 1] = 0.0  # padded edges at the padding node have zero length
+    lim = 1.0 / np.sqrt(h)
+    params = [f32(h), f32(h, h, scale=lim), f32(h, scale=lim)]
+    if coord:
+        params += [f32(h, h, scale=lim), f32(h, scale=lim), f32(h, 1, scale=lim)]
+    for ze in (None, f32(e, h)):
+        got = fused_egnn_edge_phase(y_snd, y_rcv, pos, params, snd, rcv, s, mask, ze=ze)
+        torch.cuda.synchronize()
+        ref = fused_egnn_edge_phase_plain(y_snd, y_rcv, pos, params, snd, rcv, s, mask, ze=ze)
+        assert got.shape == ref.shape == (s, h + (4 if coord else 1))
+        assert torch.isfinite(got).all()
+        tol = egnn_tolerance(ref)
+        assert float((got - ref).abs().max()) <= tol
+
+
 def pytest_cuda_kernels_are_forward_only(card):
     data = torch.zeros((8, 4), device=card, requires_grad=True)
     ids = torch.zeros(8, dtype=torch.int32, device=card)
+    mask = ids > 0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         segment_sum(data, ids, 2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         segment_moments(data, ids, 2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_gather_moments(data, ids, ids, 2, ids > 0)
+        fused_gather_moments(data, ids, ids, 2, mask)
+    for fn in (fused_gather_sum, fused_gather_mean):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            fn(data, ids, ids, 2, mask)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fused_gather_weighted_sum(data, torch.zeros((8, 4), device=card), ids, ids, 2)
+    params = [torch.zeros(4, device=card), torch.zeros((4, 4), device=card),
+              torch.zeros(4, device=card)]
+    pos = torch.zeros((8, 3), device=card)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fused_egnn_edge_phase(data, data, pos, params, ids, ids, 2, mask)
+    with torch.inference_mode():  # parameters that require grad, where none is recorded
+        fused_egnn_edge_phase(data, data, pos, params, ids, ids, 2, mask)
     with pytest.raises(ValueError, match="contiguous"):
         segment_sum(torch.zeros((4, 8), device=card).t(), ids, 2)
+    with pytest.raises(ValueError, match="does not fit"):
+        wide = torch.zeros((8, 264), device=card)
+        fused_egnn_edge_phase(wide, wide, pos, [torch.zeros(264, device=card),
+                              torch.zeros((264, 264), device=card),
+                              torch.zeros(264, device=card)], ids, ids, 2, mask)
 
 
 def pytest_host_batch_reaches_the_card_in_one_buffer(card):

@@ -15,7 +15,6 @@ import jax.numpy as jnp
 from hydragnn_tpu.ops import fused_gather_moments as jax_fused_gather_moments
 
 from hydragnn_tpu_torch.ops import fused_gather_moments
-from hydragnn_tpu_torch.ops import fused_mp as port_fused_mp
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -68,12 +67,3 @@ def pytest_fused_gather_moments_rejects_bad_inputs():
         fused_gather_moments(yj, ids.long(), ids, 5, mask)
     with pytest.raises(TypeError):
         fused_gather_moments(yj, ids, ids, 5, mask, ze=torch.zeros((6, 3)))
-
-
-@pytest.mark.parametrize(
-    "name",
-    ["fused_gather_sum", "fused_gather_mean", "fused_gather_weighted_sum", "fused_egnn_edge_phase"],
-)
-def pytest_unported_edge_ops_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(port_fused_mp, name)()

@@ -148,7 +148,7 @@ def pytest_pna_modes_agree_and_seed_is_deterministic():
 
 def pytest_pna_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model_config({**arch(), "model_type": "GIN"}, device="cpu")
+        create_model_config({**arch(), "model_type": "GAT"}, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_model_config({**arch(), "partition_axis": "data"}, device="cpu")
     with pytest.raises(ValueError):
