@@ -17,9 +17,15 @@ Phases, in order; any failure raises and exits non-zero:
    the result against the plain PyTorch version on the same inputs
    (tolerance ``1e-5 * (max |partial sum| + 1)``: atomics add in a
    run-dependent order; K7 ``1e-4 * (max |out| + 1)``: its two 256-term
-   dot products per edge also sum in another order), and times kernel,
-   plain version and, for K1, one ``index_add_`` call, with CUDA events;
-   then samples the SM clock and power draw.
+   dot products per edge also sum in another order). K1 runs at two
+   shapes: the pool, and the segment mode's sum at the receivers. Times,
+   with CUDA events: ``ms``, the call (20 calls back to back, so the
+   host's work per call can set the pace), for the kernel, its plain
+   version and, for K1, one ``index_add_`` call; ``device_ms``, the
+   kernel alone (the same 20 calls queued behind ``torch.cuda._sleep``,
+   so the device runs them back to back; min, median and max of 5
+   repeats), for the kernel and ``index_add_``. Then samples the SM clock
+   and power draw.
 4. Serve: bench.py's MXU-scale row for each of PNA, GIN, SAGE, SchNet and
    EGNN (hidden 256, 3 conv layers, a graph head and a node head of
    64-wide layers, ``benchmarks/model_bench.py:_arch``; random weights from
@@ -33,12 +39,18 @@ Phases, in order; any failure raises and exits non-zero:
    packed into the same bucket. One full batch of each run is broken down
    on the device.
 5. Prints one JSON line per kernel case, the card's name and power limit,
-   the ``{"kernels": [...]}`` summary, and as the last line
+   the ``{"kernels": [...]}`` summary (per kernel, its main case's
+   ``ms`` and median ``device_ms`` beside the bound, the plain version's
+   ``plain_ms`` and the library call's ``library_ms`` and
+   ``library_device_ms``), and as the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 ``--cpu-rehearsal`` runs phases 3-4 at a tiny size on the CPU through the
 plain versions, to check the script's control flow without a card. It
 times nothing on a device and never prints the success line.
+``--kernels-only`` runs phases 1-3 on the card and stops there, without the
+success line: the quick way to time the kernels of two trees in one
+session (run it in each, in turns).
 """
 
 import argparse
@@ -67,6 +79,7 @@ from hydragnn_tpu_torch.serve import (
     ModelRegistry,
     plan_from_samples,
 )
+from hydragnn_tpu_torch.utils.timing import device_ms, time_ms
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -176,6 +189,15 @@ def make_graphs(num_graphs, nodes, degree, seed=0):
     return out
 
 
+def median(triple):
+    """The median of a ``device_ms`` ``[min, median, max]``, or ``None``."""
+    return None if triple is None else triple[1]
+
+
+def min_max(triple):
+    return None if triple is None else [triple[0], triple[2]]
+
+
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
@@ -231,22 +253,17 @@ def phase_build():
 # ---- phase 3 ----------------------------------------------------------------
 
 
-def time_ms(fn, device, iters=20, warmup=3):
-    """Mean ms per call: CUDA events around ``iters`` calls after warm-up.
-    ``None`` on the CPU rehearsal, which measures no device."""
-    for _ in range(warmup):
-        fn()
-    if device.type != "cuda":
-        return None
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def timings(fn, plain, library, device):
+    """Call and device times of a kernel's wrapper, its plain version's
+    call time, and the call and device times of one PyTorch library call
+    for the same function where there is one."""
+    return dict(
+        ms=time_ms(fn, device),
+        device_ms=device_ms(fn, device),
+        plain_ms=time_ms(plain, device),
+        library_ms=None if library is None else time_ms(library, device),
+        library_device_ms=None if library is None else device_ms(library, device),
+    )
 
 
 def bound(nbytes, ops):
@@ -289,25 +306,30 @@ def phase_kernels(plan, graphs, hidden, device):
     fgm, fgm_plain = KERNELS["fused_gather_moments"]
     cases = []
 
-    # K1: global_mean_pool's sum, [n_pad, hidden] by sorted graph ids
-    x = rand(n_pad, hidden, node_mask)
-    ids = batch.node_graph
-    got, ref = seg_sum(x, ids, g_pad), seg_sum_plain(x, ids, g_pad)
-    tol = atomic_tolerance(seg_sum_plain(x.abs(), ids, g_pad))
-    nbytes = (n_pad * hidden + n_pad + g_pad * hidden) * 4
-    cases.append(dict(
-        kernel="segment_sum", case=f"pool [{n_pad},{hidden}] -> [{g_pad},{hidden}]",
-        main=True, err=float((got - ref).abs().max()), tol=tol,
-        ms=time_ms(lambda: seg_sum(x, ids, g_pad), device),
-        plain_ms=time_ms(lambda: seg_sum_plain(x, ids, g_pad), device),
-        library_ms=time_ms(
-            lambda: torch.zeros((g_pad, hidden), device=device).index_add_(0, ids, x), device
-        ),
-        bound=bound(nbytes, n_pad * hidden),
-    ))
+    # K1: global_mean_pool's sum, [n_pad, hidden] by sorted graph ids; and
+    # the segment mode's sum at the receivers, [e_pad, hidden] edge-masked
+    # into n_pad rows (3 of every 4 K1 launches of a segment-mode forward)
+    rcv, snd = batch.receivers, batch.senders
+    for rows, ids, segs, mask, what in (
+        (n_pad, batch.node_graph, g_pad, node_mask, "pool"),
+        (e_pad, rcv, n_pad, edge_mask[:, None], "receivers"),
+    ):
+        x = rand(rows, hidden, mask)
+        got, ref = seg_sum(x, ids, segs), seg_sum_plain(x, ids, segs)
+        nbytes = (rows * hidden + rows + segs * hidden) * 4
+        cases.append(dict(
+            kernel="segment_sum", case=f"{what} [{rows},{hidden}] -> [{segs},{hidden}]",
+            main=what == "pool", err=float((got - ref).abs().max()),
+            tol=atomic_tolerance(seg_sum_plain(x.abs(), ids, segs)),
+            **timings(
+                lambda: seg_sum(x, ids, segs), lambda: seg_sum_plain(x, ids, segs),
+                lambda: torch.zeros((segs, hidden), device=device).index_add_(0, ids, x),
+                device,
+            ),
+            bound=bound(nbytes, rows * hidden),
+        ))
 
     # K2: the segment mode's moments of z at the receivers, D = 1 and hidden
-    rcv, snd = batch.receivers, batch.senders
     for d in (1, hidden):
         z = rand(e_pad, d, edge_mask[:, None])
         got, ref = seg_mom(z, rcv, n_pad), seg_mom_plain(z, rcv, n_pad)
@@ -317,9 +339,11 @@ def phase_kernels(plan, graphs, hidden, device):
             kernel="segment_moments", case=f"moments [{e_pad},{d}] -> [{n_pad},{d}]",
             main=d == hidden, err=max(float((g - r).abs().max()) for g, r in zip(got, ref)),
             tol=tol,
-            ms=time_ms(lambda: seg_mom(z, rcv, n_pad), device),
-            plain_ms=time_ms(lambda: seg_mom_plain(z, rcv, n_pad), device),
-            library_ms=None,
+            **timings(
+                lambda: seg_mom(z, rcv, n_pad),
+                lambda: seg_mom_plain(z, rcv, n_pad),
+                None, device,
+            ),
             bound=bound(nbytes, e_pad * (3 * d + 1)),
         ))
 
@@ -342,9 +366,11 @@ def phase_kernels(plan, graphs, hidden, device):
                 case=f"gather+moments yj [{n_pad},{d}] E {e_pad}" + (" +ze" if with_ze else ""),
                 main=d == hidden and not with_ze,
                 err=max(float((g - r).abs().max()) for g, r in zip(got, ref)), tol=tol,
-                ms=time_ms(lambda: fgm(yj, snd, rcv, n_pad, edge_mask, ze=ze), device),
-                plain_ms=time_ms(lambda: fgm_plain(yj, snd, rcv, n_pad, edge_mask, ze=ze), device),
-                library_ms=None,
+                **timings(
+                    lambda: fgm(yj, snd, rcv, n_pad, edge_mask, ze=ze),
+                    lambda: fgm_plain(yj, snd, rcv, n_pad, edge_mask, ze=ze),
+                    None, device,
+                ),
                 bound=bound(nbytes, e_pad * d * (4 + with_ze) + e_pad),
             ))
 
@@ -360,9 +386,11 @@ def phase_kernels(plan, graphs, hidden, device):
         cases.append(dict(
             kernel="fused_gather_sum", case=f"gather+sum x [{n_pad},{d}] E {e_pad}",
             main=d == hidden, err=float((got - ref).abs().max()), tol=tol,
-            ms=time_ms(lambda: fgs(x, snd, rcv, n_pad, edge_mask), device),
-            plain_ms=time_ms(lambda: fgs_plain(x, snd, rcv, n_pad, edge_mask), device),
-            library_ms=None,
+            **timings(
+                lambda: fgs(x, snd, rcv, n_pad, edge_mask),
+                lambda: fgs_plain(x, snd, rcv, n_pad, edge_mask),
+                None, device,
+            ),
             bound=bound(2 * n_pad * d * 4 + ids_bytes, 2 * e_pad * d),
         ))
         got = fgmean(x, snd, rcv, n_pad, edge_mask)
@@ -371,9 +399,11 @@ def phase_kernels(plan, graphs, hidden, device):
             kernel="fused_gather_mean", case=f"gather+mean x [{n_pad},{d}] E {e_pad}",
             main=d == hidden, err=max(float((g - r).abs().max()) for g, r in zip(got, ref)),
             tol=tol,
-            ms=time_ms(lambda: fgmean(x, snd, rcv, n_pad, edge_mask), device),
-            plain_ms=time_ms(lambda: fgmean_plain(x, snd, rcv, n_pad, edge_mask), device),
-            library_ms=None,
+            **timings(
+                lambda: fgmean(x, snd, rcv, n_pad, edge_mask),
+                lambda: fgmean_plain(x, snd, rcv, n_pad, edge_mask),
+                None, device,
+            ),
             bound=bound(n_pad * (2 * d + 1) * 4 + ids_bytes, e_pad * (2 * d + 1) + n_pad * d),
         ))
 
@@ -386,9 +416,11 @@ def phase_kernels(plan, graphs, hidden, device):
         kernel="fused_gather_weighted_sum", case=f"gather*w+sum h [{n_pad},{d}] w [{e_pad},{d}]",
         main=True, err=float((got - ref).abs().max()),
         tol=atomic_tolerance(fgw_plain(h.abs(), w.abs(), snd, rcv, n_pad)),
-        ms=time_ms(lambda: fgw(h, w, snd, rcv, n_pad), device),
-        plain_ms=time_ms(lambda: fgw_plain(h, w, snd, rcv, n_pad), device),
-        library_ms=None,
+        **timings(
+            lambda: fgw(h, w, snd, rcv, n_pad),
+            lambda: fgw_plain(h, w, snd, rcv, n_pad),
+            None, device,
+        ),
         bound=bound((2 * n_pad * d + e_pad * d) * 4 + 2 * e_pad * 4, 2 * e_pad * d),
     ))
 
@@ -418,9 +450,11 @@ def phase_kernels(plan, graphs, hidden, device):
             kernel="fused_egnn_edge_phase",
             case=f"edge MLP H {hidden} E {e_pad}" + (" +coord" if coord else ""),
             main=coord, err=float((got - ref).abs().max()), tol=egnn_tolerance(ref),
-            ms=time_ms(lambda: egnn(*args), device),
-            plain_ms=time_ms(lambda: egnn_plain(*args), device),
-            library_ms=None,
+            **timings(
+                lambda: egnn(*args),
+                lambda: egnn_plain(*args),
+                None, device,
+            ),
             bound=bound(nbytes, ops),
         ))
 
@@ -600,6 +634,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="tiny size on the CPU through the plain versions; no success line")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="phases 1-3 on the card (build, kernels); no serving, no success line")
     args = ap.parse_args(argv)
 
     if args.cpu_rehearsal:
@@ -615,6 +651,9 @@ def main(argv=None):
         print(f"bucket: n_pad {lay.n_pad} e_pad {lay.e_pad} g_pad {lay.g_pad}", flush=True)
 
     cases = phase_kernels(plan, graphs, size["hidden"], device)
+    if args.kernels_only:
+        print(f"kernels only: {card}; nothing served, no success line", flush=True)
+        return 0
     launches = {name: 0 for name in KERNELS}
     for family in FAMILIES:
         cfg = arch(size, family)
@@ -635,10 +674,13 @@ def main(argv=None):
             "launches": launches[name],
             "max_abs_err": max(c["err"] for c in mine),
             "ms": main_case["ms"],
+            "device_ms": median(main_case["device_ms"]),
+            "device_ms_min_max": min_max(main_case["device_ms"]),
             "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"],
+            "library_device_ms": median(main_case["library_device_ms"]),
         })
     if args.cpu_rehearsal:
         emit({"kernels": summary})

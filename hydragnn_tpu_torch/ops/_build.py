@@ -9,8 +9,10 @@ edited source builds anew and an unchanged one is loaded as it is. All
 sources compile at once, one ``nvcc`` process each.
 
 Pointers go to the C entries as ``ctypes.c_void_p`` (``tensor.data_ptr()``)
-and so does the stream (``torch.cuda.current_stream().cuda_stream``). Each
-entry returns ``cudaGetLastError()``; :func:`check` raises on non-zero.
+and so does the stream (the raw ``cudaStream_t`` of PyTorch's current
+stream). Each entry returns ``cudaGetLastError()``; :func:`check` raises on
+non-zero. A wrapper takes its C function from :func:`entry`, which looks it
+up once per process.
 """
 
 import ctypes
@@ -20,7 +22,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[2]
@@ -57,13 +59,14 @@ _SIGNATURES = {
         "hg_fused_egnn_smem_bytes": [_I32],
         # y_snd, y_rcv, pos, ze, mask, senders, receivers, w_rad, W2, b2,
         # Wc0, bc0, Wc1 (the last three nullable together), out,
-        # E, N, H, S, stream
-        "hg_fused_egnn_f32": [_P] * 14 + [_I64, _I32, _I32, _I32, _P],
+        # E, N, H, S, out's row stride, stream
+        "hg_fused_egnn_f32": [_P] * 14 + [_I64, _I32, _I32, _I32, _I32, _P],
     },
 }
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[str, Callable] = {}
 _build_log: List[str] = []
 
 
@@ -145,6 +148,15 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def entry(lib: str, fn: str):
+    """The C function ``fn`` of ``csrc/<lib>.cu``, its argument types set;
+    built and looked up on the first call, then taken from a dict."""
+    f = _entries.get(fn)
+    if f is None:
+        f = _entries[fn] = getattr(load(lib), fn)
+    return f
+
+
 def build_log() -> str:
     """nvcc's output (``-Xptxas -v``: registers, spills) of this process's
     builds; empty when the libraries were already built."""
@@ -154,5 +166,5 @@ def build_log() -> str:
 def check(rc: int, what: str):
     """Raise when a C entry reported a CUDA error for its launch."""
     if rc != 0:
-        msg = load("segment").hg_error_string(rc).decode(errors="replace")
+        msg = entry("segment", "hg_error_string")(rc).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA error {rc} at launch: {msg}")

@@ -134,7 +134,7 @@ def fused_gather_moments(yj: torch.Tensor, senders: torch.Tensor,
     e = senders.shape[0]
     out = torch.zeros((num_segments, 2 * d + 1), dtype=torch.float32, device=yj.device)
     z = torch.empty((e, d), dtype=torch.float32, device=yj.device)
-    rc = _build.load("fused_mp").hg_fused_gather_moments_f32(
+    rc = _build.entry("fused_mp", "hg_fused_gather_moments_f32")(
         yj.data_ptr(), None if ze is None else ze.data_ptr(), mask.data_ptr(),
         senders.data_ptr(), receivers.data_ptr(), out.data_ptr(), z.data_ptr(),
         e, n, d, num_segments, _stream(yj.device),
@@ -167,7 +167,7 @@ def _launch_gather_reduce(entry, name, x, ef, senders, receivers,
     check_cuda_launch(name, x, ef, senders, receivers)
     n, d = x.shape
     out = torch.zeros((num_segments, width), dtype=torch.float32, device=x.device)
-    rc = getattr(_build.load("fused_mp"), entry)(
+    rc = _build.entry("fused_mp", entry)(
         x.data_ptr(), ef.data_ptr(), senders.data_ptr(), receivers.data_ptr(),
         out.data_ptr(), senders.shape[0], n, d, num_segments, _stream(x.device),
     )
@@ -338,7 +338,7 @@ def egnn_tolerance(out: torch.Tensor) -> float:
 def egnn_shared_bytes(hidden: int) -> int:
     """Dynamic shared memory K7 needs at width ``hidden`` (its C entry's
     own count), or -1 when the kernel has no instantiation that wide."""
-    return int(_build.load("fused_egnn").hg_fused_egnn_smem_bytes(int(hidden)))
+    return int(_build.entry("fused_egnn", "hg_fused_egnn_smem_bytes")(int(hidden)))
 
 
 EGNN_MAX_SHARED_BYTES = 232448  # what one block may use on sm_90
@@ -361,7 +361,12 @@ def fused_egnn_edge_phase(y_snd: torch.Tensor, y_rcv: torch.Tensor,
     ``edge_params`` is ``(w_rad [H], W2 [H, H], b2 [H])`` or that plus
     ``(Wc0 [H, H], bc0 [H], Wc1 [H, 1])``, matrices in the ``x @ W``
     layout. Returns ``[S, H + 4]`` (coordinate parameters present) or
-    ``[S, H + 1]`` float32."""
+    ``[S, H + 1]`` float32.
+
+    On the card the result is a view of the first columns of a
+    ``torch.empty`` buffer whose rows are padded to a multiple of 4 floats
+    (16 bytes, so the kernel's atomics go four floats at a time); the C
+    entry zeroes that buffer on the current stream before the kernel."""
     _check_egnn_inputs(y_snd, y_rcv, pos, edge_params, senders, receivers,
                        num_segments, edge_mask, ze)
     if _on_cpu(y_snd):
@@ -381,19 +386,18 @@ def fused_egnn_edge_phase(y_snd: torch.Tensor, y_rcv: torch.Tensor,
             f"fused_egnn_edge_phase: hidden width {h} does not fit the kernel "
             f"({smem} bytes of shared memory; widths up to 256 are built)"
         )
-    coord = len(edge_params) == 6
-    out = torch.zeros(
-        (num_segments, h + (4 if coord else 1)), dtype=torch.float32, device=y_snd.device
-    )
+    width = h + (4 if len(edge_params) == 6 else 1)
+    ldo = -(-width // 4) * 4  # rows 16-byte aligned, for the vector atomics
+    out = y_snd.new_empty((num_segments, ldo))  # zeroed by the C entry
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    rc = _build.load("fused_egnn").hg_fused_egnn_f32(
+    rc = _build.entry("fused_egnn", "hg_fused_egnn_f32")(
         y_snd.data_ptr(), y_rcv.data_ptr(), pos.data_ptr(), ptr(ze), mask.data_ptr(),
         senders.data_ptr(), receivers.data_ptr(), *[ptr(p) for p in params],
-        out.data_ptr(), senders.shape[0], n, h, num_segments, _stream(y_snd.device),
+        out.data_ptr(), senders.shape[0], n, h, num_segments, ldo, _stream(y_snd.device),
     )
     _build.check(rc, "fused_egnn_edge_phase")
     fused_egnn_edge_phase.launches += 1
-    return out
+    return out[:, :width]
 
 
 fused_egnn_edge_phase.launches = 0

@@ -21,16 +21,32 @@ Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 
 Kernel against plain on the card: atomics add in a run-dependent order, so
 the tolerance is relative, ``1e-5 * (max |partial sum| + 1)``.
+
+The K1 call is kept lean, since at the pool's size the host's work per call
+is as long as the kernel: its checks take one combined test on the common
+path, its C function is looked up once (:func:`_build.entry`), the output
+comes from ``torch.empty`` and the C entry zeroes it on the stream
+(``cudaMemsetAsync``), so no PyTorch fill kernel runs before it.
 """
 
 import torch
 
 from hydragnn_tpu_torch.ops import _build
 
+_F32, _I32 = torch.float32, torch.int32
+
 
 def check_segment_inputs(data: torch.Tensor, segment_ids: torch.Tensor,
                          num_segments: int):
     """Raise on what the kernels do not take (both devices alike)."""
+    if (
+        data.dtype is torch.float32 and data.dim() == 2
+        and segment_ids.dtype is torch.int32 and segment_ids.dim() == 1
+        and segment_ids.shape[0] == data.shape[0]
+        and segment_ids.device == data.device
+        and 0 <= int(num_segments) < 2**31
+    ):
+        return
     if data.ndim != 2:
         raise ValueError(f"data must be 2-D [E, D], got shape {tuple(data.shape)}")
     if data.dtype != torch.float32:
@@ -57,6 +73,8 @@ def check_cuda_launch(name: str, *tensors: torch.Tensor):
     A parameter that requires grad is taken where autograd records nothing
     (under ``torch.inference_mode()`` or ``torch.no_grad()``)."""
     for t in tensors:
+        if t.is_cuda and t.is_contiguous() and not t.requires_grad:
+            continue
         if t.device.type != "cuda":
             raise ValueError(f"{name}: expected CUDA tensors, got one on {t.device}")
         if not t.is_contiguous():
@@ -84,7 +102,8 @@ def _on_cpu(t: torch.Tensor) -> bool:
 
 
 def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 # ---------------------------------------------------------------------------
@@ -106,18 +125,38 @@ def segment_sum_plain(data: torch.Tensor, segment_ids: torch.Tensor,
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
-    """K1: ``out[s] = sum_{e: ids[e]==s} data[e]`` -> ``[S, D]`` float32."""
-    check_segment_inputs(data, segment_ids, num_segments)
-    if _on_cpu(data):
-        return segment_sum_plain(data, segment_ids, num_segments)
-    check_cuda_launch("segment_sum", data, segment_ids)
+    """K1: ``out[s] = sum_{e: ids[e]==s} data[e]`` -> ``[S, D]`` float32.
+
+    On the card, the C entry zeroes the ``torch.empty`` output on the
+    current stream, then reduces each run of equal ids in registers before
+    one atomic (``csrc/segment.cu``). The common case (contiguous f32 data
+    and int32 ids on one card, nothing that autograd would record) is one
+    test of every condition :func:`check_segment_inputs` and
+    :func:`check_cuda_launch` check; anything else goes through them, and
+    they raise."""
+    if not (
+        data.is_cuda and segment_ids.is_cuda
+        and data.dtype is _F32 and segment_ids.dtype is _I32
+        and data.dim() == 2 and segment_ids.dim() == 1
+        and segment_ids.shape[0] == data.shape[0]
+        and segment_ids.get_device() == data.get_device()
+        and type(num_segments) is int and 0 <= num_segments < 2**31
+        and data.is_contiguous() and segment_ids.is_contiguous()
+        and not (data.requires_grad or segment_ids.requires_grad)
+    ):
+        check_segment_inputs(data, segment_ids, num_segments)
+        if _on_cpu(data):
+            return segment_sum_plain(data, segment_ids, num_segments)
+        check_cuda_launch("segment_sum", data, segment_ids)
+        num_segments = int(num_segments)
     e, d = data.shape
-    out = torch.zeros((num_segments, d), dtype=torch.float32, device=data.device)
-    rc = _build.load("segment").hg_segment_sum_f32(
+    out = data.new_empty((num_segments, d))
+    rc = _build.entry("segment", "hg_segment_sum_f32")(
         data.data_ptr(), segment_ids.data_ptr(), out.data_ptr(), e, d,
-        num_segments, _stream(data.device),
+        num_segments, torch._C._cuda_getCurrentRawStream(data.get_device()),
     )
-    _build.check(rc, "segment_sum")
+    if rc:
+        _build.check(rc, "segment_sum")
     segment_sum.launches += 1
     return out
 
@@ -156,7 +195,7 @@ def segment_moments(data: torch.Tensor, segment_ids: torch.Tensor,
     s = torch.zeros((num_segments, d), dtype=torch.float32, device=dev)
     cnt = torch.zeros((num_segments, 1), dtype=torch.float32, device=dev)
     sq = torch.zeros((num_segments, d), dtype=torch.float32, device=dev)
-    rc = _build.load("segment").hg_segment_moments_f32(
+    rc = _build.entry("segment", "hg_segment_moments_f32")(
         data.data_ptr(), segment_ids.data_ptr(), s.data_ptr(), cnt.data_ptr(),
         sq.data_ptr(), e, d, num_segments, _stream(dev),
     )

@@ -2,6 +2,14 @@
 the same CUDA tensors, at small and main-path-like shapes; and a host batch
 carried to the card in one copy.
 
+K1's run reduction is held on the id patterns that stress it (all ids
+equal; runs that cross a thread's, a block's and a tile's boundary; fully
+unsorted; out-of-range ids in the middle of a run) at D = 1, 3, 50, 256
+and 257 with 3001 rows, and on a view that is not 16-byte aligned (the
+scalar path). K7's tile is held at H = 8, 33, 100, 128 and 256 with 1001
+edges, with and without ``ze``, the coordinate parameters, and all edges
+on one sender.
+
 Marked ``cuda``; each test skips inside itself when no card is present.
 On the H100 run ``python -m pytest tests/test_torch_cuda_kernels.py -q
 -p no:randomly --noconftest``: this file imports only the port, while the
@@ -72,6 +80,53 @@ def pytest_segment_sum_kernel_matches_plain(card, e, d, s):
     ref = segment_sum_plain(data, ids, s)
     tol = atomic_tolerance(segment_sum_plain(data.abs(), ids, s))
     assert float((got - ref).abs().max()) <= tol
+
+
+def _run_ids(e, s, pattern, seed):
+    """Segment ids of length ``e`` into ``s`` segments, by pattern."""
+    rng = np.random.default_rng(seed)
+    if pattern == "all_equal":
+        return np.full(e, s // 2, np.int32)
+    if pattern == "unsorted":
+        return rng.integers(0, s, e).astype(np.int32)
+    # sorted runs whose lengths cross a thread's slice (8-32 rows), a
+    # block's (4-128 rows at D=256) and any tile's boundary
+    lengths = np.resize([1, 7, 33, 100, 300, 5, 64, 129], e)
+    ids = np.repeat(np.arange(lengths.shape[0]) % s, lengths)[:e].astype(np.int32)
+    if pattern == "out_of_range_mid_run":
+        ids[20::37] = -1
+        ids[45::101] = s + 5
+    return ids
+
+
+@pytest.mark.parametrize("d", [1, 3, 50, 256, 257])
+@pytest.mark.parametrize("pattern", ["all_equal", "runs", "unsorted", "out_of_range_mid_run"])
+def pytest_segment_sum_kernel_id_patterns(card, pattern, d):
+    e, s = 3001, 40  # 3001 rows: no multiple of a slice, a block or a tile
+    rng = np.random.default_rng(d)
+    data = torch.from_numpy(rng.standard_normal((e, d)).astype(np.float32)).to(card)
+    ids = torch.from_numpy(_run_ids(e, s, pattern, d)).to(card)
+    got = segment_sum(data, ids, s)
+    torch.cuda.synchronize()
+    ref = segment_sum_plain(data, ids, s)
+    assert got.shape == ref.shape
+    assert float((got - ref).abs().max()) <= atomic_tolerance(segment_sum_plain(data.abs(), ids, s))
+
+
+@pytest.mark.parametrize("d", [4, 256])
+def pytest_segment_sum_kernel_unaligned_view(card, d):
+    """A view 4 bytes past a 16-byte boundary takes the scalar path (or
+    raises); it never gives a wrong sum."""
+    e, s = 1001, 17
+    rng = np.random.default_rng(d)
+    flat = torch.from_numpy(rng.standard_normal(e * d + 1).astype(np.float32)).to(card)
+    data = flat[1:].view(e, d).contiguous()
+    assert data.data_ptr() % 16 != 0
+    ids = torch.from_numpy(_run_ids(e, s, "runs", d)).to(card)
+    got = segment_sum(data, ids, s)
+    torch.cuda.synchronize()
+    ref = segment_sum_plain(data, ids, s)
+    assert float((got - ref).abs().max()) <= atomic_tolerance(segment_sum_plain(data.abs(), ids, s))
 
 
 @pytest.mark.parametrize("e,d,s", SHAPES)
@@ -165,6 +220,40 @@ def pytest_fused_egnn_edge_phase_kernel_matches_plain(card, e, h, s, coord):
         assert torch.isfinite(got).all()
         tol = egnn_tolerance(ref)
         assert float((got - ref).abs().max()) <= tol
+
+
+def _egnn_case(card, e, h, s, coord, one_sender, seed):
+    rng, y_snd, snd, rcv, mask = _gather_case(card, e, h, s, seed)
+    if one_sender:
+        snd = torch.full_like(snd, s // 3)
+    f32 = lambda *shape, scale=1.0: torch.from_numpy(  # noqa: E731
+        (rng.standard_normal(shape) * scale).astype(np.float32)).to(card)
+    y_rcv, pos = f32(s, h), f32(s, 3, scale=2.0)
+    pos[s - 1] = 0.0
+    lim = 1.0 / np.sqrt(h)
+    params = [f32(h), f32(h, h, scale=lim), f32(h, scale=lim)]
+    if coord:
+        params += [f32(h, h, scale=lim), f32(h, scale=lim), f32(h, 1, scale=lim)]
+    return y_snd, y_rcv, pos, params, snd, rcv, mask, f32(e, h)
+
+
+@pytest.mark.parametrize("h", [8, 33, 100, 128, 256])
+@pytest.mark.parametrize("coord", [False, True])
+@pytest.mark.parametrize("one_sender", [False, True])
+def pytest_fused_egnn_edge_phase_kernel_widths(card, h, coord, one_sender):
+    """Every width class of the tile (32, 64, 128, 256 columns; 33 takes
+    the 4-byte path), 1001 edges (no multiple of a 64- or 128-edge tile),
+    with and without ``ze``, and all edges on one sender."""
+    e, s = 1001, 61
+    y_snd, y_rcv, pos, params, snd, rcv, mask, ze_full = _egnn_case(
+        card, e, h, s, coord, one_sender, seed=h + 7 * coord)
+    for ze in (None, ze_full):
+        got = fused_egnn_edge_phase(y_snd, y_rcv, pos, params, snd, rcv, s, mask, ze=ze)
+        torch.cuda.synchronize()
+        ref = fused_egnn_edge_phase_plain(y_snd, y_rcv, pos, params, snd, rcv, s, mask, ze=ze)
+        assert got.shape == ref.shape == (s, h + (4 if coord else 1))
+        assert torch.isfinite(got).all()
+        assert float((got - ref).abs().max()) <= egnn_tolerance(ref)
 
 
 def pytest_cuda_kernels_are_forward_only(card):

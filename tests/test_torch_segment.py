@@ -128,3 +128,26 @@ def pytest_segment_count_and_moments_fused_match_jax(weighted):
     )
     for r, g in zip(ref, got):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("pattern", ["all_equal", "runs", "unsorted"])
+@pytest.mark.parametrize("d", [1, 3, 257])
+def pytest_segment_sum_id_patterns_match_jax(pattern, d):
+    """K1's contract on the id patterns its run reduction sees on the card
+    (one run, long sorted runs with ids past both ends, no runs), held
+    against the Pallas kernel; the segment count as a numpy integer takes
+    the wrapper's checking path."""
+    rng = np.random.default_rng(d)
+    e, s = 301, 9
+    data = rng.standard_normal((e, d)).astype(np.float32)
+    if pattern == "all_equal":
+        ids = np.full(e, 4, np.int32)
+    elif pattern == "runs":
+        ids = np.repeat(np.arange(-1, s + 2), 30)[:e].astype(np.int32)
+    else:
+        ids = rng.integers(-2, s + 2, e).astype(np.int32)
+    want = np.asarray(jax_segment_sum(jnp.asarray(data), jnp.asarray(ids), s))
+    got = segment_kernels.segment_sum(
+        torch.from_numpy(data), torch.from_numpy(ids), np.int64(s)
+    ).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
