@@ -20,8 +20,9 @@ Phases, in order; any failure raises and exits non-zero:
    dot products per edge also sum in another order). K1 runs at two
    shapes: the pool, and the segment mode's sum at the receivers. Times,
    with CUDA events: ``ms``, the call (20 calls back to back, so the
-   host's work per call can set the pace), for the kernel, its plain
-   version and, for K1, one ``index_add_`` call; ``device_ms``, the
+   host's work per call can set the pace; the median of 5 such windows,
+   taken in turns), for the kernel, its plain version and, for K1, one
+   ``index_add_`` call; ``device_ms``, the
    kernel alone (the same 20 calls queued behind ``torch.cuda._sleep``,
    so the device runs them back to back; min, median and max of 5
    repeats), for the kernel and ``index_add_``. Then samples the SM clock
@@ -48,9 +49,6 @@ Phases, in order; any failure raises and exits non-zero:
 ``--cpu-rehearsal`` runs phases 3-4 at a tiny size on the CPU through the
 plain versions, to check the script's control flow without a card. It
 times nothing on a device and never prints the success line.
-``--kernels-only`` runs phases 1-3 on the card and stops there, without the
-success line: the quick way to time the kernels of two trees in one
-session (run it in each, in turns).
 """
 
 import argparse
@@ -79,7 +77,7 @@ from hydragnn_tpu_torch.serve import (
     ModelRegistry,
     plan_from_samples,
 )
-from hydragnn_tpu_torch.utils.timing import device_ms, time_ms
+from hydragnn_tpu_torch.utils.timing import call_ms, device_ms
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -257,11 +255,12 @@ def timings(fn, plain, library, device):
     """Call and device times of a kernel's wrapper, its plain version's
     call time, and the call and device times of one PyTorch library call
     for the same function where there is one."""
+    calls = call_ms([fn, plain] if library is None else [fn, plain, library], device)
     return dict(
-        ms=time_ms(fn, device),
+        ms=calls[0],
         device_ms=device_ms(fn, device),
-        plain_ms=time_ms(plain, device),
-        library_ms=None if library is None else time_ms(library, device),
+        plain_ms=calls[1],
+        library_ms=None if library is None else calls[2],
         library_device_ms=None if library is None else device_ms(library, device),
     )
 
@@ -634,8 +633,6 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="tiny size on the CPU through the plain versions; no success line")
-    ap.add_argument("--kernels-only", action="store_true",
-                    help="phases 1-3 on the card (build, kernels); no serving, no success line")
     args = ap.parse_args(argv)
 
     if args.cpu_rehearsal:
@@ -651,9 +648,6 @@ def main(argv=None):
         print(f"bucket: n_pad {lay.n_pad} e_pad {lay.e_pad} g_pad {lay.g_pad}", flush=True)
 
     cases = phase_kernels(plan, graphs, size["hidden"], device)
-    if args.kernels_only:
-        print(f"kernels only: {card}; nothing served, no success line", flush=True)
-        return 0
     launches = {name: 0 for name in KERNELS}
     for family in FAMILIES:
         cfg = arch(size, family)

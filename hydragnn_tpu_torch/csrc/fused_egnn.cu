@@ -32,8 +32,8 @@
 // never waits: on shared-memory loads, on the weights' trip from L2, or on
 // an idle SM.
 //
-// Design. A block of 128 * kWarpRows threads (8 warps at the default 2)
-// takes tiles of kEdges = 32 * kWarpRows edges and walks them (a persistent
+// Design. A block of 256 threads (8 warps: 2 along the edges, 4 along the
+// columns) takes tiles of kEdges = 64 edges and walks them (a persistent
 // grid, as many blocks as fit on the card at once). Per tile:
 //   1. per-edge ids, geometry and mask into shared memory;
 //   2. relu(pre) into a k-major tile As[H][kEdges + 4] (the pad spreads
@@ -58,10 +58,13 @@
 //      shuffles and across the four column warps in shared memory, and
 //      [trans | mask] goes out as one vector atomic per edge.
 // At H = 256: 103 KB of dynamic shared memory and at most 128 registers
-// (no spills), two blocks per SM. Timed by dropping parts of the work
-// (egnn_variants.py), the weight stream costs about a fifth of the kernel:
-// every 64-edge tile reads both matrices from L2 again. Sharing a stage
-// between the blocks of a cluster (TMA multicast) is the next step.
+// (no spills), two blocks per SM. The tile, the ring (2 stages of 16 rows)
+// and the persistent grid were chosen by timing compile-time variants on
+// the H100 (PERF.md): deeper or longer rings, 128-edge tiles and one block
+// per SM were all slower. Timed with parts of the work dropped, the weight
+// stream costs about a fifth of the kernel: every 64-edge tile reads both
+// matrices from L2 again. Sharing a stage between the blocks of a cluster
+// (TMA multicast) is the next step.
 // Widths up to 256 are instantiated (the padded width NC = 32, 64, 128
 // or 256); hg_fused_egnn_smem_bytes tells the wrapper what a width needs.
 // A width that is not a multiple of 4, or a pointer that is not 16-byte
@@ -71,53 +74,23 @@
 // Tolerance against the plain version: 1e-4 * (max |out| + 1), covering
 // both products' summation order and the atomics' order (the e columns
 // are >= 0, so no partial sum exceeds the final one).
-//
-// The tile shape, stage depth, ring length, grid and register budget can
-// be changed at compile time (HG_EGNN_WARP_ROWS, HG_EGNN_DEPTH,
-// HG_EGNN_STAGES, HG_EGNN_PERSISTENT, HG_EGNN_MIN_BLOCKS) to time variants,
-// and parts of the work dropped (HG_EGNN_KNOCKOUT) to see what each costs
-// (hydragnn_tpu_torch/ops/egnn_variants.py); the defaults are what the port
-// ships.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#ifndef HG_EGNN_WARP_ROWS
-#define HG_EGNN_WARP_ROWS 2
-#endif
-#ifndef HG_EGNN_DEPTH
-#define HG_EGNN_DEPTH 16
-#endif
-#ifndef HG_EGNN_STAGES
-#define HG_EGNN_STAGES 2
-#endif
-#ifndef HG_EGNN_PERSISTENT
-#define HG_EGNN_PERSISTENT 1
-#endif
-#ifndef HG_EGNN_MIN_BLOCKS
-#define HG_EGNN_MIN_BLOCKS 2
-#endif
-// Diagnostics for timing only, never for use: bit 1 drops the output
-// atomics, bit 2 the node-row gathers, bit 4 the weight copies (the
-// products then run on whatever the ring holds).
-#ifndef HG_EGNN_KNOCKOUT
-#define HG_EGNN_KNOCKOUT 0
-#endif
+#include "sm_count.cuh"
 
 namespace {
 
-constexpr int kWarpRows = HG_EGNN_WARP_ROWS;  // warps along the edges
-constexpr int kWarpCols = 4;                  // warps along the columns
+constexpr int kWarpRows = 2;  // warps along the edges
+constexpr int kWarpCols = 4;  // warps along the columns
 constexpr int kThreads = 32 * kWarpRows * kWarpCols;
 constexpr int kRowsPerThread = 8;                           // edges per thread
 constexpr int kEdges = 4 * kWarpRows * kRowsPerThread;      // edges per tile
 constexpr int kLda = kEdges + 4;  // As row: kLda % 32 == 4 spreads the banks
-constexpr int kDepth = HG_EGNN_DEPTH;    // weight rows per stage
-constexpr int kStages = HG_EGNN_STAGES;  // stages in the ring
-constexpr int kMinBlocks = kThreads <= 256 ? HG_EGNN_MIN_BLOCKS : 1;
-constexpr bool kSkipAtomics = HG_EGNN_KNOCKOUT & 1;
-constexpr bool kSkipGather = HG_EGNN_KNOCKOUT & 2;
-constexpr bool kSkipWeights = HG_EGNN_KNOCKOUT & 4;
+constexpr int kDepth = 16;        // weight rows per stage
+constexpr int kStages = 2;        // stages in the ring
+constexpr int kMinBlocks = 2;     // blocks per SM: caps registers at 128
 static_assert(kStages >= 2 && kDepth % 4 == 0, "a ring of >= 2 stages of 4k rows");
 
 template <int NC>  // padded width: 32, 64, 128 or 256 columns
@@ -227,7 +200,7 @@ template <int NC>
 __device__ __forceinline__ void flush_run(float* __restrict__ out, int row, int ldo, int H,
                                           int tc, const float (&run)[NC / 32], bool vec) {
   constexpr int TN = Layout<NC>::kCols;
-  if (kSkipAtomics || row < 0) return;
+  if (row < 0) return;
   float* dst = out + (int64_t)row * ldo;
   if constexpr (TN >= 4) {
     if (vec) {
@@ -289,7 +262,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) fused_egnn_kernel(
   // W2 (first nK of a tile) or Wc0, into ring slot g % kStages
   int next = 0;
   auto fetch_next = [&]() {
-    if (next < total && !kSkipWeights) {
+    if (next < total) {
       const int s = next % per_tile;
       load_stage<NC>(ring + (next % kStages) * L::kStage, s < nK ? W2 : Wc0,
                      (s % nK) * kDepth, H, vec);
@@ -357,7 +330,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) fused_egnn_kernel(
     for (int item = warp; item < kGatherItems; item += kWarps) {
       const int el = (item % (kEdges / 16)) * 16 + (lane & 15);
       const int col = 4 * (2 * (item / (kEdges / 16)) + (lane >> 4));
-      const int sg = kSkipGather ? -1 : sg_s[el], rg = kSkipGather ? -1 : rg_s[el];
+      const int sg = sg_s[el], rg = rg_s[el];
       const float rad = rad_s[el];
       const int64_t e = e0 + el;
       float v[4] = {0.f, 0.f, 0.f, 0.f};
@@ -520,19 +493,6 @@ int padded_width(int H) {
   return 0;
 }
 
-constexpr int kMaxDevices = 64;
-
-int sm_count(int dev) {
-  static int cached[kMaxDevices] = {0};
-  if (dev < 0 || dev >= kMaxDevices) return 0;
-  if (cached[dev] == 0) {
-    int n = 0;
-    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
-    cached[dev] = n;
-  }
-  return cached[dev];
-}
-
 bool aligned16(const void* p) { return p == nullptr || (uintptr_t)p % 16 == 0; }
 
 template <int NC>
@@ -542,30 +502,28 @@ int launch(const void* y_snd, const void* y_rcv, const void* pos, const void* ze
            const void* bc0, const void* Wc1, void* out, long long E, int N, int H,
            int S, int ldo, cudaStream_t stream) {
   constexpr int smem = Layout<NC>::kBytes;
-  // once per device: the shared-memory opt-in and how many blocks fit on an SM
-  static int blocks_per_sm[kMaxDevices] = {0};
+  // once per device: the shared-memory opt-in and how many blocks fit on
+  // the card at once, the persistent grid
+  static int resident[hg::kMaxDevices] = {0};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (blocks_per_sm[dev] == 0) {
+  if (dev >= hg::kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
     err = cudaFuncSetAttribute(fused_egnn_kernel<NC>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     int n = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_egnn_kernel<NC>, kThreads, smem);
     if (err != cudaSuccess) return (int)err;
-    if (n <= 0) return (int)cudaErrorInvalidConfiguration;
-    blocks_per_sm[dev] = n;
+    const int sms = hg::sm_count(dev);
+    if (n <= 0 || sms <= 0) return (int)cudaErrorInvalidConfiguration;
+    resident[dev] = n * sms;
   }
   const long long tiles = (E + kEdges - 1) / kEdges;
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (tiles == 0) return (int)cudaGetLastError();
-  long long grid = tiles;
-  if (HG_EGNN_PERSISTENT) {
-    const long long resident = (long long)blocks_per_sm[dev] * sm_count(dev);
-    if (resident > 0 && resident < grid) grid = resident;
-  }
+  const long long grid = tiles < resident[dev] ? tiles : resident[dev];
   const bool vec = H % 4 == 0 && ldo % 4 == 0 && aligned16(y_snd) && aligned16(y_rcv) &&
                    aligned16(ze) && aligned16(w_rad) && aligned16(W2) && aligned16(Wc0) &&
                    aligned16(out);

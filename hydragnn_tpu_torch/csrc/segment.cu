@@ -25,7 +25,7 @@
 //
 // Design of the sum (K1): a segmented reduction in registers. The [E, D]
 // array is cut into slices of R consecutive rows (R = 8..32, chosen so
-// that the grid fills the card). A thread owns one slice and one column
+// that the grid fills the card's SMs). A thread owns one slice and one column
 // chunk: a float4 when D % 4 == 0 and both pointers are 16-byte aligned,
 // one float otherwise. Neighbouring threads take neighbouring chunks of
 // the same slice, so each row's loads are coalesced and its id is one
@@ -47,6 +47,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm_count.cuh"
 
 namespace {
 
@@ -146,10 +148,10 @@ __global__ void segment_moments_kernel(const float* __restrict__ data,
 }
 
 // Rows per thread: as many as still leave 512 threads for each of the
-// H100's 132 SMs, between 8 and 32 and a multiple of kUnroll (longer
-// slices mean fewer atomics on sorted ids).
-int rows_per_thread(int64_t E, int chunks) {
-  const int64_t want = 132 * 512;
+// card's SMs, between 8 and 32 and a multiple of kUnroll (longer slices
+// mean fewer atomics on sorted ids).
+int rows_per_thread(int64_t E, int chunks, int sms) {
+  const int64_t want = (int64_t)(sms > 0 ? sms : 1) * 512;
   int64_t r = (E * chunks) / want;
   r = r < 8 ? 8 : (r > 32 ? 32 : r);
   return (int)(r - r % kUnroll);
@@ -157,9 +159,9 @@ int rows_per_thread(int64_t E, int chunks) {
 
 template <typename T>
 void launch_sum(const float* data, const int32_t* ids, float* out, int64_t E,
-                int D, int S, cudaStream_t stream) {
+                int D, int S, int sms, cudaStream_t stream) {
   const int chunks = D / Vec<T>::kWidth;
-  const int R = rows_per_thread(E, chunks);
+  const int R = rows_per_thread(E, chunks, sms);
   const int64_t items = (E + R - 1) / R * chunks;
   segment_sum_runs_kernel<T><<<(unsigned)blocks_for(items), kThreads, 0, stream>>>(
       data, ids, out, E, D, S, R, items);
@@ -177,11 +179,15 @@ extern "C" int hg_segment_sum_f32(const void* data, const void* ids, void* out,
     if (err != cudaSuccess) return (int)err;
   }
   if ((int64_t)E * D > 0) {
+    int dev = 0;
+    const cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    const int sms = hg::sm_count(dev);
     const bool vec = D % 4 == 0 && (uintptr_t)data % 16 == 0 && (uintptr_t)out % 16 == 0;
     if (vec)
-      launch_sum<float4>((const float*)data, (const int32_t*)ids, (float*)out, E, D, S, st);
+      launch_sum<float4>((const float*)data, (const int32_t*)ids, (float*)out, E, D, S, sms, st);
     else
-      launch_sum<float>((const float*)data, (const int32_t*)ids, (float*)out, E, D, S, st);
+      launch_sum<float>((const float*)data, (const int32_t*)ids, (float*)out, E, D, S, sms, st);
   }
   return (int)cudaGetLastError();
 }

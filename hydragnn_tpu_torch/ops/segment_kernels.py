@@ -39,14 +39,6 @@ _F32, _I32 = torch.float32, torch.int32
 def check_segment_inputs(data: torch.Tensor, segment_ids: torch.Tensor,
                          num_segments: int):
     """Raise on what the kernels do not take (both devices alike)."""
-    if (
-        data.dtype is torch.float32 and data.dim() == 2
-        and segment_ids.dtype is torch.int32 and segment_ids.dim() == 1
-        and segment_ids.shape[0] == data.shape[0]
-        and segment_ids.device == data.device
-        and 0 <= int(num_segments) < 2**31
-    ):
-        return
     if data.ndim != 2:
         raise ValueError(f"data must be 2-D [E, D], got shape {tuple(data.shape)}")
     if data.dtype != torch.float32:
@@ -73,8 +65,6 @@ def check_cuda_launch(name: str, *tensors: torch.Tensor):
     A parameter that requires grad is taken where autograd records nothing
     (under ``torch.inference_mode()`` or ``torch.no_grad()``)."""
     for t in tensors:
-        if t.is_cuda and t.is_contiguous() and not t.requires_grad:
-            continue
         if t.device.type != "cuda":
             raise ValueError(f"{name}: expected CUDA tensors, got one on {t.device}")
         if not t.is_contiguous():
@@ -132,8 +122,8 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     one atomic (``csrc/segment.cu``). The common case (contiguous f32 data
     and int32 ids on one card, nothing that autograd would record) is one
     test of every condition :func:`check_segment_inputs` and
-    :func:`check_cuda_launch` check; anything else goes through them, and
-    they raise."""
+    :func:`check_cuda_launch` check; anything else goes through them,
+    which raise on what the kernel does not take."""
     if not (
         data.is_cuda and segment_ids.is_cuda
         and data.dtype is _F32 and segment_ids.dtype is _I32
@@ -153,7 +143,7 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     out = data.new_empty((num_segments, d))
     rc = _build.entry("segment", "hg_segment_sum_f32")(
         data.data_ptr(), segment_ids.data_ptr(), out.data_ptr(), e, d,
-        num_segments, torch._C._cuda_getCurrentRawStream(data.get_device()),
+        num_segments, _stream(data.device),
     )
     if rc:
         _build.check(rc, "segment_sum")

@@ -2,7 +2,9 @@
 
 - :func:`time_ms`, the call: events around calls made back to back, so
   that the host's own work per call (checks, allocation, the launch) can set
-  the pace, as it does for a caller.
+  the pace, as it does for a caller. :func:`call_ms` takes it for several
+  functions in turns, so that calls compared with each other meet the
+  same host.
 - :func:`device_ms`, the kernel alone: the same calls queued behind
   ``torch.cuda._sleep``, so that the device finds them all waiting and runs
   them back to back; repeated, to show the spread.
@@ -33,6 +35,18 @@ def time_ms(fn, device, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def call_ms(fns, device, repeats=5):
+    """Call times of ``fns`` taken in turns: ``repeats`` rounds, each one
+    :func:`time_ms` window of every function in order, and the median
+    window of each. The host's speed drifts over a process's life, so
+    calls to be compared are timed side by side. ``None`` for each on a
+    CPU device."""
+    rounds = [[time_ms(fn, device) for fn in fns] for _ in range(repeats)]
+    if device.type != "cuda":
+        return [None] * len(fns)
+    return [float(np.median(col)) for col in zip(*rounds)]
 
 
 SLEEP_CYCLES_PER_S = 2.0e9  # above the H100's boost clock: sleeps run long, never short

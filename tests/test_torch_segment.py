@@ -75,6 +75,26 @@ def pytest_segment_kernels_reject_what_the_kernel_does_not_take():
         segment_kernels.segment_sum(data, ids[:3], 3)
 
 
+BAD_INPUTS = {
+    "data 1-D": (lambda x, i: (x[:, 0], i, 3), ValueError),
+    "data float64": (lambda x, i: (x.double(), i, 3), TypeError),
+    "ids int64": (lambda x, i: (x, i.long(), 3), TypeError),
+    "ids 2-D": (lambda x, i: (x, i[:, None], 3), TypeError),
+    "ids fewer than rows": (lambda x, i: (x, i[:3], 3), ValueError),
+    "negative num_segments": (lambda x, i: (x, i, -1), ValueError),
+    "num_segments past int32": (lambda x, i: (x, i, 2**31), ValueError),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_INPUTS))
+def pytest_segment_sum_rejects_each_bad_input(case):
+    """Each condition of the wrapper's checks raises on its own."""
+    make, err = BAD_INPUTS[case]
+    data, ids, segs = make(torch.zeros((4, 2)), torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(err):
+        segment_kernels.segment_sum(data, ids, segs)
+
+
 @pytest.mark.parametrize("d", [1, 16])
 def pytest_segment_minmax_fused_matches_jax(d):
     data, ids = _case(60, d, 20, 5)

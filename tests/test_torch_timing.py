@@ -1,17 +1,13 @@
-"""The port's timing helpers and K7 variant inputs, on the CPU.
+"""The port's timing helpers, on the CPU.
 
-``time_ms`` and ``device_ms`` measure only a card: on the CPU they run the
+``time_ms``, ``call_ms`` and ``device_ms`` measure only a card: on the CPU they run the
 function (warm-up) and return ``None``, never a CPU time under a device
-metric's name. ``egnn_variants.main_path_inputs`` builds the main path's
-largest bucket (5768 node rows, 69120 edge rows) with padded edges on the
-padding node.
+metric's name.
 """
 
-import numpy as np
 import torch
 
-from hydragnn_tpu_torch.ops import egnn_variants
-from hydragnn_tpu_torch.utils.timing import device_ms, time_ms
+from hydragnn_tpu_torch.utils.timing import call_ms, device_ms, time_ms
 
 
 def pytest_timing_returns_none_on_cpu():
@@ -22,17 +18,9 @@ def pytest_timing_returns_none_on_cpu():
     assert len(calls) == 3  # time_ms's warm-up; device_ms runs nothing
 
 
-def pytest_egnn_variant_inputs_have_the_main_path_shape():
-    inp = egnn_variants.main_path_inputs(torch.device("cpu"), hidden=8)
-    e = inp["senders"].shape[0]
-    assert (e, inp["num_segments"]) == (69120, 5768)
-    assert inp["y_snd"].shape == inp["y_rcv"].shape == (5768, 8)
-    assert inp["senders"].dtype == inp["receivers"].dtype == torch.int32
-    real = int(inp["mask"].sum())
-    assert 64 * 80 * 12 <= real <= 64 * 90 * 12
-    pad = ~inp["mask"]
-    assert bool((inp["senders"][pad] == 5768 - 1).all())
-    assert [tuple(p.shape) for p in inp["params"]] == [(8,), (8, 8), (8,), (8, 8), (8,), (8, 1)]
-    # half the senders come in runs of 6 equal ids, as chip_smoke.py's graphs
-    snd = inp["senders"][:real].numpy()
-    assert np.mean(snd[1:] == snd[:-1]) > 0.4
+
+def pytest_call_ms_takes_turns_and_returns_none_on_cpu():
+    order = []
+    fns = [lambda: order.append("a"), lambda: order.append("b")]
+    assert call_ms(fns, torch.device("cpu"), repeats=2) == [None, None]
+    assert order == ["a"] * 3 + ["b"] * 3 + ["a"] * 3 + ["b"] * 3
