@@ -21,12 +21,13 @@ Phases, in order; any failure raises and exits non-zero:
    shapes: the pool, and the segment mode's sum at the receivers. Times,
    with CUDA events: ``ms``, the call (20 calls back to back, so the
    host's work per call can set the pace; the median of 5 such windows,
-   taken in turns), for the kernel, its plain version and, for K1, one
-   ``index_add_`` call; ``device_ms``, the
-   kernel alone (the same 20 calls queued behind ``torch.cuda._sleep``,
-   so the device runs them back to back; min, median and max of 5
-   repeats), for the kernel and ``index_add_``. Then samples the SM clock
-   and power draw.
+   taken in turns), for the kernel, its plain version and the one PyTorch
+   call that computes the same function, where there is one (K1:
+   ``index_add_``; K4 and K5: ``torch.sparse.mm`` of the CSR adjacency,
+   :func:`sparse_yardstick`); ``device_ms``, the kernel alone (the same 20
+   calls queued behind ``torch.cuda._sleep``, so the device runs them back
+   to back; min, median and max of 5 repeats), for the kernel and the
+   library call. Then samples the SM clock and power draw.
 4. Serve: bench.py's MXU-scale row for each of PNA, GIN, SAGE, SchNet and
    EGNN (hidden 256, 3 conv layers, a graph head and a node head of
    64-wide layers, ``benchmarks/model_bench.py:_arch``; random weights from
@@ -185,6 +186,31 @@ def make_graphs(num_graphs, nodes, degree, seed=0):
         g.edge_attr = d[:, None].astype(np.float32)
         out.append(g)
     return out
+
+
+def sparse_yardstick(x, senders, receivers, num_segments, edge_mask, count=False):
+    """``(A, xs)`` such that ``torch.sparse.mm(A, xs)`` is K4's function
+    (``count=False``: ``[S, D]``) or K5's packed ``[sum | deg]``
+    (``count=True``: ``[S, D + 1]``), the library call K4 and K5 are held
+    against. ``A`` is CSR with value ``mask[e]`` at ``(receivers[e],
+    senders[e])``; an edge whose receiver lies out of range adds nothing and
+    is dropped. An edge whose sender lies out of range gathers a zero row:
+    for K4 it is dropped too; for K5 it still counts, so ``xs`` is ``[x |
+    1]`` with one more row ``[0 | 1]``, at which such an edge points."""
+    n, d = x.shape
+    keep = (receivers >= 0) & (receivers < num_segments)
+    snd_ok = (senders >= 0) & (senders < n)
+    if count:
+        cols = torch.where(snd_ok, senders, n)
+        ones = torch.ones((n + 1, 1), dtype=x.dtype, device=x.device)
+        xs = torch.cat([torch.cat([x, x.new_zeros((1, d))]), ones], dim=1)
+    else:
+        keep = keep & snd_ok
+        cols, xs = senders, x
+    idx = torch.stack([receivers[keep], cols[keep]]).long()
+    vals = edge_mask[keep].to(torch.float32)
+    a = torch.sparse_coo_tensor(idx, vals, (num_segments, xs.shape[0]), check_invariants=True)
+    return a.coalesce().to_sparse_csr(), xs
 
 
 def median(triple):
@@ -382,18 +408,21 @@ def phase_kernels(plan, graphs, hidden, device):
         x = rand(n_pad, d, node_mask)
         tol = atomic_tolerance(fgs_plain(x.abs(), snd, rcv, n_pad, edge_mask))
         got, ref = fgs(x, snd, rcv, n_pad, edge_mask), fgs_plain(x, snd, rcv, n_pad, edge_mask)
+        a, xs = sparse_yardstick(x, snd, rcv, n_pad, edge_mask)
         cases.append(dict(
             kernel="fused_gather_sum", case=f"gather+sum x [{n_pad},{d}] E {e_pad}",
             main=d == hidden, err=float((got - ref).abs().max()), tol=tol,
             **timings(
                 lambda: fgs(x, snd, rcv, n_pad, edge_mask),
                 lambda: fgs_plain(x, snd, rcv, n_pad, edge_mask),
-                None, device,
+                lambda: torch.sparse.mm(a, xs),
+                device,
             ),
             bound=bound(2 * n_pad * d * 4 + ids_bytes, 2 * e_pad * d),
         ))
         got = fgmean(x, snd, rcv, n_pad, edge_mask)
         ref = fgmean_plain(x, snd, rcv, n_pad, edge_mask)
+        a1, xs1 = sparse_yardstick(x, snd, rcv, n_pad, edge_mask, count=True)
         cases.append(dict(
             kernel="fused_gather_mean", case=f"gather+mean x [{n_pad},{d}] E {e_pad}",
             main=d == hidden, err=max(float((g - r).abs().max()) for g, r in zip(got, ref)),
@@ -401,7 +430,8 @@ def phase_kernels(plan, graphs, hidden, device):
             **timings(
                 lambda: fgmean(x, snd, rcv, n_pad, edge_mask),
                 lambda: fgmean_plain(x, snd, rcv, n_pad, edge_mask),
-                None, device,
+                lambda: torch.sparse.mm(a1, xs1),
+                device,
             ),
             bound=bound(n_pad * (2 * d + 1) * 4 + ids_bytes, e_pad * (2 * d + 1) + n_pad * d),
         ))

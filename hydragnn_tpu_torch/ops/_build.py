@@ -49,9 +49,11 @@ _SIGNATURES = {
         "hg_fused_gather_moments_f32": [
             _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P,
         ],
-        # table, mask or w, senders, receivers, out, E, N, D, S, stream
-        "hg_fused_gather_sum_f32": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P],
-        "hg_fused_gather_count_f32": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P],
+        # x, mask, mask is bool, senders, receivers, out, E, N, D, S,
+        # out's row stride, stream
+        "hg_fused_gather_sum_f32": [_P, _P, _I32, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P],
+        "hg_fused_gather_count_f32": [_P, _P, _I32, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P],
+        # h, w, senders, receivers, out, E, N, D, S, stream
         "hg_fused_gather_mul_f32": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P],
     },
     "fused_egnn": {

@@ -35,6 +35,8 @@ from hydragnn_tpu_torch.ops.segment_kernels import (
     segment_sum_plain,
 )
 
+_F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
+
 
 def _check_ids(senders, receivers, device):
     e = senders.shape[0]
@@ -148,8 +150,9 @@ fused_gather_moments.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K4 op "copy" (GIN), K5 op "copy_count" (SAGE), K6 op "mul" (SchNet):
-# one templated kernel, one C entry each
+# K4 op "copy" (GIN), K5 op "copy_count" (SAGE): one gather-reduce kernel,
+# one C entry each; the C entry zeroes the output and, for K5, divides by the
+# count in place
 # ---------------------------------------------------------------------------
 
 
@@ -160,18 +163,45 @@ def _check_gather_inputs(x, senders, receivers, num_segments, edge_mask):
     _check_segments(num_segments)
 
 
-def _launch_gather_reduce(entry, name, x, ef, senders, receivers,
-                          num_segments, width):
-    """Launch one of the gather -> op -> reduce entries of ``fused_mp.cu``
-    into a zeroed ``[S, width]`` output."""
-    check_cuda_launch(name, x, ef, senders, receivers)
-    n, d = x.shape
-    out = torch.zeros((num_segments, width), dtype=torch.float32, device=x.device)
-    rc = _build.entry("fused_mp", entry)(
-        x.data_ptr(), ef.data_ptr(), senders.data_ptr(), receivers.data_ptr(),
-        out.data_ptr(), senders.shape[0], n, d, num_segments, _stream(x.device),
+def _gather_copy_ready(x, senders, receivers, num_segments, edge_mask):
+    """One test of every condition :func:`_check_gather_inputs` and
+    :func:`check_cuda_launch` check, for the common case on the card:
+    contiguous f32 ``x``, int32 ids and a bool mask on one card, nothing
+    that autograd would record."""
+    return (
+        x.is_cuda and x.dtype is _F32 and x.dim() == 2 and x.is_contiguous()
+        and not x.requires_grad
+        and senders.dtype is _I32 and receivers.dtype is _I32 and edge_mask.dtype is _BOOL
+        and senders.dim() == 1 and senders.shape == receivers.shape == edge_mask.shape
+        and senders.is_contiguous() and receivers.is_contiguous() and edge_mask.is_contiguous()
+        and senders.get_device() == receivers.get_device() == edge_mask.get_device()
+        == x.get_device()
+        and type(num_segments) is int and 0 <= num_segments < 2**31
     )
-    _build.check(rc, name)
+
+
+def _cuda_mask(name, x, senders, receivers, edge_mask):
+    """The launch checks of inputs that failed :func:`_gather_copy_ready`;
+    returns the mask the kernel reads: a bool mask as it is (bytes), any
+    other cast to f32 once."""
+    mask = edge_mask if edge_mask.dtype is _BOOL else edge_mask.to(_F32)
+    check_cuda_launch(name, x, mask, senders, receivers)
+    return mask
+
+
+def _launch_gather_copy(entry, name, x, senders, receivers, num_segments,
+                        edge_mask, ldo):
+    """K4 or K5 into ``[S, ldo]`` from ``torch.empty``, which the C entry
+    zeroes on the current stream."""
+    n, d = x.shape
+    out = x.new_empty((num_segments, ldo))
+    rc = _build.entry("fused_mp", entry)(
+        x.data_ptr(), edge_mask.data_ptr(), edge_mask.dtype is _BOOL,
+        senders.data_ptr(), receivers.data_ptr(), out.data_ptr(),
+        senders.shape[0], n, d, num_segments, ldo, _stream(x.device),
+    )
+    if rc:
+        _build.check(rc, name)
     return out
 
 
@@ -187,12 +217,15 @@ def fused_gather_sum(x: torch.Tensor, senders: torch.Tensor,
                      edge_mask: torch.Tensor) -> torch.Tensor:
     """K4, GIN's aggregation: ``out[r] += x[s] * mask`` over the edges
     ``s -> r``. Returns ``[S, D]`` float32."""
-    _check_gather_inputs(x, senders, receivers, num_segments, edge_mask)
-    if _on_cpu(x):
-        return fused_gather_sum_plain(x, senders, receivers, num_segments, edge_mask)
-    out = _launch_gather_reduce(
-        "hg_fused_gather_sum_f32", "fused_gather_sum", x,
-        edge_mask.to(torch.float32), senders, receivers, num_segments, x.shape[1],
+    if not _gather_copy_ready(x, senders, receivers, num_segments, edge_mask):
+        _check_gather_inputs(x, senders, receivers, num_segments, edge_mask)
+        if _on_cpu(x):
+            return fused_gather_sum_plain(x, senders, receivers, num_segments, edge_mask)
+        edge_mask = _cuda_mask("fused_gather_sum", x, senders, receivers, edge_mask)
+        num_segments = int(num_segments)
+    out = _launch_gather_copy(
+        "hg_fused_gather_sum_f32", "fused_gather_sum", x, senders, receivers,
+        num_segments, edge_mask, x.shape[1],
     )
     fused_gather_sum.launches += 1
     return out
@@ -201,18 +234,16 @@ def fused_gather_sum(x: torch.Tensor, senders: torch.Tensor,
 fused_gather_sum.launches = 0
 
 
-def _mean_from_packed(out, d):
-    deg = out[:, d:]
-    return out[:, :d] / torch.clamp(deg, min=1.0), deg
-
-
 def fused_gather_mean_plain(x, senders, receivers, num_segments, edge_mask):
     """Plain PyTorch version of :func:`fused_gather_mean`: one
     ``index_add_`` of the packed ``[x[s] * mask, mask]`` columns."""
     _check_gather_inputs(x, senders, receivers, num_segments, edge_mask)
     mask = edge_mask.to(torch.float32)[:, None]
     packed = torch.cat([_gather_rows(x, senders) * mask, mask], dim=1)
-    return _mean_from_packed(segment_sum_plain(packed, receivers, num_segments), x.shape[1])
+    out = segment_sum_plain(packed, receivers, num_segments)
+    d = x.shape[1]
+    deg = out[:, d:]
+    return out[:, :d] / torch.clamp(deg, min=1.0), deg
 
 
 def fused_gather_mean(x: torch.Tensor, senders: torch.Tensor,
@@ -220,20 +251,33 @@ def fused_gather_mean(x: torch.Tensor, senders: torch.Tensor,
                       edge_mask: torch.Tensor):
     """K5, SAGE's aggregation: the masked sum at the receivers and the real
     in-degree (the sum of the mask) from one reduction; the mean is
-    ``sum / max(deg, 1)``. Returns ``(mean [S, D], deg [S, 1])`` float32."""
-    _check_gather_inputs(x, senders, receivers, num_segments, edge_mask)
-    if _on_cpu(x):
-        return fused_gather_mean_plain(x, senders, receivers, num_segments, edge_mask)
+    ``sum / max(deg, 1)``. Returns ``(mean [S, D], deg [S, 1])`` float32.
+
+    On the card both are views of the kernel's ``[S, ldo]`` output, whose
+    rows are padded to a multiple of 4 floats (16 bytes, so the sums go out
+    as vector atomics): the C entry divides columns ``[0, D)`` by the count
+    at column D in place."""
+    if not _gather_copy_ready(x, senders, receivers, num_segments, edge_mask):
+        _check_gather_inputs(x, senders, receivers, num_segments, edge_mask)
+        if _on_cpu(x):
+            return fused_gather_mean_plain(x, senders, receivers, num_segments, edge_mask)
+        edge_mask = _cuda_mask("fused_gather_mean", x, senders, receivers, edge_mask)
+        num_segments = int(num_segments)
     d = x.shape[1]
-    out = _launch_gather_reduce(
-        "hg_fused_gather_count_f32", "fused_gather_mean", x,
-        edge_mask.to(torch.float32), senders, receivers, num_segments, d + 1,
+    out = _launch_gather_copy(
+        "hg_fused_gather_count_f32", "fused_gather_mean", x, senders, receivers,
+        num_segments, edge_mask, -(-(d + 1) // 4) * 4,
     )
     fused_gather_mean.launches += 1
-    return _mean_from_packed(out, d)
+    return out[:, :d], out[:, d : d + 1]
 
 
 fused_gather_mean.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6 op "mul" (SchNet)
+# ---------------------------------------------------------------------------
 
 
 def _check_weighted_inputs(h, w, senders, receivers, num_segments):
@@ -258,10 +302,14 @@ def fused_gather_weighted_sum(h: torch.Tensor, w: torch.Tensor,
     _check_weighted_inputs(h, w, senders, receivers, num_segments)
     if _on_cpu(h):
         return fused_gather_weighted_sum_plain(h, w, senders, receivers, num_segments)
-    out = _launch_gather_reduce(
-        "hg_fused_gather_mul_f32", "fused_gather_weighted_sum", h, w,
-        senders, receivers, num_segments, h.shape[1],
+    check_cuda_launch("fused_gather_weighted_sum", h, w, senders, receivers)
+    n, d = h.shape
+    out = torch.zeros((num_segments, d), dtype=torch.float32, device=h.device)
+    rc = _build.entry("fused_mp", "hg_fused_gather_mul_f32")(
+        h.data_ptr(), w.data_ptr(), senders.data_ptr(), receivers.data_ptr(),
+        out.data_ptr(), senders.shape[0], n, d, num_segments, _stream(h.device),
     )
+    _build.check(rc, "fused_gather_weighted_sum")
     fused_gather_weighted_sum.launches += 1
     return out
 

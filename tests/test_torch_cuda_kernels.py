@@ -2,6 +2,13 @@
 the same CUDA tensors, at small and main-path-like shapes; and a host batch
 carried to the card in one copy.
 
+K4 and K5's kernel is held at D = 1, 3, 4, 50, 64, 65 and 256 on a batch
+laid out as the served ones (padding edges at the end), on random ids, all
+edges into one receiver, runs of receivers and senders that cross the ends
+of a group's edges and of a tile, and out-of-range senders (in runs) and
+receivers; on an unaligned node table (the scalar path), a float mask and
+no edges at all. K5's degree is held exactly.
+
 K1's run reduction is held on the id patterns that stress it (all ids
 equal; runs that cross a thread's, a block's and a tile's boundary; fully
 unsorted; out-of-range ids in the middle of a run) at D = 1, 3, 50, 256
@@ -198,6 +205,113 @@ def pytest_fused_gather_sum_mean_weighted_kernels_match_plain(card, e, d, s):
         for g, r in zip(got, ref):
             assert g.shape == r.shape
             assert float((g - r).abs().max()) <= tol, kernel.__name__
+
+
+# K4 / K5's kernel (csrc/fused_mp.cu): 128-edge tiles; a group of lanes
+# walks 8 consecutive edges of a tile (at D >= 64), reusing a gathered row
+# while the sender repeats and summing in registers while the receiver does
+COPY_TILE = 128
+COPY_WIDTHS = [1, 3, 4, 50, 64, 65, 256]
+COPY_PATTERNS = ["served", "random", "one_receiver", "runs_across_tiles", "out_of_range"]
+
+
+def _served_copy_case(card, d, seed):
+    """A batch laid out as the served ones: chip_smoke's graphs (from
+    benchmarks/model_bench.py:make_graphs) through collate_graphs, with
+    padding edges at the end (at the last node, mask 0)."""
+    from chip_smoke import make_graphs
+
+    graphs = make_graphs(7, 40, 12, seed=seed)
+    n = sum(g.x.shape[0] for g in graphs)
+    e = sum(g.edge_index.shape[1] for g in graphs)
+    batch = collate_graphs(graphs, n + 9, e + 333, len(graphs) + 1)
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((batch.num_nodes, d)).astype(np.float32)
+    x[~batch.node_mask.numpy()] = 0.0
+    return (torch.from_numpy(x).to(card), batch.senders.to(card), batch.receivers.to(card),
+            batch.edge_mask.to(card), batch.num_nodes)
+
+
+def _copy_case(card, pattern, d, seed=0):
+    """Inputs of K4 / K5: 1741 edges (no multiple of a tile or a group's
+    run) into 700 rows, a bool mask with a tenth masked."""
+    if pattern == "served":
+        return _served_copy_case(card, d, seed)
+    e, s = 13 * COPY_TILE + 77, 700
+    rng = np.random.default_rng(seed + d)
+    x = rng.standard_normal((s, d)).astype(np.float32)
+    snd = rng.integers(0, s, e)
+    if pattern == "random":  # no runs of either id
+        rcv = rng.integers(0, s, e)
+    elif pattern == "one_receiver":  # one run through every tile
+        rcv = np.full(e, s // 2)
+    elif pattern == "runs_across_tiles":  # runs crossing groups' and tiles' ends
+        rcv = np.repeat(rng.permutation(s), 100)[:e]
+        snd = np.repeat(rng.integers(0, s, e), 7)[:e]
+    else:  # out of range both ways, senders in runs (a reused zero row)
+        rcv = rng.integers(-3, s + 3, e)
+        snd = np.repeat(rng.integers(-3, s + 3, e), 3)[:e]
+    mask = rng.random(e) < 0.9
+    arrays = (x, snd.astype(np.int32), rcv.astype(np.int32), mask)
+    return tuple(torch.from_numpy(a).to(card) for a in arrays) + (s,)
+
+
+def _check_copy_kernels(x, snd, rcv, s, mask):
+    """K4 and K5 against their plain versions; K5's deg exactly the mask
+    summed at the in-range receivers; each call one launch."""
+    tol = atomic_tolerance(fused_gather_sum_plain(x.abs(), snd, rcv, s, mask))
+    for kernel, plain in ((fused_gather_sum, fused_gather_sum_plain),
+                          (fused_gather_mean, fused_gather_mean_plain)):
+        before = kernel.launches
+        got = kernel(x, snd, rcv, s, mask)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        ref = plain(x, snd, rcv, s, mask)
+        got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+        for g, r in zip(got, ref):
+            assert g.shape == r.shape
+            assert float((g - r).abs().max()) <= tol, kernel.__name__
+    deg = got[1][:, 0]
+    valid = (rcv >= 0) & (rcv < s)
+    want = torch.zeros(s, device=x.device).index_add_(
+        0, rcv[valid].long(), mask[valid].to(torch.float32))
+    assert torch.equal(deg, want)
+
+
+@pytest.mark.parametrize("d", COPY_WIDTHS)
+@pytest.mark.parametrize("pattern", COPY_PATTERNS)
+def pytest_fused_gather_sum_mean_kernel_id_patterns(card, pattern, d):
+    x, snd, rcv, mask, s = _copy_case(card, pattern, d)
+    _check_copy_kernels(x, snd, rcv, s, mask)
+
+
+@pytest.mark.parametrize("d", [4, 64, 256])
+def pytest_fused_gather_sum_mean_unaligned_view(card, d):
+    """A node table 4 bytes past a 16-byte boundary takes the scalar path."""
+    x, snd, rcv, mask, s = _copy_case(card, "served", d, seed=3)
+    flat = torch.empty(x.numel() + 1, device=card)
+    flat[1:] = x.reshape(-1)
+    x = flat[1:].view(x.shape)
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    _check_copy_kernels(x, snd, rcv, s, mask)
+
+
+@pytest.mark.parametrize("d", [1, 64])
+def pytest_fused_gather_sum_mean_float_mask_and_no_edges(card, d):
+    """A float mask (cast once, weights other than 0 and 1 too) and E = 0."""
+    x, snd, rcv, mask, s = _copy_case(card, "random", d, seed=5)
+    weights = torch.rand(mask.shape, device=card) * mask
+    tol = atomic_tolerance(fused_gather_sum_plain(x.abs(), snd, rcv, s, weights))
+    got = fused_gather_sum(x, snd, rcv, s, weights)
+    assert float((got - fused_gather_sum_plain(x, snd, rcv, s, weights)).abs().max()) <= tol
+    for g, r in zip(fused_gather_mean(x, snd, rcv, s, weights),
+                    fused_gather_mean_plain(x, snd, rcv, s, weights)):
+        assert float((g - r).abs().max()) <= tol
+    none = snd[:0]
+    assert torch.equal(fused_gather_sum(x, none, none, s, mask[:0]), torch.zeros((s, d), device=card))
+    mean, deg = fused_gather_mean(x, none, none, s, mask[:0])
+    assert torch.equal(mean, torch.zeros((s, d), device=card))
+    assert torch.equal(deg, torch.zeros((s, 1), device=card))
 
 
 @pytest.mark.parametrize("e,h,s", [(300, 8, 40), (1000, 33, 77), (20000, 256, 1700)])
