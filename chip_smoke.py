@@ -44,7 +44,9 @@ Phases, in order; any failure raises and exits non-zero:
    the ``{"kernels": [...]}`` summary (per kernel, its main case's
    ``ms`` and median ``device_ms`` beside the bound, the plain version's
    ``plain_ms`` and the library call's ``library_ms`` and
-   ``library_device_ms``), and as the last line
+   ``library_device_ms``; for K2, which no one PyTorch call computes,
+   ``reference_device_ms``: K1's at the same receivers shape, which reads
+   the same bytes), and as the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 ``--cpu-rehearsal`` runs phases 3-4 at a tiny size on the CPU through the
@@ -88,12 +90,14 @@ F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 FULL = dict(hidden=256, layers=3, nodes=90, degree=12, graphs=320, batch=64)
 TINY = dict(hidden=16, layers=2, nodes=12, degree=4, graphs=24, batch=4)
 
+# K2-K5 are one kernel (gather_reduce.cuh) behind the C entries of
+# segment.cu (K2) and fused_mp.cu (K3-K5)
 SOURCE = {
     "segment_sum": "hydragnn_tpu_torch/csrc/segment.cu",
-    "segment_moments": "hydragnn_tpu_torch/csrc/segment.cu",
-    "fused_gather_moments": "hydragnn_tpu_torch/csrc/fused_mp.cu",
-    "fused_gather_sum": "hydragnn_tpu_torch/csrc/fused_mp.cu",
-    "fused_gather_mean": "hydragnn_tpu_torch/csrc/fused_mp.cu",
+    "segment_moments": "hydragnn_tpu_torch/csrc/gather_reduce.cuh",
+    "fused_gather_moments": "hydragnn_tpu_torch/csrc/gather_reduce.cuh",
+    "fused_gather_sum": "hydragnn_tpu_torch/csrc/gather_reduce.cuh",
+    "fused_gather_mean": "hydragnn_tpu_torch/csrc/gather_reduce.cuh",
     "fused_gather_weighted_sum": "hydragnn_tpu_torch/csrc/fused_mp.cu",
     "fused_egnn_edge_phase": "hydragnn_tpu_torch/csrc/fused_egnn.cu",
 }
@@ -686,6 +690,14 @@ def main(argv=None):
             for name, n in served["launches"].items():
                 launches[name] += n
 
+    # K2 beside K1 at the same receivers shape: the same bytes read, a sum
+    # where K2 also keeps squares and a count (a reference, no yardstick)
+    k1_rcv = next(c for c in cases if c["kernel"] == "segment_sum" and not c["main"])
+    k2 = next(c for c in cases if c["kernel"] == "segment_moments" and c["main"])
+    reference = {"segment_moments": (f"segment_sum {k1_rcv['case']}", median(k1_rcv["device_ms"]))}
+    print(f"reference: segment_moments {k2['case']} device_ms {median(k2['device_ms'])} "
+          f"beside segment_sum {k1_rcv['case']} device_ms {median(k1_rcv['device_ms'])}",
+          flush=True)
     summary = []
     for name in KERNELS:
         mine = [c for c in cases if c["kernel"] == name]
@@ -705,6 +717,8 @@ def main(argv=None):
             "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"],
             "library_device_ms": median(main_case["library_device_ms"]),
+            "reference": reference.get(name, (None, None))[0],
+            "reference_device_ms": reference.get(name, (None, None))[1],
         })
     if args.cpu_rehearsal:
         emit({"kernels": summary})

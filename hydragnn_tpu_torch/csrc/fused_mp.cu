@@ -14,8 +14,9 @@
 // outside [0, N), and, when receivers[e] is inside [0, S), into row
 // out[receivers[e]]:
 //
-//   K3: z = (x + ze[e, d]) * mask[e]  (ze may be absent);  z_out[e, d] = z;
-//       packed row [sum z (D) | sum z^2 (D) | sum mask (1)]
+//   K3: z = (x + ze[e, d]) * mask[e]  (ze may be absent);  z_out[e, d] = z
+//       for every edge; row [sum z (D) | sum z^2 (D) | sum mask (1)], each
+//       part 16-byte aligned within the row
 //   K4: row [sum x * mask[e] (D)]
 //   K5: row [sum x * mask[e] (D) | sum mask (1)]
 //   K6: row [sum x * w[e, d] (D)]   (w comes masked)
@@ -30,80 +31,76 @@
 // once, the mask or w, both id arrays) read once and the output written
 // once, over 3.35 TB/s. The gathered rows themselves (E * D * 4 bytes, 70.8
 // MB at the main path's widest K4 call) come from the on-chip caches: the
-// node table (5.9 MB) stays in the 50 MB L2.
+// node table (5.9 MB) stays in the 50 MB L2. K3 also reads ze and writes
+// z once, E * D * 4 bytes each, which set its least time.
 //
-// K3 and K6: one thread per (edge, column) element, a grid-stride loop; one
-// f32 atomicAdd per output element (K3: two, plus the count by the column-0
-// thread) into the receiver's row, whose packed width 2D+1 (K3) is odd, so
-// the output is addressed with scalar accesses. `out` must be zeroed by the
-// caller. Where the TPU kernel took the edge encoding and the mask as one
-// packed [E, D+1] operand, K3 takes them as two, so the caller never
-// concatenates an [E, D] array.
+// K3, K4 and K5: one gather-reduce kernel laid out for this card
+// (gather_reduce.cuh; K2 runs it too, on rows read in order). What held
+// the first designs (one thread per (edge, column) element) back was not
+// the bytes but the per-element work and the scalar global atomics: 17.7 M
+// per call at K4's widest shape, 35.4 M at K3's (a sum and a square per
+// element). A block stages a tile of consecutive edges' ids and mask in
+// shared memory. A group of lanes then walks consecutive edges of the tile
+// across a slab of 256 columns in 16-byte chunks, lanes apart, so a row's
+// 1 KB comes in as contiguous pieces and one edge's ids, mask and run test
+// serve 256 columns; two edges' rows are in flight per lane. A row gathered
+// for the edge before is reused while the sender repeats, and the rows add
+// in registers while the receiver repeats (K1's run reduction,
+// csrc/segment.cu); at a change of receiver the run goes out with one
+// atomic per chunk (16 bytes on the vector path). The id order only
+// decides how often a row is reused or a run flushed: any order is right.
 //
-// K4 and K5: one gather-reduce kernel laid out for this card. What held the
-// one-thread-per-element design back was not the bytes but its 17.7 M
-// scalar global atomics per call at the main path's widest shape. A block
-// takes a tile of 128 consecutive edges and stages their ids and mask in
-// shared memory. A group of up to 16 lanes then walks 8 consecutive edges
-// (at D >= 64) across a whole slab of 256 columns: each lane owns 4 chunks
-// of 16 bytes, 16 lanes apart, so a row's 1 KB comes in as four contiguous
-// 256-byte pieces and one edge's ids, mask and run test serve 256 columns;
-// two edges' rows are in flight per lane. A row gathered for the edge
-// before is reused while the sender repeats, and the rows add in registers
-// while the receiver repeats (K1's run reduction, csrc/segment.cu); at a
-// change of receiver the run goes out with one atomic per chunk (16 bytes
-// on the vector path). On the served layout (each graph's edges
-// contiguous, half of them in runs of 6 senders, half in runs of 6
-// receivers) that skips 5 of 6 gathers on one half and 5 of 6 atomics on
-// the other. The id order only decides how often a row is reused or a run
-// flushed: any order is right. Two blocks share an SM (no spills; held to
-// three, the loop spills and runs slower). What bounds the kernel now is
-// the gather of the rows from the caches. A shared-memory window of
-// receivers ran slower on the card, both as f32 sums (shared f32 atomics
-// compile to compare-and-swap loops on sm_90) and as a counting sort of the
-// tile by receiver (the sort costs more than the atomics it saves, and it
-// breaks up the sender runs). Without the float4 path (D % 4 != 0, or rows
-// not 16-byte aligned) lanes own single floats, up to 32 of them; D = 1 is
-// one lane per edge. K5's count rides along as one more register, flushed
-// by lane 0 of the slab-0 block; its output rows are padded to a multiple
-// of 4 floats (ldo), so the data chunks stay 16-byte aligned, and a second
-// kernel then divides the sums by the count in place. A bool mask is read
-// as bytes. The C entries zero their own output on the caller's stream.
+// K4 and K5: 128-edge tiles, 16 lanes x 4 chunks per slab, 8 edges per
+// group. On the served layout (each graph's edges contiguous, half of them
+// in runs of 6 senders, half in runs of 6 receivers) that skips 5 of 6
+// gathers on one half and 5 of 6 atomics on the other. Two blocks share an
+// SM (95 registers, no spills; held to three, the loop spills and runs
+// slower). What bounds them is the gather of the rows from the caches. A
+// shared-memory window of receivers ran slower on the card, as f32 sums
+// (shared f32 atomics compile to compare-and-swap loops on sm_90) and as a
+// counting sort (the sort cost more than the few atomics it saved).
+//
+// K3 (and K2): the moments keep two sums per chunk, z = (x (+ ze)) * mask
+// and z^2, so a group is 32 lanes x 2 chunks (80 registers, no spills;
+// with 16 x 4 the loop spilled). At a change of receiver a run goes out to
+// both halves of the row, so here the atomics set the pace: knocking them
+// out of the unsorted walk saved 32 of its 68 us at D = 256 on an NVIDIA
+// H100 80GB HBM3 at 700 W, as do all times here (PERF.md). On
+// wide rows (8 lanes or more) a block therefore takes 256 edges and sorts
+// them by receiver first (a bitonic sort of (receiver, position) keys in
+// shared memory): a receiver's scattered edges in the tile then make one
+// run, which cut the call from 66 to 55 us; sender runs are lost, but the
+// node table comes from L2. On narrow rows the sort costs more than it
+// saves (D = 1: 9 us unsorted, 24 sorted), so they walk in tile order with
+// 4 edges per group. z, E * D * 4 bytes (70.8 MB at D = 256, more than the
+// L2 holds), goes out with evict-first stores, so that the node table
+// stays in L2 (12 us faster than plain stores), and ze is read the same
+// way. K3's count (like K5's) rides along as one more register, flushed by
+// lane 0 of the slab-0 block.
+//
+// The output rows are padded (ldo) so that every part of a row starts 16
+// bytes apart from the row's start: K5's [sum (D) | count] with ldo a
+// multiple of 4, K3's [sum (D) | pad | sum of squares (D) | pad | count |
+// pad] with the squares at sq_off and the count at cnt_off (the wrapper's
+// layout, ops/segment_kernels.moments_layout). K5's C entry then divides
+// the sums by the count in place. Without the float4 path (D % 4 != 0, or
+// a pointer not 16-byte aligned) lanes own single floats. A bool mask is
+// read as bytes. The C entries zero their own output on the caller's
+// stream.
+//
+// K6 keeps the first design: one thread per (edge, column) element, a
+// grid-stride loop, one f32 atomicAdd per element into the receiver's
+// row; `out` must be zeroed by the caller.
 
-#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gather_reduce.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int64_t kMaxBlocks = 1 << 20;
-
-__global__ void fused_gather_moments_kernel(
-    const float* __restrict__ yj, const float* __restrict__ ze,
-    const float* __restrict__ mask, const int32_t* __restrict__ senders,
-    const int32_t* __restrict__ receivers, float* __restrict__ out,
-    float* __restrict__ z_out, int64_t E, int N, int D, int S) {
-  const int64_t n = E * D;
-  const int64_t width = 2 * (int64_t)D + 1;
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t e = i / D;
-    const int d = (int)(i - e * D);
-    const int32_t s = senders[e];
-    float x = (s >= 0 && s < N) ? yj[(int64_t)s * D + d] : 0.0f;
-    if (ze != nullptr) x += ze[i];
-    const float m = mask[e];
-    const float z = x * m;
-    z_out[i] = z;
-    const int32_t r = receivers[e];
-    if (r < 0 || r >= S) continue;
-    float* row = out + (int64_t)r * width;
-    atomicAdd(row + d, z);
-    atomicAdd(row + D + d, z * z);
-    if (d == 0) atomicAdd(row + 2 * D, m);
-  }
-}
 
 // K6: h [N, D] gathered, times w [E, D], summed at the receivers.
 __global__ void fused_gather_mul_kernel(
@@ -128,172 +125,11 @@ int64_t grid_for(int64_t n) {
   return blocks > kMaxBlocks ? kMaxBlocks : blocks;
 }
 
-// ---- K4 / K5 -----------------------------------------------------------
+// ---- K3, K4, K5 ------------------------------------------------------
 
-constexpr int kCopyThreads = 256;
-constexpr int kCopyBlocks = 2;  // resident blocks per SM: up to 128 registers, no spills
-constexpr int kTile = 128;      // consecutive edges per block
-constexpr int kPerLane = 4;     // chunks a lane owns in a slab, lanes apart
-constexpr int kInFlight = 2;    // edges a lane has in flight (8 chunks)
-
-template <typename T>
-struct Chunk;  // 4 floats or 1
-
-template <>
-struct Chunk<float4> {
-  static constexpr int kWidth = 4;
-  static constexpr int kMaxLanes = 16;  // 16 x 4 chunks: a slab of 256 columns
-  static __device__ __forceinline__ float4 zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
-  static __device__ __forceinline__ float4 load(const float* p) {
-    return __ldg(reinterpret_cast<const float4*>(p));
-  }
-  static __device__ __forceinline__ void add(float4& a, const float4& v, float m) {
-    a.x += v.x * m; a.y += v.y * m; a.z += v.z * m; a.w += v.w * m;
-  }
-  static __device__ __forceinline__ void flush(float* p, const float4& v) {
-    atomicAdd(reinterpret_cast<float4*>(p), v);  // sm_90: one vector atomic
-  }
-  static __device__ __forceinline__ void divide(float* p, float c) {
-    float4 v = *reinterpret_cast<float4*>(p);
-    v.x /= c; v.y /= c; v.z /= c; v.w /= c;
-    *reinterpret_cast<float4*>(p) = v;
-  }
-};
-
-template <>
-struct Chunk<float> {
-  static constexpr int kWidth = 1;
-  static constexpr int kMaxLanes = 32;
-  static __device__ __forceinline__ float zero() { return 0.f; }
-  static __device__ __forceinline__ float load(const float* p) { return __ldg(p); }
-  static __device__ __forceinline__ void add(float& a, float v, float m) { a += v * m; }
-  static __device__ __forceinline__ void flush(float* p, float v) { atomicAdd(p, v); }
-  static __device__ __forceinline__ void divide(float* p, float c) { *p /= c; }
-};
-
-// One block: edges [tile * kTile, + kTile) and the column chunks of one
-// slab, kPerLane * lanes of them; lane l of a group owns chunks l, l +
-// lanes, l + 2 * lanes, ... of the slab, so each of its loads is one
-// contiguous run of the row across the group. lanes is a power of two
-// dividing kCopyThreads.
-template <typename T>
-__global__ void __launch_bounds__(kCopyThreads, kCopyBlocks) gather_copy_kernel(
-    const float* __restrict__ x, const void* __restrict__ mask, int mask_is_bool,
-    const int32_t* __restrict__ senders, const int32_t* __restrict__ receivers,
-    float* __restrict__ out, int64_t E, int N, int D, int S, int ldo, int count,
-    int lanes, int slabs) {
-  using C = Chunk<T>;
-  __shared__ int32_t s_snd[kTile], s_rcv[kTile];
-  __shared__ float s_m[kTile];
-
-  const int tid = threadIdx.x;
-  const int64_t tile = blockIdx.x / slabs;
-  const int slab = (int)(blockIdx.x - tile * slabs);
-  const int64_t e0 = tile * kTile;
-
-  // 1. stage the tile's ids (out of range: -1) and mask
-  for (int i = tid; i < kTile; i += kCopyThreads) {
-    const int64_t e = e0 + i;
-    int32_t s = -1, r = -1;
-    float m = 0.f;
-    if (e < E) {
-      s = __ldg(senders + e);
-      r = __ldg(receivers + e);
-      m = mask_is_bool ? (__ldg(static_cast<const uint8_t*>(mask) + e) ? 1.f : 0.f)
-                       : __ldg(static_cast<const float*>(mask) + e);
-    }
-    s_snd[i] = (s >= 0 && s < N) ? s : -1;  // gathers a zero row
-    s_rcv[i] = (r >= 0 && r < S) ? r : -1;  // adds nothing
-    s_m[i] = m;
-  }
-  __syncthreads();
-
-  // 2. each group walks its consecutive edges: a row gathered for the edge
-  //    before is reused while the sender repeats, and the rows add in
-  //    registers while the receiver repeats, one global atomic per run and
-  //    chunk
-  const int g = tid / lanes, l = tid - g * lanes;
-  const int groups = kCopyThreads / lanes;
-  const int per = kTile > groups ? kTile / groups : 1;
-  const int q0 = g * per, q1 = min(q0 + per, kTile);
-  const int chunks = D / C::kWidth;
-  int col[kPerLane];
-  bool active[kPerLane];
-#pragma unroll
-  for (int k = 0; k < kPerLane; ++k) {
-    const int c = (slab * kPerLane + k) * lanes + l;
-    col[k] = c * C::kWidth;
-    active[k] = c < chunks;
-  }
-  const bool counts = count && slab == 0 && l == 0;
-  T acc[kPerLane], last[kPerLane];
-#pragma unroll
-  for (int k = 0; k < kPerLane; ++k) acc[k] = last[k] = C::zero();
-  float cnt = 0.f;
-  int cur = -1, s_last = -1;
-  auto flush = [&]() {
-    if (cur < 0) return;
-    float* row = out + (int64_t)cur * ldo;
-#pragma unroll
-    for (int k = 0; k < kPerLane; ++k)
-      if (active[k]) C::flush(row + col[k], acc[k]);
-    if (counts) atomicAdd(row + D, cnt);
-  };
-  for (int q = q0; q < q1; q += kInFlight) {
-    int32_t r[kInFlight];
-    float m[kInFlight];
-    T v[kInFlight][kPerLane];
-#pragma unroll
-    for (int u = 0; u < kInFlight; ++u) {
-      const bool in = q + u < q1;
-      const int32_t s = in ? s_snd[q + u] : -1;
-      r[u] = in ? s_rcv[q + u] : -1;
-      m[u] = in ? s_m[q + u] : 0.f;
-      const bool fresh = s != s_last;
-      const float* xs = x + (int64_t)s * D;
-#pragma unroll
-      for (int k = 0; k < kPerLane; ++k) {
-        const T prev = u == 0 ? last[k] : v[u > 0 ? u - 1 : 0][k];
-        v[u][k] = !fresh ? prev : (active[k] && s >= 0 ? C::load(xs + col[k]) : C::zero());
-      }
-      s_last = s;
-    }
-#pragma unroll
-    for (int u = 0; u < kInFlight; ++u) {
-      if (r[u] < 0) continue;  // adds nothing
-      if (r[u] != cur) {
-        flush();
-        cur = r[u];
-#pragma unroll
-        for (int k = 0; k < kPerLane; ++k) acc[k] = C::zero();
-        cnt = 0.f;
-      }
-#pragma unroll
-      for (int k = 0; k < kPerLane; ++k) C::add(acc[k], v[u][k], m[u]);
-      cnt += m[u];
-    }
-#pragma unroll
-    for (int k = 0; k < kPerLane; ++k) last[k] = v[kInFlight - 1][k];
-  }
-  flush();
-}
-
-template <typename T>
-cudaError_t launch_copy(const float* x, const void* mask, int mask_is_bool,
-                        const int32_t* senders, const int32_t* receivers, float* out,
-                        int64_t E, int N, int D, int S, int ldo, int count,
-                        cudaStream_t stream) {
-  using C = Chunk<T>;
-  const int chunks = D / C::kWidth;
-  int lanes = 1;
-  while (lanes * kPerLane < chunks && lanes < C::kMaxLanes) lanes *= 2;
-  const int per_slab = lanes * kPerLane;
-  const int slabs = chunks > 0 ? (chunks + per_slab - 1) / per_slab : 1;  // D = 0: the count
-  const int64_t blocks = (E + kTile - 1) / kTile * slabs;
-  gather_copy_kernel<T><<<(unsigned)blocks, kCopyThreads, 0, stream>>>(
-      x, mask, mask_is_bool, senders, receivers, out, E, N, D, S, ldo, count, lanes, slabs);
-  return cudaGetLastError();
-}
+using hg::Chunk;
+using hg::GatherArgs;
+using hg::Op;
 
 // K5's mean, in place: columns [0, D) of every row divided by the row's
 // count at column D, at least 1 (a NaN count stays NaN, as torch.clamp).
@@ -318,22 +154,15 @@ int gather_copy(const void* x, const void* mask, int mask_is_bool, const void* s
                 int ldo, int count, void* stream) {
   if (D < 0 || ldo < D + count || E < 0 || N < 0 || S < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t out_bytes = (size_t)S * (size_t)ldo * sizeof(float);
-  if (out_bytes > 0) {
-    const cudaError_t err = cudaMemsetAsync(out, 0, out_bytes, st);
-    if (err != cudaSuccess) return (int)err;
-  }
+  cudaError_t err = hg::zero_rows(out, S, ldo, st);
+  if (err != cudaSuccess) return (int)err;
   if (E == 0 || S == 0 || D + count == 0) return (int)cudaGetLastError();
-  const bool vec = D % 4 == 0 && D > 0 && ldo % 4 == 0 && (uintptr_t)x % 16 == 0 &&
-                   (uintptr_t)out % 16 == 0;
-  const int32_t* snd = (const int32_t*)senders;
-  const int32_t* rcv = (const int32_t*)receivers;
-  cudaError_t err =
-      vec ? launch_copy<float4>((const float*)x, mask, mask_is_bool, snd, rcv, (float*)out, E,
-                                N, D, S, ldo, count, st)
-          : launch_copy<float>((const float*)x, mask, mask_is_bool, snd, rcv, (float*)out, E,
-                               N, D, S, ldo, count, st);
+  const GatherArgs a{(const float*)x, nullptr, mask, mask_is_bool,
+                     (const int32_t*)senders, (const int32_t*)receivers, (float*)out, nullptr,
+                     E, N, D, S, ldo, 0, count ? D : -1, 0, 0, 0, 0};
+  err = hg::launch_gather<Op::kSum>(a, st);
   if (err != cudaSuccess || !count || D == 0) return (int)err;
+  const bool vec = D % 4 == 0 && ldo % 4 == 0 && hg::aligned16(out);
   const int64_t n = (int64_t)S * (vec ? D / 4 : D);
   if (vec)
     mean_rows_kernel<float4><<<(unsigned)grid_for(n), kThreads, 0, st>>>((float*)out, S, D, ldo);
@@ -344,21 +173,21 @@ int gather_copy(const void* x, const void* mask, int mask_is_bool, const void* s
 
 }  // namespace
 
-extern "C" int hg_fused_gather_moments_f32(const void* yj, const void* ze,
-                                           const void* mask,
-                                           const void* senders,
-                                           const void* receivers, void* out,
-                                           void* z, long long E, int N, int D,
-                                           int S, void* stream) {
-  const int64_t n = (int64_t)E * D;
-  if (n > 0) {
-    fused_gather_moments_kernel<<<(unsigned)grid_for(n), kThreads, 0,
-                                  (cudaStream_t)stream>>>(
-        (const float*)yj, (const float*)ze, (const float*)mask,
-        (const int32_t*)senders, (const int32_t*)receivers, (float*)out,
-        (float*)z, E, N, D, S);
-  }
-  return (int)cudaGetLastError();
+// K3. yj [N, D], ze [E, D] or null, mask [E] (bool bytes when mask_is_bool,
+// else f32) -> z [E, D], written for every edge, and out [S, ldo]: columns
+// [0, D) the sum of z, [sq_off, sq_off + D) the sum of z^2, cnt_off the sum
+// of the mask; zeroed here on `stream`
+extern "C" int hg_fused_gather_moments_f32(const void* yj, const void* ze, const void* mask,
+                                           int mask_is_bool, const void* senders,
+                                           const void* receivers, void* out, void* z,
+                                           long long E, int N, int D, int S, int ldo,
+                                           int sq_off, int cnt_off, void* stream) {
+  const GatherArgs a{(const float*)yj, (const float*)ze, mask, mask_is_bool,
+                     (const int32_t*)senders, (const int32_t*)receivers, (float*)out, (float*)z,
+                     E, N, D, S, ldo, sq_off, cnt_off, 0, 0, 0, 0};
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)(ze != nullptr ? hg::launch_moments<Op::kMomentsZe>(a, st)
+                             : hg::launch_moments<Op::kMoments>(a, st));
 }
 
 // x [N, D], mask [E] (bool bytes when mask_is_bool, else f32) -> out [S, ldo],

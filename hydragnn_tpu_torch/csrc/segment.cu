@@ -11,9 +11,11 @@
 // ids. The moments entry also gives sq[s] = sum of data[e]^2 and cnt[s] =
 // the number of in-range ids equal to s, unweighted (the one-hot row sums
 // of _onehot, pallas_segment.py:90-94: the padding node counts the padded
-// edges). Accumulation is f32. hg_segment_sum_f32 zeroes its output itself
-// (cudaMemsetAsync on the caller's stream); the moments outputs must be
-// zeroed by the caller.
+// edges), packed in one row [sum (D) | pad | sum of squares (D) | pad |
+// count | pad] whose parts start 16 bytes apart from the row's start (the
+// wrapper's layout, ops/segment_kernels.moments_layout). Accumulation is
+// f32. Both entries zero their output themselves (cudaMemsetAsync on the
+// caller's stream).
 //
 // What bounds both on the card: bytes. Each element is read once and does
 // one add (two and a multiply for the moments), far below the H100's ratio
@@ -41,13 +43,25 @@
 // in the last bits; the tolerance against the plain version is relative,
 // about 1e-5 * (max |partial sum| + 1).
 //
-// The moments (K2) keep the first design: one thread per (edge, column)
-// element over the flat [E, D] array, a grid-stride loop, and f32 atomics
-// into row ids[e] of each output.
+// Design of the moments (K2): the gather-reduce kernel of K3-K5
+// (gather_reduce.cuh, Op::kRows), reading the rows in order instead of
+// gathering them; fused_mp.cu's header describes it. The first design, a
+// thread per (edge, column) element with a 64-bit divide and three scalar
+// atomics, spent ~95 us of its 109 at the served receivers shape before
+// any atomic (a knockout; NVIDIA H100 80GB HBM3 at 700 W, as all times
+// here, PERF.md). On wide rows a block sorts 256 consecutive ids, a group
+// of 32 lanes walks 32 of them in that order across a 256-column slab, 2
+// chunks of 16 bytes per lane, sums and squares in registers while the id
+// repeats, and at a change of id makes one 16-byte atomic per chunk to
+// each half; lane 0 of the slab-0 block adds the run's length to the
+// count: 45 us at D = 256 (K1 reads the same bytes in 40). K1's layout
+// above, with squares and a count, took 59 us there unsorted (the kernel
+// laid out as K4 unsorted: 58), and 8.9 us at D = 1 against 8.0.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gather_reduce.cuh"
 #include "sm_count.cuh"
 
 namespace {
@@ -126,27 +140,6 @@ __global__ void __launch_bounds__(kThreads) segment_sum_runs_kernel(
   }
 }
 
-__global__ void segment_moments_kernel(const float* __restrict__ data,
-                                       const int32_t* __restrict__ ids,
-                                       float* __restrict__ sum,
-                                       float* __restrict__ cnt,
-                                       float* __restrict__ sq, int64_t E,
-                                       int D, int S) {
-  const int64_t n = E * D;
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t e = i / D;
-    const int d = (int)(i - e * D);
-    const int32_t s = ids[e];
-    if (s < 0 || s >= S) continue;
-    const float v = data[i];
-    const int64_t o = (int64_t)s * D + d;
-    atomicAdd(sum + o, v);
-    atomicAdd(sq + o, v * v);
-    if (d == 0) atomicAdd(cnt + s, 1.0f);
-  }
-}
-
 // Rows per thread: as many as still leave 512 threads for each of the
 // card's SMs, between 8 and 32 and a multiple of kUnroll (longer slices
 // mean fewer atomics on sorted ids).
@@ -192,18 +185,16 @@ extern "C" int hg_segment_sum_f32(const void* data, const void* ids, void* out,
   return (int)cudaGetLastError();
 }
 
-extern "C" int hg_segment_moments_f32(const void* data, const void* ids,
-                                      void* sum, void* cnt, void* sq,
-                                      long long E, int D, int S,
-                                      void* stream) {
-  const int64_t n = (int64_t)E * D;
-  if (n > 0) {
-    segment_moments_kernel<<<(unsigned)blocks_for(n), kThreads, 0,
-                             (cudaStream_t)stream>>>(
-        (const float*)data, (const int32_t*)ids, (float*)sum, (float*)cnt,
-        (float*)sq, E, D, S);
-  }
-  return (int)cudaGetLastError();
+// data [E, D] f32, ids [E] i32 -> out [S, ldo] f32, zeroed here on
+// `stream`: columns [0, D) the sum, [sq_off, sq_off + D) the sum of
+// squares, cnt_off the number of in-range ids.
+extern "C" int hg_segment_moments_f32(const void* data, const void* ids, void* out,
+                                      long long E, int D, int S, int ldo, int sq_off,
+                                      int cnt_off, void* stream) {
+  const hg::GatherArgs a{(const float*)data, nullptr, nullptr, 0, nullptr,
+                         (const int32_t*)ids, (float*)out, nullptr, E, 0, D, S, ldo,
+                         sq_off, cnt_off, 0, 0, 0, 0};
+  return (int)hg::launch_moments<hg::Op::kRows>(a, (cudaStream_t)stream);
 }
 
 extern "C" const char* hg_error_string(int code) {

@@ -40,14 +40,15 @@ _SIGNATURES = {
     "segment": {
         # data, ids, out, E, D, S, stream
         "hg_segment_sum_f32": [_P, _P, _P, _I64, _I32, _I32, _P],
-        # data, ids, sum, cnt, sq, E, D, S, stream
-        "hg_segment_moments_f32": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _P],
+        # data, ids, out, E, D, S, out's row stride, sq_off, cnt_off, stream
+        "hg_segment_moments_f32": [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P],
         "hg_error_string": [_I32],
     },
     "fused_mp": {
-        # yj, ze (nullable), mask, senders, receivers, out, z, E, N, D, S, stream
+        # yj, ze (nullable), mask, mask is bool, senders, receivers, out, z,
+        # E, N, D, S, out's row stride, sq_off, cnt_off, stream
         "hg_fused_gather_moments_f32": [
-            _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P,
+            _P, _P, _P, _I32, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _I32, _P,
         ],
         # x, mask, mask is bool, senders, receivers, out, E, N, D, S,
         # out's row stride, stream

@@ -32,6 +32,8 @@ from hydragnn_tpu_torch.ops.segment_kernels import (
     _on_cpu,
     _stream,
     check_cuda_launch,
+    moments_layout,
+    moments_views,
     segment_sum_plain,
 )
 
@@ -123,27 +125,35 @@ def fused_gather_moments(yj: torch.Tensor, senders: torch.Tensor,
     returned per edge for the min/max pass. Out-of-range senders gather a
     zero row; out-of-range receivers add nothing; count sums the mask.
 
-    Returns ``(s [S, D], cnt [S, 1], sq [S, D], z [E, D])``, float32."""
+    Returns ``(s [S, D], cnt [S, 1], sq [S, D], z [E, D])``, float32.
+
+    On the card ``s``, ``cnt`` and ``sq`` are views of one ``[S, ldo]``
+    buffer from ``torch.empty`` (``segment_kernels.moments_views``), which
+    the C entry zeroes on the current stream; a bool mask is read as bytes,
+    any other mask cast to f32 once."""
     _check_moments_inputs(yj, senders, receivers, num_segments, edge_mask, ze)
     if _on_cpu(yj):
         return fused_gather_moments_plain(
             yj, senders, receivers, num_segments, edge_mask, ze
         )
-    mask = edge_mask.to(torch.float32)
-    tensors = (yj, senders, receivers, mask) + (() if ze is None else (ze,))
-    check_cuda_launch("fused_gather_moments", *tensors)
+    mask = _cuda_mask("fused_gather_moments", yj, senders, receivers, edge_mask)
+    if ze is not None:
+        check_cuda_launch("fused_gather_moments", ze)
     n, d = yj.shape
     e = senders.shape[0]
-    out = torch.zeros((num_segments, 2 * d + 1), dtype=torch.float32, device=yj.device)
-    z = torch.empty((e, d), dtype=torch.float32, device=yj.device)
+    num_segments = int(num_segments)
+    sq_off, cnt_off, ldo = moments_layout(d)
+    out = yj.new_empty((num_segments, ldo))
+    z = yj.new_empty((e, d))
     rc = _build.entry("fused_mp", "hg_fused_gather_moments_f32")(
         yj.data_ptr(), None if ze is None else ze.data_ptr(), mask.data_ptr(),
-        senders.data_ptr(), receivers.data_ptr(), out.data_ptr(), z.data_ptr(),
-        e, n, d, num_segments, _stream(yj.device),
+        mask.dtype is _BOOL, senders.data_ptr(), receivers.data_ptr(), out.data_ptr(),
+        z.data_ptr(), e, n, d, num_segments, ldo, sq_off, cnt_off, _stream(yj.device),
     )
-    _build.check(rc, "fused_gather_moments")
+    if rc:
+        _build.check(rc, "fused_gather_moments")
     fused_gather_moments.launches += 1
-    return out[:, :d], out[:, 2 * d :], out[:, d : 2 * d], z
+    return moments_views(out, d) + (z,)
 
 
 fused_gather_moments.launches = 0
@@ -181,9 +191,10 @@ def _gather_copy_ready(x, senders, receivers, num_segments, edge_mask):
 
 
 def _cuda_mask(name, x, senders, receivers, edge_mask):
-    """The launch checks of inputs that failed :func:`_gather_copy_ready`;
-    returns the mask the kernel reads: a bool mask as it is (bytes), any
-    other cast to f32 once."""
+    """The launch checks of a gather kernel's inputs (K3's, and K4's or
+    K5's that failed :func:`_gather_copy_ready`); returns the mask the
+    kernel reads: a bool mask as it is (bytes), any other cast to f32
+    once."""
     mask = edge_mask if edge_mask.dtype is _BOOL else edge_mask.to(_F32)
     check_cuda_launch(name, x, mask, senders, receivers)
     return mask

@@ -172,26 +172,48 @@ def segment_moments_plain(data: torch.Tensor, segment_ids: torch.Tensor,
     return out[:, :d], out[:, 2 * d :], out[:, d : 2 * d]
 
 
+def moments_layout(d: int):
+    """Where K2 and K3 put their statistics in a packed ``[S, ldo]`` row:
+    ``[sum (D) | pad | sum of squares (D) | pad | count | pad]``, each part
+    starting a multiple of 4 floats (16 bytes) into the row and ``ldo`` a
+    multiple of 4, so that on the float4 path every run goes out as
+    16-byte atomics. Returns ``(sq_off, cnt_off, ldo)``."""
+    d4 = -(-d // 4) * 4
+    return d4, 2 * d4, 2 * d4 + 4
+
+
+def moments_views(out: torch.Tensor, d: int):
+    """``(sum [S, D], count [S, 1], sum_of_squares [S, D])``: views of a
+    packed ``[S, ldo]`` row laid out by :func:`moments_layout`."""
+    sq_off, cnt_off, _ = moments_layout(d)
+    return out[:, :d], out[:, cnt_off : cnt_off + 1], out[:, sq_off : sq_off + d]
+
+
 def segment_moments(data: torch.Tensor, segment_ids: torch.Tensor,
                     num_segments: int):
     """K2: ``(sum [S, D], count [S, 1], sum_of_squares [S, D])`` per
-    segment in one pass. ``count`` counts every in-range id, unweighted."""
+    segment in one pass. ``count`` counts every in-range id, unweighted.
+
+    On the card the three are views of one ``[S, ldo]`` buffer from
+    ``torch.empty`` (:func:`moments_views`), which the C entry zeroes on the
+    current stream; each run of equal ids is reduced in registers before
+    one atomic per part (``csrc/gather_reduce.cuh``)."""
     check_segment_inputs(data, segment_ids, num_segments)
     if _on_cpu(data):
         return segment_moments_plain(data, segment_ids, num_segments)
     check_cuda_launch("segment_moments", data, segment_ids)
     e, d = data.shape
-    dev = data.device
-    s = torch.zeros((num_segments, d), dtype=torch.float32, device=dev)
-    cnt = torch.zeros((num_segments, 1), dtype=torch.float32, device=dev)
-    sq = torch.zeros((num_segments, d), dtype=torch.float32, device=dev)
+    num_segments = int(num_segments)
+    sq_off, cnt_off, ldo = moments_layout(d)
+    out = data.new_empty((num_segments, ldo))
     rc = _build.entry("segment", "hg_segment_moments_f32")(
-        data.data_ptr(), segment_ids.data_ptr(), s.data_ptr(), cnt.data_ptr(),
-        sq.data_ptr(), e, d, num_segments, _stream(dev),
+        data.data_ptr(), segment_ids.data_ptr(), out.data_ptr(), e, d, num_segments,
+        ldo, sq_off, cnt_off, _stream(data.device),
     )
-    _build.check(rc, "segment_moments")
+    if rc:
+        _build.check(rc, "segment_moments")
     segment_moments.launches += 1
-    return s, cnt, sq
+    return moments_views(out, d)
 
 
 segment_moments.launches = 0

@@ -9,6 +9,13 @@ of a group's edges and of a tile, and out-of-range senders (in runs) and
 receivers; on an unaligned node table (the scalar path), a float mask and
 no edges at all. K5's degree is held exactly.
 
+K3 and K2 (PNA's statistics) are held at D = 1, 3, 4, 50, 64, 256, 260
+and 512 on a served batch and on sorted, random, all-equal, out-of-range
+and tile-crossing runs of ids, with padding edges at the last row, K3 with
+and without ``ze``, z compared on every edge, and each kernel's count held
+exactly to its own rule; on unaligned views (the scalar path), a float
+mask and no edges at all.
+
 K1's run reduction is held on the id patterns that stress it (all ids
 equal; runs that cross a thread's, a block's and a tile's boundary; fully
 unsorted; out-of-range ids in the middle of a run) at D = 1, 3, 50, 256
@@ -207,9 +214,10 @@ def pytest_fused_gather_sum_mean_weighted_kernels_match_plain(card, e, d, s):
             assert float((g - r).abs().max()) <= tol, kernel.__name__
 
 
-# K4 / K5's kernel (csrc/fused_mp.cu): 128-edge tiles; a group of lanes
-# walks 8 consecutive edges of a tile (at D >= 64), reusing a gathered row
-# while the sender repeats and summing in registers while the receiver does
+# K4 / K5's kernel (csrc/gather_reduce.cuh): 128-edge tiles; a group of
+# lanes walks 8 consecutive edges of a tile (at D >= 64), reusing a gathered
+# row while the sender repeats and summing in registers while the receiver
+# does
 COPY_TILE = 128
 COPY_WIDTHS = [1, 3, 4, 50, 64, 65, 256]
 COPY_PATTERNS = ["served", "random", "one_receiver", "runs_across_tiles", "out_of_range"]
@@ -312,6 +320,130 @@ def pytest_fused_gather_sum_mean_float_mask_and_no_edges(card, d):
     mean, deg = fused_gather_mean(x, none, none, s, mask[:0])
     assert torch.equal(mean, torch.zeros((s, d), device=card))
     assert torch.equal(deg, torch.zeros((s, 1), device=card))
+
+
+# K3 and K2 (csrc/gather_reduce.cuh, the K4/K5 tile walk with a sum of
+# squares; K3 writes z per edge, K2 reads its rows in order): both put their
+# statistics in one packed [S, ldo] row (moments_layout). From 8 lanes per
+# group on (D >= 29 on single floats, D >= 64 on float4) a block sorts its
+# 256 edges by receiver first; narrower rows walk in tile order
+MOMENT_WIDTHS = [1, 3, 4, 50, 64, 256, 260, 512]
+MOMENT_PATTERNS = ["served", "sorted", "random", "all_equal", "runs_across_tiles",
+                   "out_of_range"]
+
+
+def _moments_case(card, pattern, d, seed=0):
+    """Inputs of K3 (and K2 on its z): 1741 edges (no multiple of a tile or
+    a group's run) into 700 rows, the last 10% padding edges at row 699
+    (mask 0), as a served batch has; or a served batch itself."""
+    if pattern == "served":
+        return _served_copy_case(card, d, seed)
+    e, s = 13 * COPY_TILE + 77, 700
+    rng = np.random.default_rng(seed + d)
+    x = rng.standard_normal((s, d)).astype(np.float32)
+    snd = rng.integers(0, s - 1, e)
+    if pattern == "sorted":
+        rcv = np.sort(rng.integers(0, s - 1, e))
+    elif pattern == "random":
+        rcv = rng.integers(0, s - 1, e)
+    elif pattern == "all_equal":
+        rcv = np.full(e, s // 2)
+    elif pattern == "runs_across_tiles":  # runs of 100 crossing every tile's end
+        rcv = np.repeat(rng.permutation(s - 1), 100)[:e]
+        snd = np.repeat(rng.integers(0, s - 1, e), 7)[:e]
+    else:  # out of range both ways, senders in runs (a reused zero row)
+        rcv = rng.integers(-3, s + 3, e)
+        snd = np.repeat(rng.integers(-3, s + 3, e), 3)[:e]
+    mask = np.ones(e, bool)
+    pad = e // 10
+    snd[-pad:], rcv[-pad:], mask[-pad:] = s - 1, s - 1, False
+    arrays = (x, snd.astype(np.int32), rcv.astype(np.int32), mask)
+    return tuple(torch.from_numpy(a).to(card) for a in arrays) + (s,)
+
+
+def _moments_tolerance(z, rcv, s):
+    return atomic_tolerance(segment_sum_plain(torch.cat([z.abs(), z * z], 1), rcv, s))
+
+
+def _check_moments(got, ref, tol):
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        if g.numel():
+            assert float((g - r).abs().max()) <= tol
+
+
+def _check_k3_k2(x, snd, rcv, s, mask, ze=None):
+    """K3 against its plain version, ``z`` on every edge; then K2 on that
+    ``z`` by receiver. Each call one launch. With a bool mask both counts
+    are held exactly to their own rule: K3 the mask summed at the in-range
+    receivers, K2 the number of in-range ids (padding edges included)."""
+    before = fused_gather_moments.launches
+    got = fused_gather_moments(x, snd, rcv, s, mask, ze=ze)
+    torch.cuda.synchronize()
+    assert fused_gather_moments.launches == before + 1
+    ref = fused_gather_moments_plain(x, snd, rcv, s, mask, ze=ze)
+    z = ref[3]
+    tol = _moments_tolerance(z, rcv, s)
+    _check_moments(got, ref, tol)
+    before = segment_moments.launches
+    got2 = segment_moments(z, rcv, s)
+    torch.cuda.synchronize()
+    assert segment_moments.launches == before + 1
+    _check_moments(got2, segment_moments_plain(z, rcv, s), tol)
+    valid = (rcv >= 0) & (rcv < s)
+    ids = rcv[valid].long()
+    assert torch.equal(got2[1][:, 0], torch.bincount(ids, minlength=s).float())
+    if mask.dtype == torch.bool:
+        want = torch.zeros(s, device=x.device).index_add_(0, ids, mask[valid].float())
+        assert torch.equal(got[1][:, 0], want)
+
+
+@pytest.mark.parametrize("d", MOMENT_WIDTHS)
+@pytest.mark.parametrize("pattern", MOMENT_PATTERNS)
+def pytest_moments_kernels_id_patterns(card, pattern, d):
+    """K3 with and without ``ze`` and K2, on every id pattern and width
+    class: D = 1 and 3 single floats in tile order, 50 single floats in a
+    sorted tile, 4 float4 chunks in tile order, 64 a sorted tile, 256 one
+    sorted slab, 260 and 512 two sorted slabs; runs of 100
+    receivers cross every tile's end."""
+    x, snd, rcv, mask, s = _moments_case(card, pattern, d)
+    _check_k3_k2(x, snd, rcv, s, mask)
+    ze = torch.randn((snd.shape[0], d), device=card)
+    _check_k3_k2(x, snd, rcv, s, mask, ze=ze)
+
+
+@pytest.mark.parametrize("d", [4, 64, 256])
+def pytest_moments_kernels_unaligned_view(card, d):
+    """Inputs 4 bytes past a 16-byte boundary take the scalar path."""
+    x, snd, rcv, mask, s = _moments_case(card, "served", d, seed=3)
+
+    def unaligned(t):
+        flat = torch.empty(t.numel() + 1, device=card)
+        flat[1:] = t.reshape(-1)
+        v = flat[1:].view(t.shape)
+        assert v.data_ptr() % 16 != 0 and v.is_contiguous()
+        return v
+
+    _check_k3_k2(unaligned(x), snd, rcv, s, mask)
+    _check_k3_k2(x, snd, rcv, s, mask, ze=unaligned(torch.randn((snd.shape[0], d), device=card)))
+
+
+@pytest.mark.parametrize("d", [1, 64])
+def pytest_moments_kernels_float_mask_and_no_edges(card, d):
+    """K3 with a float mask (weights other than 0 and 1, cast once), and
+    both kernels with E = 0."""
+    x, snd, rcv, mask, s = _moments_case(card, "random", d, seed=5)
+    weights = torch.rand(mask.shape, device=card) * mask
+    _check_k3_k2(x, snd, rcv, s, weights)
+    _check_k3_k2(x, snd, rcv, s, weights.double())
+    none = snd[:0]
+    sm, cnt, sq, z = fused_gather_moments(x, none, none, s, mask[:0])
+    assert z.shape == (0, d)
+    for t in (sm, cnt, sq):
+        assert torch.equal(t, torch.zeros_like(t))
+    for t in segment_moments(x[:0], none, s):
+        assert torch.equal(t, torch.zeros_like(t))
 
 
 @pytest.mark.parametrize("e,h,s", [(300, 8, 40), (1000, 33, 77), (20000, 256, 1700)])

@@ -3,7 +3,9 @@ ops of ``graph/segment.py``, against the JAX package on the CPU.
 
 The Pallas side runs in interpret mode, as the JAX package's own tests run
 it; the port's side runs its plain versions (CPU tensors). Every row is
-compared, padding included. Tolerance: rtol 1e-5, atol 1e-6 (f32 sums of
+compared, padding included; the moments also on a batch laid out as the
+served ones (``chip_smoke.make_graphs`` through ``collate_graphs``, the
+receivers in runs of 6 on half the edges, padding edges at the end). Tolerance: rtol 1e-5, atol 1e-6 (f32 sums of
 the same values in a different order).
 """
 
@@ -17,6 +19,8 @@ from hydragnn_tpu.graph import segment as jax_segment
 from hydragnn_tpu.ops import segment_moments as jax_segment_moments
 from hydragnn_tpu.ops import segment_sum_onehot as jax_segment_sum
 
+from chip_smoke import make_graphs
+from hydragnn_tpu_torch.graph import collate_graphs
 from hydragnn_tpu_torch.graph import segment as port_segment
 from hydragnn_tpu_torch.ops import segment_kernels
 
@@ -36,7 +40,21 @@ def _case(e, d, s, seed):
     return data, ids
 
 
+def _served_case(d, seed):
+    """Edge data (zero on the padding edges) by receiver on a served-layout
+    batch: 3 graphs of 8-12 atoms, 12 edges per atom, padded by 5 nodes and
+    37 edges at the last node. Returns ``(data, ids, num_segments)``."""
+    graphs = make_graphs(3, 12, 12, seed=seed)
+    n = sum(g.x.shape[0] for g in graphs) + 5
+    e = sum(g.edge_index.shape[1] for g in graphs) + 37
+    batch = collate_graphs(graphs, n, e, len(graphs) + 1)
+    rng = np.random.default_rng(seed)
+    data = rng.standard_normal((e, d)).astype(np.float32) * batch.edge_mask.numpy()[:, None]
+    return data, batch.receivers.numpy(), n
+
+
 CASES = [(40, 1, 12, 0), (57, 16, 10, 1), (300, 16, 33, 2), (5, 1, 4, 3)]
+SERVED = ("served", 16, None, 4)  # e and s come from the batch
 
 
 @pytest.mark.parametrize("e,d,s,seed", CASES)
@@ -49,9 +67,12 @@ def pytest_segment_sum_matches_pallas(e, d, s, seed):
     assert not got[s // 2 + 1 :].any()  # empty segments stay zero
 
 
-@pytest.mark.parametrize("e,d,s,seed", CASES)
+@pytest.mark.parametrize("e,d,s,seed", CASES + [SERVED])
 def pytest_segment_moments_matches_pallas(e, d, s, seed):
-    data, ids = _case(e, d, s, seed)
+    if e == "served":
+        data, ids, s = _served_case(d, seed)
+    else:
+        data, ids = _case(e, d, s, seed)
     ref = jax_segment_moments(jnp.asarray(data), jnp.asarray(ids), s, interpret=True)
     got = segment_kernels.segment_moments(torch.from_numpy(data), torch.from_numpy(ids), s)
     for name, r, g in zip(("sum", "count", "sq"), ref, got):
