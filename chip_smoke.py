@@ -17,8 +17,9 @@ Phases, in order; any failure raises and exits non-zero:
    the result against the plain PyTorch version on the same inputs
    (tolerance ``1e-5 * (max |partial sum| + 1)``: atomics add in a
    run-dependent order; K7 ``1e-4 * (max |out| + 1)``: its two 256-term
-   dot products per edge also sum in another order). K1 runs at two
-   shapes: the pool, and the segment mode's sum at the receivers. Times,
+   dot products per edge also sum in another order). K1 runs at three
+   shapes: the pool, the segment mode's sum at the receivers, and that
+   sum at K6's 50 columns; K6 at its served 50 filters and at 256. Times,
    with CUDA events: ``ms``, the call (20 calls back to back, so the
    host's work per call can set the pace; the median of 5 such windows,
    taken in turns), for the kernel, its plain version and the one PyTorch
@@ -44,9 +45,9 @@ Phases, in order; any failure raises and exits non-zero:
    the ``{"kernels": [...]}`` summary (per kernel, its main case's
    ``ms`` and median ``device_ms`` beside the bound, the plain version's
    ``plain_ms`` and the library call's ``library_ms`` and
-   ``library_device_ms``; for K2, which no one PyTorch call computes,
-   ``reference_device_ms``: K1's at the same receivers shape, which reads
-   the same bytes), and as the last line
+   ``library_device_ms``; for K2 and K6, which no one PyTorch call
+   computes, ``reference_device_ms``: K1's at the same receivers shape,
+   which streams the same ``[E, D]`` bytes), and as the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 ``--cpu-rehearsal`` runs phases 3-4 at a tiny size on the CPU through the
@@ -90,15 +91,15 @@ F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 FULL = dict(hidden=256, layers=3, nodes=90, degree=12, graphs=320, batch=64)
 TINY = dict(hidden=16, layers=2, nodes=12, degree=4, graphs=24, batch=4)
 
-# K2-K5 are one kernel (gather_reduce.cuh) behind the C entries of
-# segment.cu (K2) and fused_mp.cu (K3-K5)
+# K2-K6 are one kernel (gather_reduce.cuh) behind the C entries of
+# segment.cu (K2) and fused_mp.cu (K3-K6)
 SOURCE = {
     "segment_sum": "hydragnn_tpu_torch/csrc/segment.cu",
     "segment_moments": "hydragnn_tpu_torch/csrc/gather_reduce.cuh",
     "fused_gather_moments": "hydragnn_tpu_torch/csrc/gather_reduce.cuh",
     "fused_gather_sum": "hydragnn_tpu_torch/csrc/gather_reduce.cuh",
     "fused_gather_mean": "hydragnn_tpu_torch/csrc/gather_reduce.cuh",
-    "fused_gather_weighted_sum": "hydragnn_tpu_torch/csrc/fused_mp.cu",
+    "fused_gather_weighted_sum": "hydragnn_tpu_torch/csrc/gather_reduce.cuh",
     "fused_egnn_edge_phase": "hydragnn_tpu_torch/csrc/fused_egnn.cu",
 }
 # the pallas_call each kernel replaces (K3-K7 are the edge ops of one)
@@ -337,25 +338,27 @@ def phase_kernels(plan, graphs, hidden, device):
 
     # K1: global_mean_pool's sum, [n_pad, hidden] by sorted graph ids; and
     # the segment mode's sum at the receivers, [e_pad, hidden] edge-masked
-    # into n_pad rows (3 of every 4 K1 launches of a segment-mode forward)
+    # into n_pad rows (3 of every 4 K1 launches of a segment-mode forward),
+    # and at K6's width (K6's reference: the same w bytes streamed)
     rcv, snd = batch.receivers, batch.senders
-    for rows, ids, segs, mask, what in (
-        (n_pad, batch.node_graph, g_pad, node_mask, "pool"),
-        (e_pad, rcv, n_pad, edge_mask[:, None], "receivers"),
+    for rows, d, ids, segs, mask, what in (
+        (n_pad, hidden, batch.node_graph, g_pad, node_mask, "pool"),
+        (e_pad, hidden, rcv, n_pad, edge_mask[:, None], "receivers"),
+        (e_pad, SCHNET_FILTERS, rcv, n_pad, edge_mask[:, None], "receivers"),
     ):
-        x = rand(rows, hidden, mask)
+        x = rand(rows, d, mask)
         got, ref = seg_sum(x, ids, segs), seg_sum_plain(x, ids, segs)
-        nbytes = (rows * hidden + rows + segs * hidden) * 4
+        nbytes = (rows * d + rows + segs * d) * 4
         cases.append(dict(
-            kernel="segment_sum", case=f"{what} [{rows},{hidden}] -> [{segs},{hidden}]",
+            kernel="segment_sum", case=f"{what} [{rows},{d}] -> [{segs},{d}]",
             main=what == "pool", err=float((got - ref).abs().max()),
             tol=atomic_tolerance(seg_sum_plain(x.abs(), ids, segs)),
             **timings(
                 lambda: seg_sum(x, ids, segs), lambda: seg_sum_plain(x, ids, segs),
-                lambda: torch.zeros((segs, hidden), device=device).index_add_(0, ids, x),
+                lambda: torch.zeros((segs, d), device=device).index_add_(0, ids, x),
                 device,
             ),
-            bound=bound(nbytes, rows * hidden),
+            bound=bound(nbytes, rows * d),
         ))
 
     # K2: the segment mode's moments of z at the receivers, D = 1 and hidden
@@ -440,22 +443,25 @@ def phase_kernels(plan, graphs, hidden, device):
             bound=bound(n_pad * (2 * d + 1) * 4 + ids_bytes, e_pad * (2 * d + 1) + n_pad * d),
         ))
 
-    # K6: SchNet's filtered sum, D = its 50 filters, w masked
+    # K6: SchNet's filtered sum, D = its 50 filters (float2 chunks), w
+    # masked; and at 256 (float4)
     fgw, fgw_plain = KERNELS["fused_gather_weighted_sum"]
-    d = SCHNET_FILTERS
-    h, w = rand(n_pad, d), rand(e_pad, d, edge_mask[:, None])
-    got, ref = fgw(h, w, snd, rcv, n_pad), fgw_plain(h, w, snd, rcv, n_pad)
-    cases.append(dict(
-        kernel="fused_gather_weighted_sum", case=f"gather*w+sum h [{n_pad},{d}] w [{e_pad},{d}]",
-        main=True, err=float((got - ref).abs().max()),
-        tol=atomic_tolerance(fgw_plain(h.abs(), w.abs(), snd, rcv, n_pad)),
-        **timings(
-            lambda: fgw(h, w, snd, rcv, n_pad),
-            lambda: fgw_plain(h, w, snd, rcv, n_pad),
-            None, device,
-        ),
-        bound=bound((2 * n_pad * d + e_pad * d) * 4 + 2 * e_pad * 4, 2 * e_pad * d),
-    ))
+    for d in (SCHNET_FILTERS, hidden):
+        h, w = rand(n_pad, d), rand(e_pad, d, edge_mask[:, None])
+        got, ref = fgw(h, w, snd, rcv, n_pad), fgw_plain(h, w, snd, rcv, n_pad)
+        cases.append(dict(
+            kernel="fused_gather_weighted_sum",
+            case=f"gather*w+sum h [{n_pad},{d}] w [{e_pad},{d}]",
+            main=d == SCHNET_FILTERS, err=float((got - ref).abs().max()),
+            tol=atomic_tolerance(fgw_plain(h.abs(), w.abs(), snd, rcv, n_pad)),
+            **timings(
+                lambda: fgw(h, w, snd, rcv, n_pad),
+                lambda: fgw_plain(h, w, snd, rcv, n_pad),
+                None, device,
+            ),
+            # h and w read, out written, both id arrays
+            bound=bound((2 * n_pad * d + e_pad * d) * 4 + 2 * e_pad * 4, 2 * e_pad * d),
+        ))
 
     # K7: EGNN's edge phase at the senders, with the coordinate parameters
     # (layers 0-1 of the main path) and without (the last layer); the
@@ -690,14 +696,18 @@ def main(argv=None):
             for name, n in served["launches"].items():
                 launches[name] += n
 
-    # K2 beside K1 at the same receivers shape: the same bytes read, a sum
-    # where K2 also keeps squares and a count (a reference, no yardstick)
-    k1_rcv = next(c for c in cases if c["kernel"] == "segment_sum" and not c["main"])
-    k2 = next(c for c in cases if c["kernel"] == "segment_moments" and c["main"])
-    reference = {"segment_moments": (f"segment_sum {k1_rcv['case']}", median(k1_rcv["device_ms"]))}
-    print(f"reference: segment_moments {k2['case']} device_ms {median(k2['device_ms'])} "
-          f"beside segment_sum {k1_rcv['case']} device_ms {median(k1_rcv['device_ms'])}",
-          flush=True)
+    # K2 and K6 beside K1 at the same receivers shape: the same [E, D] bytes
+    # streamed, a sum where K2 also keeps squares and a count and K6
+    # gathers and multiplies (a reference, no yardstick)
+    reference = {}
+    for name, d in (("segment_moments", size["hidden"]), ("fused_gather_weighted_sum", SCHNET_FILTERS)):
+        k1 = next(c for c in cases if c["kernel"] == "segment_sum"
+                  and c["case"].startswith(f"receivers [{plan.layouts[-1].e_pad},{d}]"))
+        mine = next(c for c in cases if c["kernel"] == name and c["main"])
+        reference[name] = (f"segment_sum {k1['case']}", median(k1["device_ms"]))
+        print(f"reference: {name} {mine['case']} device_ms {median(mine['device_ms'])} "
+              f"beside segment_sum {k1['case']} device_ms {median(k1['device_ms'])}",
+              flush=True)
     summary = []
     for name in KERNELS:
         mine = [c for c in cases if c["kernel"] == name]

@@ -34,7 +34,7 @@
 // node table (5.9 MB) stays in the 50 MB L2. K3 also reads ze and writes
 // z once, E * D * 4 bytes each, which set its least time.
 //
-// K3, K4 and K5: one gather-reduce kernel laid out for this card
+// K3, K4, K5 and K6: one gather-reduce kernel laid out for this card
 // (gather_reduce.cuh; K2 runs it too, on rows read in order). What held
 // the first designs (one thread per (edge, column) element) back was not
 // the bytes but the per-element work and the scalar global atomics: 17.7 M
@@ -88,9 +88,27 @@
 // read as bytes. The C entries zero their own output on the caller's
 // stream.
 //
-// K6 keeps the first design: one thread per (edge, column) element, a
-// grid-stride loop, one f32 atomicAdd per element into the receiver's
-// row; `out` must be zeroed by the caller.
+// K6 (SchNet's filtered sum): the same kernel, Op::kMul. Per edge a group
+// streams the edge's own weight row w[e] (read once, evict-first, as K3's
+// ze) beside the gathered row h[s] and sums the products in registers
+// while the receiver repeats: 128-edge tiles, two chunks per lane, two
+// edges in flight. No mask (w comes masked) and no count. At the served
+// width (50 filters: 200-byte rows, 8-byte aligned but not 16) lanes own
+// 8-byte chunks (float2, with sm_90's float2 atomicAdd), 16 lanes to an
+// edge; D % 4 == 0 takes float4, other widths single floats. Its bound is
+// bytes, mostly w: E * D * 4 from device memory (13.8 of the 16.7 MB at
+// the served shape); the gathered rows come from L2. What held it back on
+// the card was not the bytes but a call's fixed cost and the walk's
+// instructions: at the served shape, of ~10 us, knocking out w's stream
+// saved ~0.6 us, the atomics ~1.6, while zeroing the output and launching
+// two kernels took ~3.7 before any edge was walked. So the output is
+// zeroed by a small kernel, not a memset, and the gather kernel is
+// launched as its programmatic dependent: it starts while the zeros are
+// written, stages its ids, and waits for them (griddepcontrol.wait) only
+// before the walk (2 us less than a memset and a plain launch). Sorting a
+// tile by receiver, as K3 does, cost more than the atomics it saved; so
+// did reusing a gathered row while the sender repeats. PERF.md has the
+// variants.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -102,30 +120,12 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int64_t kMaxBlocks = 1 << 20;
 
-// K6: h [N, D] gathered, times w [E, D], summed at the receivers.
-__global__ void fused_gather_mul_kernel(
-    const float* __restrict__ x, const float* __restrict__ w,
-    const int32_t* __restrict__ senders, const int32_t* __restrict__ receivers,
-    float* __restrict__ out, int64_t E, int N, int D, int S) {
-  const int64_t n = E * D;
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t e = i / D;
-    const int d = (int)(i - e * D);
-    const int32_t s = senders[e];
-    const float xv = (s >= 0 && s < N) ? x[(int64_t)s * D + d] : 0.0f;
-    const int32_t r = receivers[e];
-    if (r < 0 || r >= S) continue;
-    atomicAdd(out + (int64_t)r * D + d, xv * w[i]);
-  }
-}
-
 int64_t grid_for(int64_t n) {
   int64_t blocks = (n + kThreads - 1) / kThreads;
   return blocks > kMaxBlocks ? kMaxBlocks : blocks;
 }
 
-// ---- K3, K4, K5 ------------------------------------------------------
+// ---- K3, K4, K5, K6 --------------------------------------------------
 
 using hg::Chunk;
 using hg::GatherArgs;
@@ -162,7 +162,7 @@ int gather_copy(const void* x, const void* mask, int mask_is_bool, const void* s
                      E, N, D, S, ldo, 0, count ? D : -1, 0, 0, 0, 0};
   err = hg::launch_gather<Op::kSum>(a, st);
   if (err != cudaSuccess || !count || D == 0) return (int)err;
-  const bool vec = D % 4 == 0 && ldo % 4 == 0 && hg::aligned16(out);
+  const bool vec = D % 4 == 0 && ldo % 4 == 0 && hg::aligned(out, 16);
   const int64_t n = (int64_t)S * (vec ? D / 4 : D);
   if (vec)
     mean_rows_kernel<float4><<<(unsigned)grid_for(n), kThreads, 0, st>>>((float*)out, S, D, ldo);
@@ -210,17 +210,20 @@ extern "C" int hg_fused_gather_count_f32(const void* x, const void* mask, int ma
                      stream);
 }
 
-// h [N, D], w [E, D] -> out [S, D]
+// K6. h [N, D], w [E, D] -> out [S, D], the sum of h[senders[e]] * w[e] at
+// receivers[e]; zeroed here on `stream`
 extern "C" int hg_fused_gather_mul_f32(const void* h, const void* w,
                                        const void* senders,
                                        const void* receivers, void* out,
                                        long long E, int N, int D, int S,
                                        void* stream) {
-  const int64_t n = (int64_t)E * D;
-  if (n > 0) {
-    fused_gather_mul_kernel<<<(unsigned)grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)h, (const float*)w, (const int32_t*)senders,
-        (const int32_t*)receivers, (float*)out, E, N, D, S);
-  }
-  return (int)cudaGetLastError();
+  if (D < 0 || E < 0 || N < 0 || S < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t err = hg::zero_for_dependent((float*)out, (int64_t)S * D, st);
+  if (err != cudaSuccess) return (int)err;
+  if (E == 0 || S == 0 || D == 0) return (int)cudaGetLastError();
+  const GatherArgs a{(const float*)h, (const float*)w, nullptr, 0,
+                     (const int32_t*)senders, (const int32_t*)receivers, (float*)out, nullptr,
+                     E, N, D, S, D, 0, -1, 0, 0, 0, 0};
+  return (int)hg::launch_gather<Op::kMul>(a, st);
 }

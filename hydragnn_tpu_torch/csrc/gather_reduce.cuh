@@ -1,9 +1,9 @@
-// The gather-reduce kernel of K2, K3, K4 and K5: rows reduced into output
-// rows by receiver id, each run of equal ids in registers, one 16-byte
-// atomic per run and column chunk (per half of the row for the moments).
-// Included by fused_mp.cu (K3, K4, K5: the rows gathered from a node table
-// by sender) and segment.cu (K2: the rows of an [E, D] array, read in
-// order). fused_mp.cu's header describes the design and what the card
+// The gather-reduce kernel of K2, K3, K4, K5 and K6: rows reduced into
+// output rows by receiver id, each run of equal ids in registers, one
+// vector atomic per run and column chunk (per half of the row for the
+// moments). Included by fused_mp.cu (K3-K6: the rows gathered from a node
+// table by sender) and segment.cu (K2: the rows of an [E, D] array, read
+// in order). fused_mp.cu's header describes the design and what the card
 // showed of it.
 #pragma once
 
@@ -20,7 +20,7 @@ constexpr int kSortTile = 256;    // the moments on wide rows: a tile sorted by 
 constexpr int kSortLanes = 8;     // ... from this many lanes per group on
 
 template <typename T>
-struct Chunk;  // 4 floats or 1
+struct Chunk;  // 4 floats, 2 (K6 only) or 1
 
 template <>
 struct Chunk<float4> {
@@ -48,6 +48,9 @@ struct Chunk<float4> {
   static __device__ __forceinline__ void add(float4& a, const float4& v) {
     a.x += v.x; a.y += v.y; a.z += v.z; a.w += v.w;
   }
+  static __device__ __forceinline__ void mul_add(float4& a, const float4& v, const float4& w) {
+    a.x += v.x * w.x; a.y += v.y * w.y; a.z += v.z * w.z; a.w += v.w * w.w;
+  }
   static __device__ __forceinline__ void add_sq(float4& a, const float4& v) {
     a.x += v.x * v.x; a.y += v.y * v.y; a.z += v.z * v.z; a.w += v.w * v.w;
   }
@@ -58,6 +61,25 @@ struct Chunk<float4> {
     float4 v = *reinterpret_cast<float4*>(p);
     v.x /= c; v.y /= c; v.z /= c; v.w /= c;
     *reinterpret_cast<float4*>(p) = v;
+  }
+};
+
+template <>
+struct Chunk<float2> {
+  static constexpr int kWidth = 2;
+  static constexpr int kMaxLanes = 32;
+  static __device__ __forceinline__ float2 zero() { return make_float2(0.f, 0.f); }
+  static __device__ __forceinline__ float2 load(const float* p) {
+    return __ldg(reinterpret_cast<const float2*>(p));
+  }
+  static __device__ __forceinline__ float2 load_once(const float* p) {
+    return __ldcs(reinterpret_cast<const float2*>(p));
+  }
+  static __device__ __forceinline__ void mul_add(float2& a, const float2& v, const float2& w) {
+    a.x += v.x * w.x; a.y += v.y * w.y;
+  }
+  static __device__ __forceinline__ void flush(float* p, const float2& v) {
+    atomicAdd(reinterpret_cast<float2*>(p), v);  // sm_90: one vector atomic
   }
 };
 
@@ -74,6 +96,7 @@ struct Chunk<float> {
   static __device__ __forceinline__ void add(float& a, float v, float m) { a += v * m; }
   static __device__ __forceinline__ void add(float& a, float v) { a += v; }
   static __device__ __forceinline__ void add_sq(float& a, float v) { a += v * v; }
+  static __device__ __forceinline__ void mul_add(float& a, float v, float w) { a += v * w; }
   static __device__ __forceinline__ void flush(float* p, float v) { atomicAdd(p, v); }
   static __device__ __forceinline__ void divide(float* p, float c) { *p /= c; }
 };
@@ -81,27 +104,31 @@ struct Chunk<float> {
 // What a launch reduces. kSum: K4 the masked sum of the gathered rows, K5
 // that and the count. kMoments / kMomentsZe: K3, the moments of z = (x (+
 // ze)) * mask, z written per edge. kRows: K2, the moments of the rows of
-// an [E, D] array read in order, each in-range id counting 1.
-enum class Op { kSum, kMoments, kMomentsZe, kRows };
+// an [E, D] array read in order, each in-range id counting 1. kMul: K6,
+// the sum of the gathered rows times the edge's own row w (masked
+// already), no count.
+enum class Op { kSum, kMoments, kMomentsZe, kRows, kMul };
 
 // How a group walks a tile, by op and chunk: kPer chunks per lane, lanes
 // apart, up to kMaxLanes lanes (a slab: 256 columns on the float4 path),
 // kIn edges in flight per lane. The moments keep two sums per chunk, so on
 // the float4 path they take twice the lanes with half the chunks each, and
 // K3 with ze one edge in flight (its row comes in beside the gathered one).
+// K6 streams w's row beside the gathered one with two edges in flight, two
+// chunks per lane (at 50 filters: 16 lanes of float2, 16 groups a block).
 template <typename T, Op kOp>
 struct Walk {
-  static constexpr bool kMoments = kOp != Op::kSum;
+  static constexpr bool kMoments = kOp != Op::kSum && kOp != Op::kMul;
   static constexpr bool kWide = sizeof(T) == 16 && kMoments;
-  static constexpr int kPer = kWide ? 2 : 4;
+  static constexpr int kPer = kWide || kOp == Op::kMul ? 2 : 4;
   static constexpr int kMaxLanes = kWide ? 32 : Chunk<T>::kMaxLanes;
   static constexpr int kIn = kOp == Op::kMomentsZe ? 1 : 2;
 };
 
 struct GatherArgs {
   const float* x;          // node table [N, D]; K2: the rows [E, D]
-  const float* ze;         // K3's edge encoding [E, D], with Op::kMomentsZe
-  const void* mask;        // [E]: bool bytes when mask_is_bool, else f32; K2: none
+  const float* edge_row;   // [E, D], a row per edge: K3's ze (Op::kMomentsZe), K6's w (Op::kMul)
+  const void* mask;        // [E]: bool bytes when mask_is_bool, else f32; K2, K6: none
   int mask_is_bool;
   const int32_t* senders;  // [E]; K2: none
   const int32_t* receivers;
@@ -128,6 +155,8 @@ __global__ void __launch_bounds__(kGatherThreads, kGatherBlocks) gather_reduce_k
   constexpr bool kMoments = W::kMoments;
   constexpr bool kZe = kOp == Op::kMomentsZe;
   constexpr bool kRows = kOp == Op::kRows;
+  constexpr bool kMul = kOp == Op::kMul;
+  constexpr bool kEdgeRow = kZe || kMul;
   constexpr int kPerLane = W::kPer;
   constexpr int kIn = W::kIn;
   const bool sort = kMoments && a.sort;
@@ -154,7 +183,7 @@ __global__ void __launch_bounds__(kGatherThreads, kGatherBlocks) gather_reduce_k
     if (i < n_tile) {
       s = kRows ? -1 : __ldg(a.senders + e);
       r = __ldg(a.receivers + e);
-      m = kRows ? 1.f
+      m = kRows || kMul ? 1.f
                 : a.mask_is_bool ? (__ldg(static_cast<const uint8_t*>(a.mask) + e) ? 1.f : 0.f)
                                  : __ldg(static_cast<const float*>(a.mask) + e);
       s = (s >= 0 && s < a.N) ? s : -1;  // gathers a zero row
@@ -186,6 +215,9 @@ __global__ void __launch_bounds__(kGatherThreads, kGatherBlocks) gather_reduce_k
       }
     }
   }
+  // K6 runs as a programmatic dependent launch after the kernel that zeroes
+  // its output: wait for that grid before the walk adds into the output
+  if (kMul) asm volatile("griddepcontrol.wait;" ::: "memory");
 
   // 3. each group walks its consecutive edges: a row gathered for the edge
   //    before is reused while the sender repeats, and the rows add in
@@ -205,7 +237,7 @@ __global__ void __launch_bounds__(kGatherThreads, kGatherBlocks) gather_reduce_k
     col[k] = c * C::kWidth;
     active[k] = c < chunks;
   }
-  const bool counts = a.cnt_off >= 0 && slab == 0 && l == 0;
+  const bool counts = !kMul && a.cnt_off >= 0 && slab == 0 && l == 0;
   T acc[kPerLane], acc2[kPerLane], last[kPerLane];
 #pragma unroll
   for (int k = 0; k < kPerLane; ++k) acc[k] = acc2[k] = last[k] = C::zero();
@@ -218,7 +250,7 @@ __global__ void __launch_bounds__(kGatherThreads, kGatherBlocks) gather_reduce_k
     for (int k = 0; k < kPerLane; ++k) {
       if (!active[k]) continue;
       C::flush(row + col[k], acc[k]);
-      if (kMoments) C::flush(row + a.sq_off + col[k], acc2[k]);
+      if constexpr (kMoments) C::flush(row + a.sq_off + col[k], acc2[k]);
     }
     if (counts) atomicAdd(row + a.cnt_off, cnt);
   };
@@ -247,7 +279,9 @@ __global__ void __launch_bounds__(kGatherThreads, kGatherBlocks) gather_reduce_k
           v[u][k] = active[k] && in ? C::load_once(xs + col[k]) : C::zero();
       } else {
         const int32_t s = in ? s_snd[i] : -1;
-        const bool fresh = s != s_last;
+        // K6 gathers every edge's row: its rows come from L2, and the test
+        // for a repeated sender cost more than it saved
+        const bool fresh = kMul || s != s_last;
         const float* xs = a.x + (int64_t)s * a.D;
 #pragma unroll
         for (int k = 0; k < kPerLane; ++k) {
@@ -256,8 +290,8 @@ __global__ void __launch_bounds__(kGatherThreads, kGatherBlocks) gather_reduce_k
         }
         s_last = s;
       }
-      if (kZe) {
-        const float* zs = a.ze + e[u] * a.D;
+      if (kEdgeRow) {
+        const float* zs = a.edge_row + e[u] * a.D;
 #pragma unroll
         for (int k = 0; k < kPerLane; ++k)
           w[u][k] = active[k] && in ? C::load_once(zs + col[k]) : C::zero();
@@ -265,7 +299,7 @@ __global__ void __launch_bounds__(kGatherThreads, kGatherBlocks) gather_reduce_k
     }
 #pragma unroll
     for (int u = 0; u < kIn; ++u) {
-      if (kMoments) {
+      if constexpr (kMoments) {
         if (q + u >= q1) continue;
 #pragma unroll
         for (int k = 0; k < kPerLane; ++k) {
@@ -284,9 +318,11 @@ __global__ void __launch_bounds__(kGatherThreads, kGatherBlocks) gather_reduce_k
       }
 #pragma unroll
       for (int k = 0; k < kPerLane; ++k) {
-        if (kMoments) {
+        if constexpr (kMoments) {
           C::add(acc[k], w[u][k]);
           C::add_sq(acc2[k], w[u][k]);
+        } else if constexpr (kMul) {
+          C::mul_add(acc[k], v[u][k], w[u][k]);
         } else {
           C::add(acc[k], v[u][k], m[u]);
         }
@@ -297,6 +333,26 @@ __global__ void __launch_bounds__(kGatherThreads, kGatherBlocks) gather_reduce_k
     for (int k = 0; k < kPerLane; ++k) last[k] = v[kIn - 1][k];
   }
   flush();
+}
+
+// Launch `kernel` so that it may start before the kernel ahead of it on
+// `stream` has ended (programmatic dependent launch): its blocks start as
+// soon as every block of that kernel has run griddepcontrol.launch_dependents,
+// and wait for that whole grid at griddepcontrol.wait.
+template <typename Kernel>
+cudaError_t launch_dependent(Kernel kernel, int64_t blocks, size_t smem, cudaStream_t stream,
+                             const GatherArgs& a) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(kGatherThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
 template <typename T, Op kOp>
@@ -317,26 +373,55 @@ cudaError_t launch_gather_as(GatherArgs a, cudaStream_t stream) {
   const int64_t blocks = (a.E + a.tile - 1) / a.tile * a.slabs;
   const size_t smem = (size_t)a.tile * (2 * sizeof(int32_t) + sizeof(float) +
                                         (a.sort ? sizeof(uint64_t) : 0));
+  if constexpr (kOp == Op::kMul)
+    return launch_dependent(gather_reduce_kernel<T, kOp>, blocks, smem, stream, a);
   gather_reduce_kernel<T, kOp><<<(unsigned)blocks, kGatherThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-inline bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
+inline bool aligned(const void* p, int bytes) { return (uintptr_t)p % bytes == 0; }
 
-// The float4 path takes D % 4 == 0, row parts 16 bytes apart and every
-// row pointer 16-byte aligned; anything else runs on single floats.
+// Chunks of n floats take D % n == 0, row parts n floats apart and every
+// row pointer 4n-byte aligned.
+inline bool fits_chunk(const GatherArgs& a, int n) {
+  return a.D % n == 0 && a.D > 0 && a.ldo % n == 0 && a.sq_off % n == 0 &&
+         aligned(a.x, 4 * n) && aligned(a.out, 4 * n) && (a.z == nullptr || aligned(a.z, 4 * n)) &&
+         (a.edge_row == nullptr || aligned(a.edge_row, 4 * n));
+}
+
+// The float4 path where its chunks fit; K6 then float2 (its 50 filters
+// make 200-byte rows); anything else runs on single floats.
 template <Op kOp>
 cudaError_t launch_gather(const GatherArgs& a, cudaStream_t stream) {
-  const bool vec = a.D % 4 == 0 && a.D > 0 && a.ldo % 4 == 0 && a.sq_off % 4 == 0 &&
-                   aligned16(a.x) && aligned16(a.out) && (a.z == nullptr || aligned16(a.z)) &&
-                   (a.ze == nullptr || aligned16(a.ze));
-  return vec ? launch_gather_as<float4, kOp>(a, stream) : launch_gather_as<float, kOp>(a, stream);
+  if (fits_chunk(a, 4)) return launch_gather_as<float4, kOp>(a, stream);
+  if constexpr (kOp == Op::kMul) {
+    if (fits_chunk(a, 2)) return launch_gather_as<float2, kOp>(a, stream);
+  }
+  return launch_gather_as<float, kOp>(a, stream);
 }
 
 // Zero out [S, ldo] on `stream`.
 inline cudaError_t zero_rows(void* out, int S, int ldo, cudaStream_t stream) {
   const size_t bytes = (size_t)S * (size_t)ldo * sizeof(float);
   return bytes > 0 ? cudaMemsetAsync(out, 0, bytes, stream) : cudaSuccess;
+}
+
+// K6's zeros: a kernel, not a memset, so that the gather kernel after it
+// can be its programmatic dependent launch. Every block lets that kernel
+// start at once; it waits for this grid before adding into `out`.
+__global__ void zero_for_dependent_kernel(float* __restrict__ out, int64_t n) {
+  asm volatile("griddepcontrol.launch_dependents;");
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x)
+    out[i] = 0.f;
+}
+
+inline cudaError_t zero_for_dependent(float* out, int64_t n, cudaStream_t stream) {
+  if (n == 0) return cudaSuccess;
+  const int64_t blocks = (n + 4 * kGatherThreads - 1) / (4 * kGatherThreads);
+  zero_for_dependent_kernel<<<(unsigned)(blocks < 512 ? blocks : 512), kGatherThreads, 0, stream>>>(
+      out, n);
+  return cudaGetLastError();
 }
 
 // The moments (K2, K3): check the packed row's layout, zero it, launch.

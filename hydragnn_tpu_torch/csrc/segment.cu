@@ -43,7 +43,7 @@
 // in the last bits; the tolerance against the plain version is relative,
 // about 1e-5 * (max |partial sum| + 1).
 //
-// Design of the moments (K2): the gather-reduce kernel of K3-K5
+// Design of the moments (K2): the gather-reduce kernel of K3-K6
 // (gather_reduce.cuh, Op::kRows), reading the rows in order instead of
 // gathering them; fused_mp.cu's header describes it. The first design, a
 // thread per (edge, column) element with a 64-bit divide and three scalar

@@ -309,18 +309,21 @@ def fused_gather_weighted_sum(h: torch.Tensor, w: torch.Tensor,
                               num_segments: int) -> torch.Tensor:
     """K6, SchNet's CFConv aggregation: ``out[r] += h[s] * w[e]`` over the
     edges ``e = s -> r``; ``w [E, F]`` comes masked. Returns ``[S, F]``
-    float32."""
+    float32, from ``torch.empty``: the C entry zeroes it on the current
+    stream."""
     _check_weighted_inputs(h, w, senders, receivers, num_segments)
     if _on_cpu(h):
         return fused_gather_weighted_sum_plain(h, w, senders, receivers, num_segments)
     check_cuda_launch("fused_gather_weighted_sum", h, w, senders, receivers)
     n, d = h.shape
-    out = torch.zeros((num_segments, d), dtype=torch.float32, device=h.device)
+    num_segments = int(num_segments)
+    out = h.new_empty((num_segments, d))
     rc = _build.entry("fused_mp", "hg_fused_gather_mul_f32")(
         h.data_ptr(), w.data_ptr(), senders.data_ptr(), receivers.data_ptr(),
         out.data_ptr(), senders.shape[0], n, d, num_segments, _stream(h.device),
     )
-    _build.check(rc, "fused_gather_weighted_sum")
+    if rc:
+        _build.check(rc, "fused_gather_weighted_sum")
     fused_gather_weighted_sum.launches += 1
     return out
 

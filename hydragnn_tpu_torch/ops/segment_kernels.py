@@ -105,11 +105,13 @@ def segment_sum_plain(data: torch.Tensor, segment_ids: torch.Tensor,
                       num_segments: int) -> torch.Tensor:
     """Plain PyTorch version of :func:`segment_sum` (``index_add_``)."""
     check_segment_inputs(data, segment_ids, num_segments)
-    valid = (segment_ids >= 0) & (segment_ids < num_segments)
-    safe = torch.where(valid, segment_ids, 0)
     out = torch.zeros(
         (num_segments, data.shape[1]), dtype=torch.float32, device=data.device
     )
+    if num_segments == 0:  # no row 0 to park the out-of-range ids at
+        return out
+    valid = (segment_ids >= 0) & (segment_ids < num_segments)
+    safe = torch.where(valid, segment_ids, 0)
     return out.index_add_(0, safe, torch.where(valid[:, None], data, 0.0))
 
 

@@ -9,6 +9,12 @@ of a group's edges and of a tile, and out-of-range senders (in runs) and
 receivers; on an unaligned node table (the scalar path), a float mask and
 no edges at all. K5's degree is held exactly.
 
+K6 (SchNet's filtered sum, the same kernel with a weight row per edge) is
+held at D = 1, 3, 50, 51, 126 and 256 (single floats, float2 and float4
+chunks) on the same five layouts, on 20000 edges (no multiple of any
+tile), on a weight view 4 bytes past an 8-byte boundary (the scalar
+path), and with no edges or no segments.
+
 K3 and K2 (PNA's statistics) are held at D = 1, 3, 4, 50, 64, 256, 260
 and 512 on a served batch and on sorted, random, all-equal, out-of-range
 and tile-crossing runs of ids, with padding edges at the last row, K3 with
@@ -191,23 +197,17 @@ def _gather_case(card, e, d, s, seed):
 
 
 @pytest.mark.parametrize("e,d,s", SHAPES + [(20000, 50, 1700)])
-def pytest_fused_gather_sum_mean_weighted_kernels_match_plain(card, e, d, s):
-    rng, x, snd, rcv, mask = _gather_case(card, e, d, s, e + d)
-    w = torch.from_numpy(rng.standard_normal((e, d)).astype(np.float32)).to(card) * mask[:, None]
+def pytest_fused_gather_sum_mean_kernels_match_plain(card, e, d, s):
+    _, x, snd, rcv, mask = _gather_case(card, e, d, s, e + d)
     # partial sums are bounded by the segment sums of |message|
-    tol_copy = atomic_tolerance(fused_gather_sum_plain(x.abs(), snd, rcv, s, mask))
-    tol_mul = atomic_tolerance(fused_gather_weighted_sum_plain(x.abs(), w.abs(), snd, rcv, s))
-    cases = [
-        (fused_gather_sum, fused_gather_sum_plain, (x, snd, rcv, s, mask), tol_copy),
-        (fused_gather_mean, fused_gather_mean_plain, (x, snd, rcv, s, mask), tol_copy),
-        (fused_gather_weighted_sum, fused_gather_weighted_sum_plain, (x, w, snd, rcv, s), tol_mul),
-    ]
-    for kernel, plain, args, tol in cases:
+    tol = atomic_tolerance(fused_gather_sum_plain(x.abs(), snd, rcv, s, mask))
+    for kernel, plain in ((fused_gather_sum, fused_gather_sum_plain),
+                          (fused_gather_mean, fused_gather_mean_plain)):
         before = kernel.launches
-        got = kernel(*args)
+        got = kernel(x, snd, rcv, s, mask)
         torch.cuda.synchronize()
         assert kernel.launches == before + 1
-        ref = plain(*args)
+        ref = plain(x, snd, rcv, s, mask)
         got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
         for g, r in zip(got, ref):
             assert g.shape == r.shape
@@ -320,6 +320,72 @@ def pytest_fused_gather_sum_mean_float_mask_and_no_edges(card, d):
     mean, deg = fused_gather_mean(x, none, none, s, mask[:0])
     assert torch.equal(mean, torch.zeros((s, d), device=card))
     assert torch.equal(deg, torch.zeros((s, 1), device=card))
+
+
+# K6 (csrc/gather_reduce.cuh, Op::kMul): the K4/K5 tile walk with the edge's
+# own weight row streamed beside the gathered one; float2 chunks where
+# D % 4 != 0 and D % 2 == 0 (the served 50 filters), float4 where D % 4 ==
+# 0, single floats otherwise
+MUL_WIDTHS = [1, 3, 50, 51, 126, 256]
+
+
+def _weights(card, mask, d, seed):
+    """A masked weight row per edge, as SchNet's filter network gives."""
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy(rng.standard_normal((mask.shape[0], d)).astype(np.float32)).to(card)
+    return w * mask[:, None]
+
+
+def _check_weighted(h, w, snd, rcv, s):
+    """K6 against its plain version; one launch per call."""
+    before = fused_gather_weighted_sum.launches
+    got = fused_gather_weighted_sum(h, w, snd, rcv, s)
+    torch.cuda.synchronize()
+    assert fused_gather_weighted_sum.launches == before + 1
+    ref = fused_gather_weighted_sum_plain(h, w, snd, rcv, s)
+    assert got.shape == ref.shape == (s, h.shape[1])
+    if ref.numel():
+        tol = atomic_tolerance(fused_gather_weighted_sum_plain(h.abs(), w.abs(), snd, rcv, s))
+        assert float((got - ref).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("d", MUL_WIDTHS)
+@pytest.mark.parametrize("pattern", COPY_PATTERNS)
+def pytest_fused_gather_weighted_sum_kernel_id_patterns(card, pattern, d):
+    h, snd, rcv, mask, s = _copy_case(card, pattern, d)
+    _check_weighted(h, _weights(card, mask, d, d), snd, rcv, s)
+
+
+@pytest.mark.parametrize("d", [50, 51, 256])
+def pytest_fused_gather_weighted_sum_kernel_many_edges(card, d):
+    """20000 edges: no multiple of a tile of 128, 256 or 512 edges."""
+    _, h, snd, rcv, mask = _gather_case(card, 20000, d, 1700, 20000 + d)
+    _check_weighted(h, _weights(card, mask, d, d + 1), snd, rcv, 1700)
+
+
+@pytest.mark.parametrize("d", [50, 256])
+def pytest_fused_gather_weighted_sum_unaligned_weights(card, d):
+    """``w`` a contiguous view 4 bytes past an 8-byte boundary of a larger
+    buffer takes the scalar path, and still matches."""
+    h, snd, rcv, mask, s = _copy_case(card, "served", d, seed=3)
+    w = _weights(card, mask, d, d + 2)
+    flat = torch.empty(w.numel() + 3, device=card)
+    flat[1 : w.numel() + 1] = w.reshape(-1)
+    w = flat[1 : w.numel() + 1].view(w.shape)
+    assert w.data_ptr() % 8 == 4 and w.is_contiguous()
+    _check_weighted(h, w, snd, rcv, s)
+
+
+@pytest.mark.parametrize("d", [1, 50])
+def pytest_fused_gather_weighted_sum_no_edges_or_segments(card, d):
+    """E = 0 gives zeros; S = 0 an empty result (every receiver is out of
+    range)."""
+    h, snd, rcv, mask, s = _copy_case(card, "random", d, seed=5)
+    w = _weights(card, mask, d, d + 3)
+    none = snd[:0]
+    got = fused_gather_weighted_sum(h, w[:0], none, none, s)
+    assert torch.equal(got, torch.zeros((s, d), device=card))
+    _check_weighted(h, w, snd, rcv, 0)
 
 
 # K3 and K2 (csrc/gather_reduce.cuh, the K4/K5 tile walk with a sum of

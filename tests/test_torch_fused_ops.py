@@ -4,7 +4,8 @@ package's fused Pallas kernel in interpret mode on the CPU.
 
 Inputs come from a numpy seed: padded edges (mask 0, ids at the last node),
 duplicate receivers, an out-of-range sender and receiver, and a tail of
-edges whose ids are both out of range. Widths D = 1 and an odd D. K7 runs
+edges whose ids are both out of range. Widths D = 1 and an odd D (K6 also
+at its served D = 50). K7 runs
 with and without the coordinate parameters and with and without ``ze``.
 Tolerance: rtol 1e-5, atol 1e-6 for K4-K6; rtol 1e-4, atol 1e-5 for K7
 (two H-term products summed in another order).
@@ -92,7 +93,7 @@ def pytest_fused_gather_mean_matches_pallas(d):
     np.testing.assert_array_equal(deg[:, 0].numpy(), np.bincount(rcv[real], minlength=N))
 
 
-@pytest.mark.parametrize("d", [1, 5])
+@pytest.mark.parametrize("d", [1, 5, 50])  # 50: SchNet's served filters
 def pytest_fused_gather_weighted_sum_matches_pallas(d):
     rng = np.random.default_rng(20 + d)
     h = rng.standard_normal((N, d)).astype(np.float32)

@@ -22,34 +22,38 @@ K2 at D = 256 and 1, and K1 at K2's D = 256 shape as a reference. Prints
 ``-Xptxas -v``'s registers and spills of the moments kernels, one JSON
 line per check and per case, and the card's name, power limit and clocks.
 Knockout variants are named ``*ko*``; their results are wrong by design.
+Building and timing: ``tools/variant_build.py``.
 """
 
 import argparse
-import ctypes
 import json
-import shutil
-import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+from variant_build import (
+    I32,
+    I64,
+    ROOT,
+    P,
+    bind,
+    build_all,
+    cs,
+    make_sources,
+    served_batch,
+    time_in_turns,
+)
 
-import chip_smoke as cs  # noqa: E402
-from hydragnn_tpu_torch.ops import (  # noqa: E402
+from hydragnn_tpu_torch.ops import (
     _build,
     fused_gather_moments_plain,
     segment_moments_plain,
     segment_sum,
     segment_sum_plain,
 )
-from hydragnn_tpu_torch.ops.segment_kernels import atomic_tolerance, moments_layout  # noqa: E402
-from hydragnn_tpu_torch.serve import plan_from_samples  # noqa: E402
-from hydragnn_tpu_torch.utils.timing import device_ms  # noqa: E402
+from hydragnn_tpu_torch.ops.segment_kernels import atomic_tolerance, moments_layout
 
 OUT = ROOT / "build" / "moments_variants"
 HDR = "gather_reduce.cuh"
@@ -58,18 +62,21 @@ HDR = "gather_reduce.cuh"
 _FIRST = (
     "  static __device__ __forceinline__ float4 zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }\n",
     "  static __device__ __forceinline__ float zero() { return 0.f; }\n",
+    "  static __device__ __forceinline__ float2 zero() { return make_float2(0.f, 0.f); }\n",
 )
 _FIRST_NEW = (
     _FIRST[0] + "  static __device__ __forceinline__ float first(const float4& v) { return v.x; }\n",
     _FIRST[1] + "  static __device__ __forceinline__ float first(float v) { return v; }\n",
+    _FIRST[2] + "  static __device__ __forceinline__ float first(const float2& v) { return v.x; }\n",
 )
 KO_ATOMICS = [
     (HDR, _FIRST[0], _FIRST_NEW[0]),
     (HDR, _FIRST[1], _FIRST_NEW[1]),
+    (HDR, _FIRST[2], _FIRST_NEW[2]),
     (HDR, "      C::flush(row + col[k], acc[k]);\n",
      "      if (C::first(acc[k]) == 1234.5f) C::flush(row + col[k], acc[k]);\n"),
-    (HDR, "      if (kMoments) C::flush(row + a.sq_off + col[k], acc2[k]);\n",
-     "      if (kMoments && C::first(acc2[k]) == 1234.5f) C::flush(row + a.sq_off + col[k], acc2[k]);\n"),
+    (HDR, "      if constexpr (kMoments) C::flush(row + a.sq_off + col[k], acc2[k]);\n",
+     "      if constexpr (kMoments) if (C::first(acc2[k]) == 1234.5f) C::flush(row + a.sq_off + col[k], acc2[k]);\n"),
     (HDR, "    if (counts) atomicAdd(row + a.cnt_off, cnt);\n",
      "    if (counts && cnt == 1234.5f) atomicAdd(row + a.cnt_off, cnt);\n"),
 ]
@@ -170,34 +177,6 @@ def _flag(old, new):
     return [(HDR, old, new)]
 
 
-# name -> substitutions on this tree's csrc, or ("parent", substitutions)
-VARIANTS = {
-    "shipped": [],
-    "unsorted": _flag("constexpr int kSortLanes = 8;", "constexpr int kSortLanes = 1 << 30;"),
-    "sort_tile_128": _flag("constexpr int kSortTile = 256;", "constexpr int kSortTile = 128;"),
-    "sort_tile_512": _flag("constexpr int kSortTile = 256;", "constexpr int kSortTile = 512;"),
-    "sort_all_widths": _flag("constexpr int kSortLanes = 8;", "constexpr int kSortLanes = 1;"),
-    "lanes_16x4": _flag("  static constexpr bool kWide = sizeof(T) == 16 && kMoments;",
-                        "  static constexpr bool kWide = false;"),
-    "plain_z_store": [
-        (HDR, "    __stcs(reinterpret_cast<float4*>(p), v);", "    *reinterpret_cast<float4*>(p) = v;"),
-        (HDR, "void store(float* p, float v) { __stcs(p, v); }", "void store(float* p, float v) { *p = v; }")],
-    "three_blocks_per_sm": _flag("constexpr int kGatherBlocks = 2;", "constexpr int kGatherBlocks = 3;"),
-    "four_in_flight": _flag("  static constexpr int kIn = kOp == Op::kMomentsZe ? 1 : 2;",
-                            "  static constexpr int kIn = kOp == Op::kMomentsZe ? 1 : kOp == Op::kSum ? 2 : 4;"),
-    "ze_two_in_flight": _flag("  static constexpr int kIn = kOp == Op::kMomentsZe ? 1 : 2;",
-                              "  static constexpr int kIn = 2;"),
-    "k2_on_k1_layout": K1_LAYOUT,
-    "ko_atomics": KO_ATOMICS,
-    "ko_z_store": KO_ATOMICS[:2] + KO_Z,
-    "ko_atomics_and_z": KO_ATOMICS + KO_Z,
-    "parent": ("parent", []),
-    "parent_ko_atomics": ("parent", "atomics"),
-    "parent_ko_z_store": ("parent", [
-        ("fused_mp.cu", "    z_out[i] = z;\n", "    if (z == 1234.5f) z_out[i] = z;\n")]),
-}
-
-
 def _parent_ko_atomics(src):
     """Every atomicAdd of the parent's two moments kernels behind the test."""
     import re
@@ -214,50 +193,42 @@ def _parent_ko_atomics(src):
     return src
 
 
+# name -> substitutions on this tree's csrc, or ("parent", substitutions)
+VARIANTS = {
+    "shipped": [],
+    "unsorted": _flag("constexpr int kSortLanes = 8;", "constexpr int kSortLanes = 1 << 30;"),
+    "sort_tile_128": _flag("constexpr int kSortTile = 256;", "constexpr int kSortTile = 128;"),
+    "sort_tile_512": _flag("constexpr int kSortTile = 256;", "constexpr int kSortTile = 512;"),
+    "sort_all_widths": _flag("constexpr int kSortLanes = 8;", "constexpr int kSortLanes = 1;"),
+    "lanes_16x4": _flag("  static constexpr bool kWide = sizeof(T) == 16 && kMoments;",
+                        "  static constexpr bool kWide = false;"),
+    "plain_z_store": [
+        (HDR, "    __stcs(reinterpret_cast<float4*>(p), v);", "    *reinterpret_cast<float4*>(p) = v;"),
+        (HDR, "void store(float* p, float v) { __stcs(p, v); }", "void store(float* p, float v) { *p = v; }")],
+    "three_blocks_per_sm": _flag("constexpr int kGatherBlocks = 2;", "constexpr int kGatherBlocks = 3;"),
+    "four_in_flight": _flag("kOp == Op::kMomentsZe ? 1 : 2;",
+                            "kOp == Op::kMomentsZe ? 1 : kOp == Op::kSum ? 2 : 4;"),
+    "ze_two_in_flight": _flag("kOp == Op::kMomentsZe ? 1 : 2;", "2;"),
+    "k2_on_k1_layout": K1_LAYOUT,
+    "ko_atomics": KO_ATOMICS,
+    "ko_z_store": KO_ATOMICS[:3] + KO_Z,
+    "ko_atomics_and_z": KO_ATOMICS + KO_Z,
+    "parent": ("parent", []),
+    "parent_ko_atomics": ("parent", [("fused_mp.cu", _parent_ko_atomics),
+                                     ("segment.cu", _parent_ko_atomics)]),
+    "parent_ko_z_store": ("parent", [
+        ("fused_mp.cu", "    z_out[i] = z;\n", "    if (z == 1234.5f) z_out[i] = z;\n")]),
+}
+
+
 def make_variant(name, parent_dir):
     spec = VARIANTS[name]
     from_parent = isinstance(spec, tuple)
     src_dir = (parent_dir / "hydragnn_tpu_torch" / "csrc") if from_parent else _build.CSRC
-    d = OUT / name
-    if d.exists():
-        shutil.rmtree(d)
-    d.mkdir(parents=True)
-    for f in src_dir.iterdir():
-        if f.suffix in (".cu", ".cuh"):
-            shutil.copy(f, d / f.name)
-    subs = spec[1] if from_parent else spec
-    if subs == "atomics":
-        for f in ("fused_mp.cu", "segment.cu"):
-            (d / f).write_text(_parent_ko_atomics((d / f).read_text()))
-    else:
-        for fname, old, new in subs:
-            p = d / fname
-            text = p.read_text()
-            if text.count(old) != 1:
-                raise ValueError(f"{name}: {fname} has {text.count(old)} copies of {old[:60]!r}")
-            p.write_text(text.replace(old, new))
+    d = make_sources(src_dir, OUT / name, spec[1] if from_parent else spec)
     return d, "old" if from_parent else "new"
 
 
-def build(d, src):
-    lib = d / f"lib{Path(src).stem}.so"
-    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(d / src)],
-                         capture_output=True, text=True)
-    lines, fn = [f"== nvcc {d.name}/{src} rc {res.returncode}"], ""
-    for line in (res.stdout + res.stderr).splitlines():
-        if "Compiling entry function" in line:
-            fn = line.split("'")[1] if "'" in line else line
-        if any(k in fn for k in ("moments", "gather_reduce", "runs")) and (
-                "registers" in line or "spill" in line):
-            lines.append(f"   {fn[-64:]}: {line.strip()[-72:]}")
-        elif "error" in line:
-            lines.append("   " + line.strip())
-    if res.returncode:
-        raise RuntimeError("\n".join(lines))
-    return ctypes.CDLL(str(lib)), "\n".join(lines)
-
-
-P, I64, I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 SIGNATURES = {
     "old": {"hg_fused_gather_moments_f32": [P, P, P, P, P, P, P, I64, I32, I32, I32, P],
             "hg_segment_moments_f32": [P, P, P, P, P, I64, I32, I32, P]},
@@ -331,22 +302,15 @@ def main(argv=None):
 
     made = {name: make_variant(name, args.parent) for name in names}
     jobs = [(name, src) for name in names for src in ("fused_mp.cu", "segment.cu")]
-    with ThreadPoolExecutor(len(jobs)) as ex:
-        built = list(ex.map(lambda j: build(made[j[0]][0], j[1]), jobs))
+    libs = build_all([(made[name][0], src) for name, src in jobs],
+                     ("moments", "gather_reduce", "runs"))
     fns = {}
-    for (name, src), (lib, log) in zip(jobs, built):
-        print(log, flush=True)
+    for (name, _), lib in zip(jobs, libs):
         abi = made[name][1]
-        for ent, argtypes in SIGNATURES[abi].items():
-            if hasattr(lib, ent):
-                f = getattr(lib, ent)
-                f.restype, f.argtypes = ctypes.c_int, argtypes
-                fns[name, ent] = (abi, f)
+        for ent, f in bind(lib, SIGNATURES[abi]).items():
+            fns[name, ent] = (abi, f)
 
-    size = cs.FULL
-    graphs = cs.make_graphs(size["graphs"], size["nodes"], size["degree"], seed=0)
-    plan = plan_from_samples(graphs, max_batch_graphs=size["batch"], num_buckets=3)
-    batch = cs.largest_batch(plan, graphs).to(dev)
+    batch = served_batch(dev)
     n = batch.num_nodes
     snd, rcv, mask = batch.senders, batch.receivers, batch.edge_mask
     stream = torch._C._cuda_getCurrentRawStream(dev.index or 0)
@@ -387,9 +351,7 @@ def main(argv=None):
                               "count_exact": exact}), flush=True)
             if "ko" not in name and not (err <= tol and exact):
                 bad.append((what, name))
-        times = {k: [] for k in calls}
-        for name in list(calls) + list(calls)[::-1]:
-            times[name].append(device_ms(calls[name], dev)[1] * 1e3)
+        times = time_in_turns(calls, dev)
         print(json.dumps({"case": what, "device_us_median_per_turn": times}), flush=True)
     print(f"clocks: {cs.clocks_line()}", flush=True)
     if bad:
