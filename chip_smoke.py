@@ -41,22 +41,48 @@ Phases, in order; any failure raises and exits non-zero:
    of the model (the plain versions) run on the graphs of its batch,
    packed into the same bucket. One full batch of each run is broken down
    on the device.
-5. Prints one JSON line per kernel case, the card's name and power limit,
+5. Train: bench.py's MXU-scale PNA row (as in phase 4; seeded targets, a
+   graph target ``[1]`` and a node target ``[n, 1]`` per its
+   ``output_dim``) trained through ``Trainer`` (``init_state`` ->
+   ``put_batch`` -> ``train_step`` with AdamW at lr 1e-3 -> ``eval_step``)
+   on the largest bucket's batch (n_pad 5768, e_pad 69120, g_pad 65), once
+   per aggregation mode: 1 warm step, 20 timed steps (CUDA events, the
+   median of 5 windows of 4 steps), one profiled step. Every step launches
+   K3 3 times and K1 4 times (the pool, and K3's backward rule summing at
+   the senders) in ``fused`` mode, K2 3 times and K1 once in ``segment``
+   mode; the counts are held per step. Every loss is finite and the last
+   is below the first. Step 1 is held against two CPU copies of the model
+   taken before it, on the same batch: one in float64, the exact step's
+   stand-in, and one in float32 through the plain versions, which shows
+   how far float32 arithmetic itself lies from it (up to ~1% of a
+   gradient's max: sums that cancel, PNA's one-pass variance). Per tensor
+   (the loss, each gradient, each BatchNorm statistic), ``|card - exact|
+   <= (atol + 4 * level) * max|exact| + rtol * |exact|`` elementwise (the
+   serve phase's rtol 1e-3 and atol 1e-4; ``level`` the f32 copy's
+   largest error over its kind, relative to each tensor's max), and every
+   updated parameter within the serve bound plus what AdamW's first step
+   makes of the gradient's error (:func:`hold_step_against_cpu`). The
+   profiled step's device time is split into forward, backward and
+   optimizer (:func:`split_trace`). One ``{"train": ...}`` line per mode.
+6. Prints one JSON line per kernel case, the card's name and power limit,
    the ``{"kernels": [...]}`` summary (per kernel, its main case's
    ``ms`` and median ``device_ms`` beside the bound, the plain version's
    ``plain_ms`` and the library call's ``library_ms`` and
    ``library_device_ms``; for K2 and K6, which no one PyTorch call
    computes, ``reference_device_ms``: K1's at the same receivers shape,
-   which streams the same ``[E, D]`` bytes), and as the last line
-   ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+   which streams the same ``[E, D]`` bytes; ``launches`` counts phases 4
+   and 5), and as the last line ``{"ok": true, "device": {"platform":
+   "gpu", ...}}``.
 
-``--cpu-rehearsal`` runs phases 3-4 at a tiny size on the CPU through the
+``--cpu-rehearsal`` runs phases 3-5 at a tiny size on the CPU through the
 plain versions, to check the script's control flow without a card. It
 times nothing on a device and never prints the success line.
 """
 
 import argparse
+import contextlib
 import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -65,8 +91,11 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from hydragnn_tpu_torch.data import GraphData
+from hydragnn_tpu_torch.graph import collate_graphs
 from hydragnn_tpu_torch.models import create_model_config
 from hydragnn_tpu_torch.ops import (
     KERNELS,
@@ -81,6 +110,7 @@ from hydragnn_tpu_torch.serve import (
     ModelRegistry,
     plan_from_samples,
 )
+from hydragnn_tpu_torch.train import Trainer
 from hydragnn_tpu_torch.utils.timing import call_ms, device_ms
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -124,6 +154,8 @@ FUSED_KERNEL = {
 }
 SCHNET_FILTERS = 50  # model_bench's num_gaussians: SchNet's filters (swapped)
 SERVE_RTOL, SERVE_ATOL = 1e-3, 1e-4  # card (atomics, cuBLAS) against CPU
+TRAIN_CONFIG = {"Optimizer": {"type": "AdamW", "learning_rate": 1e-3}}
+TRAIN_WINDOWS, TRAIN_WINDOW_STEPS = 5, 4  # 20 timed steps
 
 
 def launches_per_forward(cfg, mode):
@@ -302,8 +334,8 @@ def bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def largest_batch(plan, graphs):
-    """The main path's largest packed batch: the last bucket filled
+def largest_take(plan, graphs):
+    """The graphs of the main path's largest batch: the last bucket filled
     greedily with the graphs it admits."""
     b = plan.num_buckets - 1
     take, n, e = [], 0, 0
@@ -315,6 +347,12 @@ def largest_batch(plan, graphs):
         take.append(g)
         n += g.num_nodes
         e += g.num_edges
+    return take, b
+
+
+def largest_batch(plan, graphs):
+    """The main path's largest packed batch (inputs only)."""
+    take, b = largest_take(plan, graphs)
     return plan.pack(take, b)[0]
 
 
@@ -666,6 +704,405 @@ def breakdown(family, mode, model, plan, graphs, device, card, iters=5):
     }})
 
 
+# ---- phase 5 ----------------------------------------------------------------
+
+TRAIN_PHASES = ("train_step.forward", "train_step.backward", "train_step.optimizer")
+
+
+def launches_per_train_step(mode, layers):
+    """``{kernel: launches}`` one PNA training step needs: the forward's,
+    and in ``fused`` mode one K1 per conv layer in K3's backward (the sum of
+    ``dz`` at the senders). The pool's and K2's backward rules are gathers,
+    and ``segment`` mode's gather has PyTorch's own backward."""
+    counts = {name: 0 for name in KERNELS}
+    counts["segment_sum"] = 1  # the pool
+    if mode == "fused":
+        counts["fused_gather_moments"] = layers
+        counts["segment_sum"] += layers
+    else:
+        counts["segment_moments"] = layers
+    return counts
+
+
+def set_targets(graphs, seed):
+    """Seeded targets per ``arch``'s ``output_dim``: a graph target ``[1]``
+    and a node target ``[n, 1]``, functions of the inputs plus noise."""
+    rng = np.random.default_rng(seed)
+    for g in graphs:
+        noise = 0.05 * rng.standard_normal(g.num_nodes + 1)
+        g.targets = [
+            np.array([2.0 * g.x.mean() - 0.5 + noise[0]], np.float32),
+            (np.sin(3.0 * g.x) + noise[1:, None]).astype(np.float32),
+        ]
+
+
+def train_batch(plan, graphs, cfg):
+    """The largest bucket's batch, with the heads' targets."""
+    take, b = largest_take(plan, graphs)
+    lay = plan.layouts[b]
+    return collate_graphs(
+        take, lay.n_pad, lay.e_pad, lay.g_pad,
+        head_types=tuple(cfg["output_type"]), head_dims=tuple(cfg["output_dim"]),
+    )
+
+
+def cpu_step(model, host):
+    """Step 1 of ``model`` (a CPU copy) on ``host``: its loss."""
+    trainer = Trainer(model, TRAIN_CONFIG)
+    return trainer.train_step(trainer.init_state(host), host)[1]["loss"]
+
+
+class _Torch64:
+    """``torch``, with ``float32`` meaning ``float64``."""
+
+    def __getattr__(self, name):
+        return torch.float64 if name == "float32" else getattr(torch, name)
+
+
+@contextlib.contextmanager
+def float64_port():
+    """The port computes in float32 by name (``torch.float32`` casts and
+    checks); inside the block every module of the package sees ``torch``
+    through :class:`_Torch64` and the default dtype is float64."""
+    swapped = []
+    for name, mod in list(sys.modules.items()):
+        if not name.startswith("hydragnn_tpu_torch") or mod is None:
+            continue
+        for attr, old, new in (("torch", torch, _Torch64()),
+                               ("_F32", torch.float32, torch.float64)):
+            if getattr(mod, attr, None) is old:
+                setattr(mod, attr, new)
+                swapped.append((mod, attr, old))
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        yield
+    finally:
+        torch.set_default_dtype(default)
+        for mod, attr, old in swapped:
+            setattr(mod, attr, old)
+
+
+class Float32Watch(TorchDispatchMode):
+    """Records each operation that gives a float32 tensor."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if any(isinstance(t, torch.Tensor) and t.dtype == torch.float32
+               for t in tree_leaves(out)):
+            self.seen.add(str(func))
+        return out
+
+
+def as_float64(batch):
+    def conv(t):
+        return t.double() if t is not None and t.is_floating_point() else t
+
+    fields = {f.name: getattr(batch, f.name) for f in dataclasses.fields(batch)}
+    return dataclasses.replace(batch, **{
+        k: tuple(conv(t) for t in v) if k == "targets" else conv(v) for k, v in fields.items()
+    })
+
+
+def cpu_references(model, host):
+    """Step 1 of two CPU copies of ``model`` (taken before any step) on
+    ``host``: through the plain versions in float32, and in float64, the
+    exact step's stand-in (:func:`float64_port`; a dispatch mode watches
+    every operation of that step, backward and optimizer included, and it
+    fails if any gives a float32 tensor). Returns ``((f32 model, loss),
+    (f64 model, loss))``."""
+    f32 = copy.deepcopy(model).cpu()
+    f64 = copy.deepcopy(f32).double()
+    with float64_port(), Float32Watch() as watch:
+        loss64 = cpu_step(f64, as_float64(host))
+    if watch.seen:
+        raise AssertionError(f"float32 in the float64 step: {sorted(watch.seen)}")
+    return (f32, cpu_step(f32, host)), (f64, loss64)
+
+
+# The card against the exact step may lie F32_FACTOR times as far as the
+# f32 CPU's worst tensor of the kind, relative to each tensor's scale. Over
+# 21 card runs (tools/train_step_tolerance.py, seeds 0-9, and this smoke)
+# the most any needed was 1.77, and one seed's card error moved 5.7-fold
+# between two runs (atomics); at 4 the check sees a fault above ~2% of a
+# gradient's max on this smoke's batch (PERF.md, PR 7).
+F32_FACTOR = 4.0
+ZERO_GRAD = 1e-6  # a gradient below this share of the largest is zero exactly
+
+
+def snapshot(model):
+    """The gradients, parameters and statistics of ``model``, on the host."""
+    host = lambda t: t.detach().to("cpu", copy=True)  # noqa: E731
+    return {
+        "grad": {n: host(p.grad) for n, p in model.named_parameters()},
+        "param": {n: host(p) for n, p in model.named_parameters()},
+        "stat": {n: host(b) for n, b in model.named_buffers()},
+    }
+
+
+def step_tensors(snap, loss):
+    """``{(kind, name): float64 tensor}``: the loss, each gradient, each
+    updated parameter and each BatchNorm statistic of a :func:`snapshot`."""
+    out = {("loss", "loss"): torch.tensor([float(loss)], dtype=torch.float64)}
+    for kind in ("grad", "param", "stat"):
+        out.update({(kind, n): t.double() for n, t in snap[kind].items()})
+    return out
+
+
+def hold_step_against_cpu(card, card_loss, cpu, exact):
+    """Step 1 on the card against the exact step (float64 on the CPU), with
+    the float32 CPU step as the witness of what float32 arithmetic gives:
+    ``card`` is the card model's :func:`snapshot`, ``cpu`` and ``exact``
+    ``(model, loss)`` from :func:`cpu_references`.
+
+    Per tensor ``t`` (the loss, each gradient, each BatchNorm statistic)
+    with scale ``s`` = its exact ``max |value|`` (for a gradient that is
+    zero in exact arithmetic, below ``ZERO_GRAD`` of the largest, the
+    largest gradient: its float32 value is rounding of terms that cancel),
+    the f32 CPU's level is ``max |cpu - exact| / s`` over the tensors of
+    its kind, and the card must hold ``|card - exact| <= (atol + F32_FACTOR
+    * level) * s + rtol * |exact|`` elementwise (the serve phase's rtol
+    1e-3 and atol 1e-4). Each updated parameter adds what AdamW's first
+    step (``lr * g / (|g| + eps)``, nearly ``lr * sign(g)``) makes of a
+    gradient error ``dg`` within the gradient's bound: ``lr * dg * eps /
+    ((|g| - dg)+ + eps)^2``, at most ``2 lr``.
+
+    Returns the per-tensor rows, the violations and the levels; each row
+    also holds the card and the f32 CPU against the serve phase's bound
+    alone (``atol * s + rtol * |exact|``), which float32 arithmetic
+    does not meet everywhere."""
+    lr = TRAIN_CONFIG["Optimizer"]["learning_rate"]
+    eps = 1e-8
+    want = step_tensors(snapshot(exact[0]), exact[1])
+    got = step_tensors(card, card_loss)
+    f32 = step_tensors(snapshot(cpu[0]), cpu[1])
+    top_grad = max(float(t.abs().max()) for (k, _), t in want.items() if k == "grad" and t.numel())
+    scale = {}
+    for key, t in want.items():
+        top = float(t.abs().max()) if t.numel() else 0.0
+        scale[key] = top_grad if key[0] == "grad" and top <= ZERO_GRAD * top_grad else top
+    level = {}
+    for key, t in want.items():
+        if key[0] != "param" and t.numel() and scale[key] > 0:
+            err = float((f32[key] - t).abs().max()) / scale[key]
+            level[key[0]] = max(level.get(key[0], 0.0), err)
+    rows, bad, bounds = [], [], {}
+    for key in sorted(want, key=lambda k: ("loss", "grad", "stat", "param").index(k[0])):
+        t, s = want[key], scale[key]
+        if not t.numel():
+            continue
+        kind, name = key
+        stated = SERVE_ATOL * s + SERVE_RTOL * t.abs()
+        if kind == "param":
+            g, dg = want[("grad", name)], bounds[name]
+            allowed = stated + torch.clamp(
+                lr * dg * eps / (torch.clamp(g.abs() - dg, min=0.0) + eps) ** 2, max=2 * lr)
+            room = None
+        else:
+            room = level[kind] * s
+            allowed = stated + F32_FACTOR * room
+            if kind == "grad":
+                bounds[name] = allowed
+        err = (got[key] - t).abs()
+        over = float((err - stated).clamp(min=0.0).max())
+        row = {
+            "kind": kind, "name": name, "scale": s,
+            "err": float(err.max()), "cpu_err": float((f32[key] - t).abs().max()),
+            "worst_over_tol": float((err / allowed).max()),
+            # the least F32_FACTOR that passes, and the smallest fault
+            # relative to the scale that the bound could miss
+            "factor_needed": None if room is None else
+            (over / room if room > 0 else (0.0 if over == 0 else None)),
+            "reach": float(allowed.max()) / s if s > 0 else None,
+            "card_outside_stated": bool((err > stated).any()),
+            "cpu_outside_stated": bool(((f32[key] - t).abs() > stated).any()),
+        }
+        rows.append(row)
+        if not bool((err <= allowed).all()):
+            bad.append(row)
+    return rows, bad, level
+
+
+def outside_serve_bound(rows):
+    """Per kind, how many tensors of the card and of the f32 CPU step lie
+    outside the serve phase's bound alone, of how many."""
+    out = {}
+    for r in rows:
+        n = out.setdefault(r["kind"], {"card": 0, "f32_cpu": 0, "of": 0})
+        n["card"] += r["card_outside_stated"]
+        n["f32_cpu"] += r["cpu_outside_stated"]
+        n["of"] += 1
+    return out
+
+
+def split_trace(path):
+    """Device time of one profiled step by phase and by op, and the number
+    of device ops, from the profiler's trace: each kernel, copy or fill is
+    put in the phase
+    (``train_step.forward``, ``.backward``, ``.optimizer``; else ``other``)
+    whose range on the host holds the call that launched it (matched by
+    correlation id; the backward's launches come from autograd's thread
+    while the main thread waits inside the backward range)."""
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    ranges = [
+        (ev["ts"], ev["ts"] + ev.get("dur", 0), ev["name"]) for ev in events
+        if ev.get("cat") == "user_annotation" and ev.get("name") in TRAIN_PHASES
+    ]
+    launched_at = {
+        ev["args"]["correlation"]: ev["ts"] for ev in events
+        if ev.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in ev.get("args", {})
+    }
+    by_phase = {name: 0.0 for name in TRAIN_PHASES + ("other",)}
+    by_op, backward_ops, count = {}, {}, 0
+    for ev in events:
+        if ev.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        count += 1
+        ms = ev.get("dur", 0.0) / 1e3
+        t = launched_at.get(ev.get("args", {}).get("correlation"))
+        phase = next((n for lo, hi, n in ranges if t is not None and lo <= t <= hi), "other")
+        by_phase[phase] += ms
+        key = ev["name"][:60]
+        by_op[key] = by_op.get(key, 0.0) + ms
+        if phase == "train_step.backward":
+            backward_ops[key] = backward_ops.get(key, 0.0) + ms
+    return by_phase, by_op, backward_ops, count
+
+
+def phase_train(mode, cfg, plan, graphs, device, card):
+    """PNA training through the port's entry points: ``Trainer`` ->
+    ``init_state`` -> ``put_batch`` -> 1 + 20 ``train_step`` (AdamW) -> one
+    profiled step -> ``eval_step``, on the largest bucket's batch. Returns
+    the kernel launches of the run."""
+    model = create_model_config(cfg, device=device, aggregation=mode, seed=0)
+    host = train_batch(plan, graphs, cfg)
+    # step 1 on CPU copies first, so that none of their host threads runs
+    # while the card is timed
+    cpu, exact = cpu_references(model, host)
+    trainer = Trainer(model, TRAIN_CONFIG)
+    state = trainer.init_state(host)
+    batch = trainer.put_batch(host)
+    per_step = launches_per_train_step(mode, cfg["num_conv_layers"])
+    launches = {name: 0 for name in KERNELS}
+    on_card = device.type == "cuda"
+
+    def steps(n):
+        nonlocal state
+        reset_launch_counts()
+        losses = []
+        for _ in range(n):
+            state, met = trainer.train_step(state, batch)
+            losses.append(met["loss"])
+        counts = launch_counts()
+        if on_card and counts != {k: n * v for k, v in per_step.items()}:
+            raise AssertionError(f"PNA {mode} train: {n} steps launched {counts}, "
+                                 f"expected {per_step} per step")
+        for k, v in counts.items():
+            launches[k] += v
+        return losses
+
+    first = steps(1)[0]
+    step1 = snapshot(model)
+
+    # each window: CUDA events around 4 steps, and the host's clock around
+    # issuing them (close to the events' time when the host sets the pace)
+    window_ms, host_ms = [], []
+    losses = [first]
+    for _ in range(TRAIN_WINDOWS):
+        if on_card:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+        losses += steps(TRAIN_WINDOW_STEPS)
+        if on_card:
+            end.record()
+            host_ms.append((time.perf_counter() - t0) * 1e3 / TRAIN_WINDOW_STEPS)
+            window_ms.append((start, end))
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"PNA {mode} train: losses {losses}")
+    rows, bad, level = hold_step_against_cpu(step1, first, cpu, exact)
+    closest = sorted(rows, key=lambda r: -r["worst_over_tol"])[:8]
+    emit({"train_check": {"mode": mode, "tensors": len(rows), "f32_level": level,
+                          "closest": closest, "violations": bad}})
+    if bad:
+        raise AssertionError(f"PNA {mode} train step 1 against the exact step: {bad}")
+    worst = {kind: max(r["err"] for r in rows if r["kind"] == kind)
+             for kind in ("loss", "grad", "param", "stat")}
+    worst["over_tol"] = max(r["worst_over_tol"] for r in rows)
+    graphs_per_step = int(host.graph_mask.sum())
+    result = {
+        "family": "PNA", "mode": mode,
+        "batch": f"n_pad {batch.num_nodes} e_pad {batch.num_edges} g_pad {batch.num_graphs}",
+        "graphs_per_step": graphs_per_step,
+        "steps": len(losses),
+        "first_loss": losses[0], "last_loss": losses[-1],
+        "loss_err_vs_exact": worst["loss"],
+        "max_grad_err_vs_exact": worst["grad"],
+        "max_param_err_vs_exact": worst["param"],
+        "max_stat_err_vs_exact": worst["stat"],
+        "worst_err_over_tolerance": worst["over_tol"],
+        "f32_cpu_level": level,
+        "f32_factor": F32_FACTOR,
+        "f32_factor_needed": max(r["factor_needed"] for r in rows
+                                 if r["factor_needed"] is not None),
+        "outside_serve_bound": outside_serve_bound(rows),
+        "launches_per_step": {k: v for k, v in per_step.items() if v},
+    }
+    if on_card:
+        torch.cuda.synchronize()
+        per_window = [a.elapsed_time(b) / TRAIN_WINDOW_STEPS for a, b in window_ms]
+        ms_per_step = float(np.median(per_window))
+        result.update(ms_per_step=ms_per_step, ms_per_step_windows=per_window,
+                      host_enqueue_ms_per_step_windows=host_ms,
+                      graphs_per_s=graphs_per_step / ms_per_step * 1e3)
+        trace = _build.REPO_ROOT / "build" / "chip_smoke" / f"train_{mode}_trace.json"
+        trace.parent.mkdir(parents=True, exist_ok=True)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            steps(1)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(trace))
+        by_phase, by_op, backward_ops, device_ops = split_trace(trace)
+        device_ms = sum(by_phase.values())
+        measured = device_ms > 0
+        top = sorted(by_op.items(), key=lambda kv: -kv[1])[:10]
+        top_bwd = sorted(backward_ops.items(), key=lambda kv: -kv[1])[:10]
+        result.update(
+            device_ms_per_step={k.split(".")[-1]: v for k, v in by_phase.items()}
+            if measured else "not measured",
+            device_ms_total=device_ms if measured else "not measured",
+            device_busy_share=device_ms / ms_per_step if measured else "not measured",
+            device_ops_per_step=device_ops,
+            top_device_ms=[[k, v] for k, v in top],
+            top_backward_device_ms=[[k, v] for k, v in top_bwd],
+            clocks=clocks_line(),
+        )
+    else:
+        result.update(ms_per_step="not measured (cpu rehearsal)",
+                      graphs_per_s="not measured (cpu rehearsal)")
+    reset_launch_counts()
+    ev = trainer.eval_step(state, batch)
+    counts = launch_counts()
+    if on_card and counts != launches_per_forward(cfg, mode):
+        raise AssertionError(f"PNA {mode} eval: launches {counts}")
+    for k, v in counts.items():
+        launches[k] += v
+    eval_loss = float(ev["loss"])
+    shapes = [tuple(o.shape) for o in ev["outputs"]]
+    if not np.isfinite(eval_loss) or shapes != [(batch.num_graphs, 1), (batch.num_nodes, 1)]:
+        raise AssertionError(f"PNA {mode} eval: loss {eval_loss}, outputs {shapes}")
+    result.update(eval_loss=eval_loss, launches=launches, card=card)
+    emit({"train": result})
+    return launches
+
+
 # ---- main -------------------------------------------------------------------
 
 
@@ -695,6 +1132,12 @@ def main(argv=None):
             served = phase_serve(mode, cfg, plan, graphs, device, card)
             for name, n in served["launches"].items():
                 launches[name] += n
+
+    set_targets(graphs, seed=1)
+    train_cfg = arch(size, "PNA")
+    for mode in ("fused", "segment"):
+        for name, n in phase_train(mode, train_cfg, plan, graphs, device, card).items():
+            launches[name] += n
 
     # K2 and K6 beside K1 at the same receivers shape: the same [E, D] bytes
     # streamed, a sum where K2 also keeps squares and a count and K6

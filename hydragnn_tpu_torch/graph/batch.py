@@ -7,7 +7,9 @@ graph-level math need no special cases: the padding rows fall into graph
 is always a padding node.
 
 Collation runs on the host in numpy; the batch then moves to the device
-with :meth:`GraphBatch.to`.
+with :meth:`GraphBatch.to`. Training batches carry one target tensor per
+head (graph heads ``[G, d]``, node heads ``[N, d]``, zero in the padding
+rows); serving batches carry none.
 """
 
 import dataclasses
@@ -36,6 +38,7 @@ class GraphBatch:
     node_mask: torch.Tensor  # [N] bool, True on real nodes
     edge_mask: torch.Tensor  # [E] bool
     graph_mask: torch.Tensor  # [G] bool
+    targets: Tuple[torch.Tensor, ...] = ()  # per head: [G, d] or [N, d]
 
     @property
     def num_nodes(self) -> int:
@@ -63,8 +66,11 @@ class GraphBatch:
         device = torch.device(device)
         if self.x.device == device:
             return self
-        names = [f.name for f in dataclasses.fields(self) if getattr(self, f.name) is not None]
-        tensors = [getattr(self, name) for name in names]
+        names = [
+            f.name for f in dataclasses.fields(self)
+            if f.name != "targets" and getattr(self, f.name) is not None
+        ]
+        tensors = [getattr(self, name) for name in names] + list(self.targets)
         if self.x.device.type != "cpu":
             moved = [t.to(device) for t in tensors]
         else:
@@ -73,6 +79,7 @@ class GraphBatch:
             moved = unstage_bytes(host.to(device, non_blocking=pin), spans)
         fields = {f.name: None for f in dataclasses.fields(self)}
         fields.update(zip(names, moved))
+        fields["targets"] = tuple(moved[len(names):])
         return GraphBatch(**fields)
 
 
@@ -129,14 +136,18 @@ def collate_graphs(
     n_pad: int,
     e_pad: int,
     g_pad: int,
+    head_types: Tuple[str, ...] = (),
+    head_dims: Tuple[int, ...] = (),
 ) -> GraphBatch:
-    """Collate ``GraphData``-like samples into one padded batch of model
-    inputs (no targets: only inference is ported).
+    """Collate ``GraphData``-like samples into one padded batch.
 
     Each sample exposes numpy arrays: ``x [n,F]``, ``pos [n,3]``,
-    ``edge_index [2,e]`` and optional ``edge_attr [e,De]``. The batch is
-    built in numpy and wrapped as CPU tensors; :meth:`GraphBatch.to` moves
-    it to the device in one transfer."""
+    ``edge_index [2,e]``, optional ``edge_attr [e,De]``, and (when
+    ``head_types`` is given) ``targets``: one array per head, ``[d]`` for a
+    graph head, ``[n, d]`` for a node head. The batch's targets are then
+    ``[G, d]`` or ``[N, d]`` per head, zero in the padding rows. The batch
+    is built in numpy and wrapped as CPU tensors; :meth:`GraphBatch.to`
+    moves it to the device in one transfer."""
     num_graphs = len(samples)
     total_nodes = int(sum(s.x.shape[0] for s in samples))
     total_edges = int(sum(s.edge_index.shape[1] for s in samples))
@@ -165,6 +176,10 @@ def collate_graphs(
     node_mask = np.zeros((n_pad,), dtype=bool)
     edge_mask = np.zeros((e_pad,), dtype=bool)
     graph_mask = np.zeros((g_pad,), dtype=bool)
+    targets = [
+        np.zeros((g_pad if kind == "graph" else n_pad, d), dtype=np.float32)
+        for kind, d in zip(head_types, head_dims)
+    ]
 
     node_off = 0
     edge_off = 0
@@ -184,6 +199,12 @@ def collate_graphs(
         node_mask[node_off : node_off + n] = True
         edge_mask[edge_off : edge_off + e] = True
         graph_mask[g] = True
+        for ih, kind in enumerate(head_types):
+            tgt = np.asarray(s.targets[ih], dtype=np.float32)
+            if kind == "graph":
+                targets[ih][g] = tgt.reshape(-1)
+            else:
+                targets[ih][node_off : node_off + n] = tgt.reshape(n, -1)
         node_off += n
         edge_off += e
 
@@ -205,4 +226,5 @@ def collate_graphs(
         node_mask=t(node_mask),
         edge_mask=t(edge_mask),
         graph_mask=t(graph_mask),
+        targets=tuple(t(a) for a in targets),
     )

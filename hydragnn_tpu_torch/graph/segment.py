@@ -13,7 +13,8 @@ from hydragnn_tpu_torch.ops import segment_kernels
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
-    """Sum per segment through the K1 kernel (its plain version on the CPU).
+    """Sum per segment through the K1 kernel (its plain version on the CPU),
+    with K1's backward rule (``segment_kernels.segment_sum_vjp``).
 
     Low precision in, f32 accumulate, the caller's dtype back: bf16/f16
     data is summed in float32 and the result cast back."""
@@ -21,7 +22,7 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     if in_dtype in (torch.bfloat16, torch.float16):
         data = data.to(torch.float32)
     flat = data.reshape(data.shape[0], -1)
-    out = segment_kernels.segment_sum(flat.contiguous(), segment_ids, num_segments)
+    out = segment_kernels.segment_sum_vjp(flat.contiguous(), segment_ids, num_segments)
     out = out.reshape((num_segments,) + tuple(data.shape[1:]))
     return out.to(in_dtype) if out.dtype != in_dtype else out
 
@@ -49,7 +50,11 @@ def segment_minmax_fused(data: torch.Tensor, segment_ids: torch.Tensor,
 
     Empty segments, and entries that come out non-finite, get ``fill``.
     ``has``: an optional precomputed non-empty mask (PNA passes the one its
-    moments pass produced). Ids outside ``[0, S)`` add nothing."""
+    moments pass produced). Ids outside ``[0, S)`` add nothing.
+
+    The gradient of a max is split evenly among the entries tied at it
+    (``scatter_reduce``'s rule, as JAX's scatter-max JVP splits it): two
+    equal ``z`` at one receiver, as a duplicate edge gives, get half each."""
     d = data.shape[1]
     valid = (segment_ids >= 0) & (segment_ids < num_segments)
     packed = torch.where(

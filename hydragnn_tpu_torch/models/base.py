@@ -10,9 +10,10 @@ stacks (``conv``). Submodules carry the JAX package's parameter names
 ``head_{h}_bn_{l}``), which is what lets ``models/bridge.py`` map one onto
 the other by path.
 
-Only float32 inference is ported: ``forward`` needs eval mode and float32
-parameters (the BatchNorm training branch, the loss, bf16 compute and the
-backward rules of the kernels are queued in ``ROADMAP.md``).
+Training and eval in float32: ``forward`` runs the BatchNorm training
+branch in ``train()`` mode, and :meth:`HydraBase.loss` is the weighted
+multi-task loss (or, with ``loss_nll``, the Gaussian NLL on one extra
+log-variance channel per head). bf16 compute is queued in ``ROADMAP.md``.
 """
 
 import math
@@ -28,6 +29,8 @@ from hydragnn_tpu_torch.models.common import (
     check_aggregation,
     get_activation,
     global_mean_pool,
+    masked_error,
+    masked_gaussian_nll,
     uniform_,
 )
 
@@ -105,6 +108,8 @@ class HydraBase(nn.Module):
         loss_weights: Tuple[float, ...] = (),
         equivariance: bool = False,
         aggregation: str = "fused",
+        loss_function_type: str = "mse",
+        loss_nll: bool = False,
     ):
         super().__init__()
         self.input_dim = input_dim
@@ -121,6 +126,9 @@ class HydraBase(nn.Module):
         self.loss_weights = tuple(loss_weights)
         self.equivariance = bool(equivariance)
         self.aggregation = check_aggregation(aggregation)
+        self.loss_function_type = loss_function_type
+        # NLL mode: every head emits one extra log-variance channel
+        self.loss_nll = bool(loss_nll)
 
     @property
     def use_edge_attr(self) -> bool:
@@ -159,9 +167,10 @@ class HydraBase(nn.Module):
                 device=device,
             )
         self.node_conv_layers = {}
+        uq_extra = 1 if self.loss_nll else 0
         for ihead in range(self.num_heads):
             head_type = self.output_type[ihead]
-            head_dim = self.output_dim[ihead]
+            head_dim = self.output_dim[ihead] + uq_extra
             if head_type == "graph":
                 g = heads["graph"]
                 dims = list(g["dim_headlayers"][: g["num_headlayers"]]) + [head_dim]
@@ -206,7 +215,8 @@ class HydraBase(nn.Module):
 
     def forward(self, batch: GraphBatch):
         """Per-head outputs: graph heads ``[G, dim]``, node heads
-        ``[N, dim]`` (padding rows zero for ``mlp`` heads)."""
+        ``[N, dim]`` (padding rows zero for ``mlp`` heads); ``dim`` has one
+        more column, the log-variance, under ``loss_nll``."""
         param = next(self.parameters())
         if param.dtype != torch.float32:
             raise NotImplementedError(
@@ -242,7 +252,24 @@ class HydraBase(nn.Module):
                 outputs.append(torch.where(batch.node_mask[:, None], out, 0.0))
         return tuple(outputs)
 
-    def loss(self, outputs, batch):
-        raise NotImplementedError(
-            "the loss comes with training, which is not ported yet (see ROADMAP.md)"
-        )
+    def loss(self, outputs, batch: GraphBatch):
+        """Weighted multi-task loss: ``(total, per-task list)``, float32
+        scalars. ``loss_weights`` are normalised by their abs-sum at
+        construction. Under ``loss_nll`` the total is the unweighted sum of
+        the heads' Gaussian NLLs and each task reports the MSE of the mean
+        channel."""
+        tot = 0.0
+        tasks = []
+        for ihead in range(self.num_heads):
+            pred = outputs[ihead]
+            target = batch.targets[ihead]
+            mask = batch.graph_mask if self.output_type[ihead] == "graph" else batch.node_mask
+            if self.loss_nll:
+                d = self.output_dim[ihead]
+                tot = tot + masked_gaussian_nll(pred[..., :d], pred[..., d:], target, mask)
+                tasks.append(masked_error(pred[..., :d], target, mask, "mse"))
+                continue
+            err = masked_error(pred, target, mask, self.loss_function_type)
+            tasks.append(err)
+            tot = tot + self.loss_weights[ihead] * err
+        return tot, tasks

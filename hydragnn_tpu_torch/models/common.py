@@ -89,13 +89,64 @@ def get_activation(name: str) -> Callable:
     return table[name]
 
 
-class MaskedBatchNorm(nn.Module):
-    """BatchNorm1d over real nodes only, padding rows zeroed.
+def masked_error(pred, target, mask, kind: str = "mse"):
+    """Masked elementwise loss, the mean over real rows x features, in
+    float32 (port of ``masked_error``): padding rows add nothing to the sum
+    or the count. ``kind``: ``mse``, ``mae``, ``rmse`` (its square root
+    taken with a double-where, so a perfect fit has a zero, not a NaN,
+    gradient) or ``smooth_l1``. The ``axis_name`` branch waits for
+    parallelism (``ROADMAP.md``)."""
+    pred = pred.to(torch.float32)
+    target = target.to(torch.float32)
+    m = mask.reshape(tuple(mask.shape) + (1,) * (pred.ndim - 1)).to(pred.dtype)
+    # where (not multiply): NaN or inf in a padded row cannot leak in
+    diff = torch.where(m > 0, pred - target, 0.0)
+    count = m.sum() * pred.shape[-1]
+    if kind in ("mse", "rmse"):
+        numer = (diff * diff).sum()
+    elif kind == "mae":
+        numer = diff.abs().sum()
+    elif kind == "smooth_l1":
+        a = diff.abs()
+        numer = (torch.where(a < 1.0, 0.5 * diff * diff, a - 0.5) * m).sum()
+    else:
+        raise ValueError(f"Unknown loss function: {kind}")
+    out = numer / torch.clamp(count, min=1.0)
+    if kind == "rmse":
+        positive = out > 0.0
+        out = torch.where(positive, torch.sqrt(torch.where(positive, out, 1.0)), 0.0)
+    return out
 
-    Eval with running statistics: ``(x - mean) * rsqrt(var + eps) * weight
-    + bias``, computed in float32. The training branch (masked batch
-    statistics and the running-stat update) comes with training; see
-    ``ROADMAP.md``."""
+
+def masked_gaussian_nll(mu, logvar, target, mask, eps: float = 1e-6):
+    """Masked Gaussian negative log-likelihood ``0.5 * (exp(-s) (mu - y)^2
+    + s)`` with ``s`` the head's log-variance channel, clamped below at
+    ``log(eps)``; the mean over real rows x features, in float32 (port of
+    ``masked_gaussian_nll``)."""
+    mu = mu.to(torch.float32)
+    target = target.to(torch.float32)
+    logvar = logvar.to(torch.float32)
+    m = mask.reshape(tuple(mask.shape) + (1,) * (mu.ndim - 1)).to(mu.dtype)
+    diff = torch.where(m > 0, mu - target, 0.0)
+    logvar = torch.maximum(logvar, torch.log(logvar.new_tensor(eps)))
+    val = 0.5 * (torch.exp(-logvar) * diff * diff + logvar)
+    numer = torch.where(m > 0, val, 0.0).sum()
+    count = m.sum() * mu.shape[-1]
+    return numer / torch.clamp(count, min=1.0)
+
+
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm1d over real nodes only, padding rows zeroed; computed in
+    float32 (port of ``MaskedBatchNorm``).
+
+    Training: the masked batch mean and biased variance (two-pass,
+    centred) normalise, and the running estimates take the unbiased
+    variance, ``running = (1 - MOMENTUM) running + MOMENTUM batch`` under
+    ``no_grad``, once per forward. Eval: the running statistics. The
+    ``axis_name`` branch (statistics over a mesh axis) waits for
+    parallelism (``ROADMAP.md``)."""
+
+    MOMENTUM = 0.1
 
     def __init__(self, features: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -114,15 +165,22 @@ class MaskedBatchNorm(nn.Module):
             self.running_var.fill_(1.0)
 
     def forward(self, x, mask):
-        if self.training:
-            raise NotImplementedError(
-                "MaskedBatchNorm training mode is not ported yet (see "
-                "ROADMAP.md); call model.eval()"
-            )
         in_dtype = x.dtype
         x = x.to(torch.float32)
-        y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
-        y = y * self.weight + self.bias
+        if self.training:
+            m = mask.to(torch.float32)[:, None]
+            count = torch.clamp(m.sum(), min=1.0)
+            mean = (x * m).sum(0) / count
+            centered = (x - mean) * m
+            var = (centered * centered).sum(0) / count
+            with torch.no_grad():
+                unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
+                mom = self.MOMENTUM
+                self.running_mean.copy_((1.0 - mom) * self.running_mean + mom * mean)
+                self.running_var.copy_((1.0 - mom) * self.running_var + mom * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
         return torch.where(mask[:, None], y, 0.0).to(in_dtype)
 
 

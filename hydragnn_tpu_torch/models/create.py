@@ -4,9 +4,11 @@
 builds the stack named by ``model_type`` on the device, with its weights
 drawn from a seeded ``torch.Generator``, in eval mode. PNA, GIN, SAGE,
 SchNet and EGNN are ported; GAT, MFC, CGCNN and DimeNet raise
-``NotImplementedError`` (see ``ROADMAP.md``).
+``NotImplementedError`` (see ``ROADMAP.md``). :func:`resolve_precision` is
+the JAX package's compute-precision decision, which the trainer reads.
 """
 
+import os
 from typing import Optional
 
 import torch
@@ -57,8 +59,6 @@ def create_model_config(config: dict, device=None, aggregation: str = "fused",
         raise _not_ported(f"the {model_type} stack")
     if config.get("partition_axis") is not None:
         raise _not_ported("partition_axis (graph-partition parallelism)")
-    if config.get("ilossweights_nll", 0):
-        raise _not_ported("the uncertainty-weighted NLL loss")
     if config.get("conv_checkpointing", False):
         raise _not_ported("conv_checkpointing")
     output_dim = tuple(config["output_dim"])
@@ -77,6 +77,8 @@ def create_model_config(config: dict, device=None, aggregation: str = "fused",
         initial_bias=config.get("initial_bias"),
         loss_weights=_normalize_weights(config.get("task_weights"), len(output_dim)),
         equivariance=config.get("equivariance", False),
+        loss_function_type=config.get("loss_function_type", "mse"),
+        loss_nll=bool(config.get("ilossweights_nll", 0)),
     )
     if model_type == "PNA":
         if config.get("pna_deg") is None:
@@ -103,3 +105,53 @@ def create_model_config(config: dict, device=None, aggregation: str = "fused",
         model = EGCLStack(**{**common, "edge_dim": config.get("edge_dim") or 0})
     init_params(model, torch.Generator().manual_seed(int(seed)))
     return model.eval()
+
+
+# ---------------------------------------------------------------------------
+# compute precision (port of ``resolve_precision``)
+# ---------------------------------------------------------------------------
+
+# the stack class -> the JAX package's model key (``ops/autotune.py``)
+_STACK_KEYS = {
+    "PNAStack": "PNA",
+    "GINStack": "GIN",
+    "SAGEStack": "SAGE",
+    "SCFStack": "SchNet",
+    "EGCLStack": "EGNN",
+}
+
+# the JAX package's width table: under ``mixed_precision: "auto"`` a stack
+# computes in bf16 from this hidden width up (DimeNet stays f32)
+BF16_AUTO_MIN_HIDDEN = {
+    "PNA": 128,
+    "GAT": 128,
+    "GIN": 128,
+    "SAGE": 128,
+    "MFC": 128,
+    "CGCNN": 128,
+    "SchNet": 128,
+    "EGNN": 128,
+}
+
+
+def resolve_precision(model, training_config: dict) -> dict:
+    """Whether the forward and backward compute in bf16, decided as the
+    JAX package decides it. Order: ``HYDRAGNN_MIXED_PRECISION=0/1``; an
+    explicit ``Training.mixed_precision`` true/false; ``"auto"``, bf16 when
+    the stack is in :data:`BF16_AUTO_MIN_HIDDEN` and its hidden width
+    reaches the threshold; absent, f32. Returns ``{"mixed": bool,
+    "source": "env" | "explicit" | "policy" | "default"}``."""
+    env = os.getenv("HYDRAGNN_MIXED_PRECISION")
+    if env is not None and env.strip() != "":
+        off = env.strip().lower() in ("0", "false", "no", "off")
+        return {"mixed": not off, "source": "env"}
+    flag = training_config.get("mixed_precision", False)
+    if isinstance(flag, str) and flag.strip().lower() == "auto":
+        name = type(model).__name__
+        threshold = BF16_AUTO_MIN_HIDDEN.get(_STACK_KEYS.get(name, name.replace("Stack", "")))
+        mixed = threshold is not None and int(getattr(model, "hidden_dim", 0) or 0) >= threshold
+        return {"mixed": mixed, "source": "policy"}
+    return {
+        "mixed": bool(flag),
+        "source": "explicit" if "mixed_precision" in training_config else "default",
+    }

@@ -16,6 +16,10 @@ come from one of two kernels, chosen by ``aggregation``:
 - ``"segment"`` (``HYDRAGNN_PALLAS=1``): the gather and mask in PyTorch,
   then K2, ``segment_moments``.
 
+Both go through the kernels' backward rules (``*_vjp``); in ``segment``
+mode the gather's gradient is PyTorch's own index backward, as XLA's is
+for the JAX package's.
+
 The dense neighbour-list branch is not ported (see ``ROADMAP.md``).
 """
 
@@ -28,7 +32,7 @@ from torch import nn
 from hydragnn_tpu_torch.graph.segment import segment_minmax_fused
 from hydragnn_tpu_torch.models.base import HydraBase
 from hydragnn_tpu_torch.models.common import SplitLinear, TorchLinear, check_aggregation
-from hydragnn_tpu_torch.ops import fused_gather_moments, segment_moments
+from hydragnn_tpu_torch.ops import fused_gather_moments_vjp, segment_moments_vjp
 
 
 def pna_degree_averages(deg_histogram) -> Tuple[float, float]:
@@ -69,7 +73,7 @@ class PNAConv(nn.Module):
             ze = pre.piece(self.edge_encoder(batch.edge_attr), 2 * self.in_dim)
 
         if self.aggregation == "fused":
-            s, cnt, sq, z = fused_gather_moments(
+            s, cnt, sq, z = fused_gather_moments_vjp(
                 yj, batch.senders, batch.receivers, n, batch.edge_mask, ze=ze
             )
             # back to the caller's dtype (the kernel accumulates in f32)
@@ -79,7 +83,7 @@ class PNAConv(nn.Module):
             if ze is not None:
                 z = z + ze
             z = torch.where(batch.edge_mask[:, None], z, 0.0)
-            s, cnt, sq = segment_moments(z, batch.receivers, n)
+            s, cnt, sq = segment_moments_vjp(z, batch.receivers, n)
         has = cnt > 0
         deg = torch.clamp(cnt, min=1.0)
         mean_z = s / deg

@@ -9,6 +9,11 @@
 | K5 | ``fused_mp.fused_gather_mean`` | ``fused_mp.fused_message_reduce`` op ``copy_count`` | ``csrc/fused_mp.cu`` |
 | K6 | ``fused_mp.fused_gather_weighted_sum`` | ``fused_mp.fused_message_reduce`` op ``mul`` | ``csrc/fused_mp.cu`` |
 | K7 | ``fused_mp.fused_egnn_edge_phase`` | ``fused_mp.fused_message_reduce`` op ``egnn`` | ``csrc/fused_egnn.cu`` |
+
+K1-K3 take gradients through ``segment_sum_vjp``, ``segment_moments_vjp``
+and ``fused_gather_moments_vjp``: a ``torch.autograd.Function`` around the
+wrapper, with the JAX package's backward rule in PyTorch (K3's sender fold
+through K1). The wrappers themselves, and K4-K7, are forward-only.
 """
 
 from hydragnn_tpu_torch.ops.fused_mp import (
@@ -18,6 +23,7 @@ from hydragnn_tpu_torch.ops.fused_mp import (
     fused_gather_mean_plain,
     fused_gather_moments,
     fused_gather_moments_plain,
+    fused_gather_moments_vjp,
     fused_gather_sum,
     fused_gather_sum_plain,
     fused_gather_weighted_sum,
@@ -26,8 +32,10 @@ from hydragnn_tpu_torch.ops.fused_mp import (
 from hydragnn_tpu_torch.ops.segment_kernels import (
     segment_moments,
     segment_moments_plain,
+    segment_moments_vjp,
     segment_sum,
     segment_sum_plain,
+    segment_sum_vjp,
 )
 
 # kernel wrapper -> its plain version, in kernel-id order (K1 ... K7)
@@ -60,6 +68,7 @@ __all__ = [
     "fused_gather_mean_plain",
     "fused_gather_moments",
     "fused_gather_moments_plain",
+    "fused_gather_moments_vjp",
     "fused_gather_sum",
     "fused_gather_sum_plain",
     "fused_gather_weighted_sum",
@@ -68,6 +77,8 @@ __all__ = [
     "reset_launch_counts",
     "segment_moments",
     "segment_moments_plain",
+    "segment_moments_vjp",
     "segment_sum",
     "segment_sum_plain",
+    "segment_sum_vjp",
 ]

@@ -17,8 +17,12 @@ table reads a zero row, a reduce id outside ``[0, S)`` adds nothing, and a
 count sums the edge mask.
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises. The kernels are forward-only.
-Launches are counted in ``<wrapper>.launches``. Kernel against plain on
+tensors it launches the kernel or raises. The wrappers are forward-only;
+K3 takes gradients through :func:`fused_gather_moments_vjp`, a
+``torch.autograd.Function`` around its wrapper with the JAX package's
+backward rule (the sender fold through K1). K4-K7's backward rules are
+queued in ``ROADMAP.md`` (queue 2). Launches are counted in
+``<wrapper>.launches``. Kernel against plain on
 the card: relative tolerance ``1e-5 * (max |partial sum| + 1)`` (atomics
 add in a run-dependent order); K7 :func:`egnn_tolerance`.
 """
@@ -32,8 +36,12 @@ from hydragnn_tpu_torch.ops.segment_kernels import (
     _on_cpu,
     _stream,
     check_cuda_launch,
+    gather_cotangent,
     moments_layout,
+    moments_row,
     moments_views,
+    pack_moments_rows,
+    segment_sum,
     segment_sum_plain,
 )
 
@@ -101,19 +109,17 @@ def _check_moments_inputs(yj, senders, receivers, num_segments, edge_mask, ze):
 def fused_gather_moments_plain(yj, senders, receivers, num_segments,
                                edge_mask, ze=None):
     """Plain PyTorch version of :func:`fused_gather_moments`: a gather that
-    reads a zero row for out-of-range senders, then one ``index_add_`` of
-    the packed ``[z, z^2, mask]`` columns at the receivers."""
+    reads a zero row for out-of-range senders, then one ``index_add_`` at
+    the receivers of the rows ``segment_kernels.pack_moments_rows`` lays
+    out, counting the mask."""
     _check_moments_inputs(yj, senders, receivers, num_segments, edge_mask, ze)
-    d = yj.shape[1]
     xs = _gather_rows(yj, senders)
     if ze is not None:
         xs = xs + ze
-    mask = edge_mask.to(torch.float32)[:, None]
-    z = xs * mask
-    out = segment_sum_plain(
-        torch.cat([z, z * z, mask], dim=1), receivers, num_segments
-    )
-    return out[:, :d], out[:, 2 * d :], out[:, d : 2 * d], z
+    mask = edge_mask.to(torch.float32)
+    z = xs * mask[:, None]
+    out = segment_sum_plain(pack_moments_rows(z, mask), receivers, num_segments)
+    return moments_views(out, yj.shape[1]) + (z,)
 
 
 def fused_gather_moments(yj: torch.Tensor, senders: torch.Tensor,
@@ -127,10 +133,10 @@ def fused_gather_moments(yj: torch.Tensor, senders: torch.Tensor,
 
     Returns ``(s [S, D], cnt [S, 1], sq [S, D], z [E, D])``, float32.
 
-    On the card ``s``, ``cnt`` and ``sq`` are views of one ``[S, ldo]``
-    buffer from ``torch.empty`` (``segment_kernels.moments_views``), which
-    the C entry zeroes on the current stream; a bool mask is read as bytes,
-    any other mask cast to f32 once."""
+    ``s``, ``cnt`` and ``sq`` are views of one packed ``[S, ldo]`` row
+    (``segment_kernels.moments_views``). On the card it comes from
+    ``torch.empty`` and the C entry zeroes it on the current stream; a bool
+    mask is read as bytes, any other mask cast to f32 once."""
     _check_moments_inputs(yj, senders, receivers, num_segments, edge_mask, ze)
     if _on_cpu(yj):
         return fused_gather_moments_plain(
@@ -157,6 +163,66 @@ def fused_gather_moments(yj: torch.Tensor, senders: torch.Tensor,
 
 
 fused_gather_moments.launches = 0
+
+
+class _FusedGatherMoments(torch.autograd.Function):
+    """K3 with ``_fused_bwd``'s rule for op ``moments``
+    (``hydragnn_tpu/ops/fused_mp.py:376-452``, the op at ``:82-94``).
+
+    Per edge ``dz = (g_sum[r] + 2 z g_sq[r] + g_z) * mask``, where an
+    out-of-range receiver gathers zero and ``g_z`` is the cotangent of the
+    per-edge ``z`` output; ``ze`` gets ``dz`` and ``yj`` gets ``dz`` summed
+    at the senders through K1 (:func:`segment_kernels.segment_sum`), where
+    an out-of-range sender adds nothing. The forward's ``z`` is saved: it
+    is the value the JAX rule recomputes. Returns the packed row and ``z``;
+    the caller takes the views."""
+
+    @staticmethod
+    def forward(ctx, yj, ze, senders, receivers, num_segments, edge_mask):
+        ctx.set_materialize_grads(False)
+        s, _, _, z = fused_gather_moments(
+            yj.detach(), senders, receivers, num_segments, edge_mask,
+            None if ze is None else ze.detach(),
+        )
+        ctx.save_for_backward(z, senders, receivers, edge_mask)
+        ctx.num_nodes = yj.shape[0]
+        return moments_row(s), z
+
+    @staticmethod
+    def backward(ctx, g_out, g_z):
+        z, senders, receivers, edge_mask = ctx.saved_tensors
+        d = z.shape[1]
+        if g_out is None:
+            dz = torch.zeros_like(z)
+        else:
+            sq_off, _, _ = moments_layout(d)
+            rows = gather_cotangent(g_out, receivers)  # zero rows out of range
+            dz = rows[:, :d] + 2.0 * z * rows[:, sq_off : sq_off + d]
+        if g_z is not None:
+            dz = dz + g_z
+        dz = dz * edge_mask.to(torch.float32)[:, None]
+        d_yj = None
+        if ctx.needs_input_grad[0]:
+            d_yj = segment_sum(dz.contiguous(), senders, ctx.num_nodes)
+        d_ze = dz if ctx.needs_input_grad[1] else None
+        return d_yj, d_ze, None, None, None, None
+
+
+def fused_gather_moments_vjp(yj: torch.Tensor, senders: torch.Tensor,
+                             receivers: torch.Tensor, num_segments: int,
+                             edge_mask: torch.Tensor,
+                             ze: Optional[torch.Tensor] = None):
+    """:func:`fused_gather_moments` (K3) with its backward rule; the
+    wrapper itself where autograd records nothing (as
+    ``segment_kernels.segment_sum_vjp``). Returns ``(s, cnt, sq, z)`` as
+    the wrapper does."""
+    if not (torch.is_grad_enabled()
+            and (yj.requires_grad or (ze is not None and ze.requires_grad))):
+        return fused_gather_moments(yj, senders, receivers, num_segments, edge_mask, ze)
+    out, z = _FusedGatherMoments.apply(
+        yj, ze, senders, receivers, num_segments, edge_mask
+    )
+    return moments_views(out, yj.shape[1]) + (z,)
 
 
 # ---------------------------------------------------------------------------

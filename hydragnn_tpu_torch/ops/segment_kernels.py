@@ -14,10 +14,15 @@ Ids outside ``[0, S)`` add nothing. Data is ``[E, D]`` float32 (callers
 upcast), ids ``[E]`` int32; outputs are float32.
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
-tensors it launches the kernel or raises; it never falls back. The kernels
-are forward-only: a CUDA input that requires grad raises
-``NotImplementedError`` (the backward rules are queued in ``ROADMAP.md``).
-Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+tensors it launches the kernel or raises; it never falls back. A wrapper
+is forward-only: a CUDA input that requires grad, with grad enabled,
+raises ``NotImplementedError``. Gradients go through
+:func:`segment_sum_vjp` and :func:`segment_moments_vjp`, each a
+``torch.autograd.Function`` around the wrapper (kernel on the card, plain
+version on the CPU) whose backward rule is the JAX package's custom VJP
+(``_segment_sum_bwd``, ``_moments_bwd``): a masked gather of the
+cotangent, written in PyTorch. Each wrapper counts its kernel launches in
+``<wrapper>.launches``.
 
 Kernel against plain on the card: atomics add in a run-dependent order, so
 the tolerance is relative, ``1e-5 * (max |partial sum| + 1)``.
@@ -71,8 +76,11 @@ def check_cuda_launch(name: str, *tensors: torch.Tensor):
             raise ValueError(f"{name}: inputs must be contiguous")
         if t.requires_grad and torch.is_grad_enabled():
             raise NotImplementedError(
-                f"{name}: the CUDA kernel is forward-only; its backward rule "
-                "is queued in ROADMAP.md (run under torch.inference_mode())"
+                f"{name}: the kernel wrapper is forward-only (run it under "
+                "torch.inference_mode()). K1-K3 take gradients through "
+                "segment_sum_vjp, segment_moments_vjp and "
+                "fused_gather_moments_vjp; the backward rules of K4-K7 are "
+                "queued in ROADMAP.md, queue 2"
             )
 
 
@@ -161,19 +169,6 @@ segment_sum.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def segment_moments_plain(data: torch.Tensor, segment_ids: torch.Tensor,
-                          num_segments: int):
-    """Plain PyTorch version of :func:`segment_moments`: one ``index_add_``
-    of the packed ``[data, data^2, 1]`` columns."""
-    check_segment_inputs(data, segment_ids, num_segments)
-    d = data.shape[1]
-    ones = torch.ones((data.shape[0], 1), dtype=torch.float32, device=data.device)
-    out = segment_sum_plain(
-        torch.cat([data, data * data, ones], dim=1), segment_ids, num_segments
-    )
-    return out[:, :d], out[:, 2 * d :], out[:, d : 2 * d]
-
-
 def moments_layout(d: int):
     """Where K2 and K3 put their statistics in a packed ``[S, ldo]`` row:
     ``[sum (D) | pad | sum of squares (D) | pad | count | pad]``, each part
@@ -185,10 +180,42 @@ def moments_layout(d: int):
 
 
 def moments_views(out: torch.Tensor, d: int):
-    """``(sum [S, D], count [S, 1], sum_of_squares [S, D])``: views of a
-    packed ``[S, ldo]`` row laid out by :func:`moments_layout`."""
+    """``(sum [S, D], count [S, 1], sum_of_squares [S, D])``: views of the
+    packed ``[S, ldo]`` row ``out``."""
     sq_off, cnt_off, _ = moments_layout(d)
     return out[:, :d], out[:, cnt_off : cnt_off + 1], out[:, sq_off : sq_off + d]
+
+
+def moments_row(s: torch.Tensor) -> torch.Tensor:
+    """The packed ``[S, ldo]`` row whose first columns the sum view ``s``
+    of :func:`moments_views` is, over the same memory (inference tensors
+    keep no ``_base``)."""
+    ldo = moments_layout(s.shape[1])[2]
+    if s.stride() != (ldo, 1):
+        raise ValueError("not the sum view of a packed moments row")
+    return s.as_strided((s.shape[0], ldo), (ldo, 1))
+
+
+def pack_moments_rows(z: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """``[E, ldo]`` rows ``[z | pad | z^2 | pad | count | pad]`` laid out by
+    :func:`moments_layout` (zero padding); ``count`` is ``[E]``."""
+    d = z.shape[1]
+    sq_off, cnt_off, ldo = moments_layout(d)
+    rows = z.new_zeros((z.shape[0], ldo))
+    rows[:, :d] = z
+    rows[:, sq_off : sq_off + d] = z * z
+    rows[:, cnt_off] = count
+    return rows
+
+
+def segment_moments_plain(data: torch.Tensor, segment_ids: torch.Tensor,
+                          num_segments: int):
+    """Plain PyTorch version of :func:`segment_moments`: one ``index_add_``
+    of the rows :func:`pack_moments_rows` lays out."""
+    check_segment_inputs(data, segment_ids, num_segments)
+    ones = torch.ones(data.shape[0], dtype=torch.float32, device=data.device)
+    out = segment_sum_plain(pack_moments_rows(data, ones), segment_ids, num_segments)
+    return moments_views(out, data.shape[1])
 
 
 def segment_moments(data: torch.Tensor, segment_ids: torch.Tensor,
@@ -196,10 +223,11 @@ def segment_moments(data: torch.Tensor, segment_ids: torch.Tensor,
     """K2: ``(sum [S, D], count [S, 1], sum_of_squares [S, D])`` per
     segment in one pass. ``count`` counts every in-range id, unweighted.
 
-    On the card the three are views of one ``[S, ldo]`` buffer from
-    ``torch.empty`` (:func:`moments_views`), which the C entry zeroes on the
-    current stream; each run of equal ids is reduced in registers before
-    one atomic per part (``csrc/gather_reduce.cuh``)."""
+    The three are views of one packed ``[S, ldo]`` row
+    (:func:`moments_views`). On the card it comes from ``torch.empty`` and
+    the C entry zeroes it on the current stream; each run of equal ids is
+    reduced in registers before one atomic per part
+    (``csrc/gather_reduce.cuh``)."""
     check_segment_inputs(data, segment_ids, num_segments)
     if _on_cpu(data):
         return segment_moments_plain(data, segment_ids, num_segments)
@@ -219,3 +247,83 @@ def segment_moments(data: torch.Tensor, segment_ids: torch.Tensor,
 
 
 segment_moments.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# backward rules of K1 and K2 (the JAX package's custom VJPs)
+# ---------------------------------------------------------------------------
+
+
+def gather_cotangent(g: torch.Tensor, segment_ids: torch.Tensor) -> torch.Tensor:
+    """``g[ids]`` per row, and exactly zero for an id outside ``[0, S)``:
+    such an edge added nothing forward (a bare ``g[ids]`` would read
+    another segment's cotangent)."""
+    s = g.shape[0]
+    if s == 0:
+        return g.new_zeros((segment_ids.shape[0],) + tuple(g.shape[1:]))
+    valid = (segment_ids >= 0) & (segment_ids < s)
+    rows = g.index_select(0, torch.where(valid, segment_ids, 0))
+    return torch.where(valid[:, None], rows, 0.0)
+
+
+class _SegmentSum(torch.autograd.Function):
+    """K1 with ``_segment_sum_bwd``'s rule (``pallas_segment.py:153-161``):
+    ``d data = g[ids]``, zero where an id is out of range; no gradient for
+    the ids."""
+
+    @staticmethod
+    def forward(ctx, data, segment_ids, num_segments):
+        ctx.save_for_backward(segment_ids)
+        return segment_sum(data.detach(), segment_ids, num_segments)
+
+    @staticmethod
+    def backward(ctx, g):
+        (segment_ids,) = ctx.saved_tensors
+        return gather_cotangent(g, segment_ids), None, None
+
+
+class _SegmentMoments(torch.autograd.Function):
+    """K2 with ``_moments_bwd``'s rule (``pallas_segment.py:237-245``):
+    ``d data = g_sum[ids] + 2 data g_sq[ids]``, zero where an id is out of
+    range; the count gets no gradient. Returns the packed ``[S, ldo]`` row;
+    the caller takes :func:`moments_views` of it, so that the views share
+    one base outside the Function."""
+
+    @staticmethod
+    def forward(ctx, data, segment_ids, num_segments):
+        data = data.detach()
+        ctx.save_for_backward(data, segment_ids)
+        return moments_row(segment_moments(data, segment_ids, num_segments)[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        data, segment_ids = ctx.saved_tensors
+        d = data.shape[1]
+        sq_off, _, _ = moments_layout(d)
+        rows = gather_cotangent(g, segment_ids)  # zero rows out of range
+        return rows[:, :d] + 2.0 * data * rows[:, sq_off : sq_off + d], None, None
+
+
+# Where autograd records nothing (serving, under inference_mode) the *_vjp
+# functions call the wrapper itself: a Function's apply costs the host
+# 7-21 us a call on the H100 machine (tools/vjp_dispatch_cost.py, PERF.md),
+# and serving is host-paced.
+
+
+def segment_sum_vjp(data: torch.Tensor, segment_ids: torch.Tensor,
+                    num_segments: int) -> torch.Tensor:
+    """:func:`segment_sum` (K1) with its backward rule."""
+    if not (torch.is_grad_enabled() and data.requires_grad):
+        return segment_sum(data, segment_ids, num_segments)
+    return _SegmentSum.apply(data, segment_ids, num_segments)
+
+
+def segment_moments_vjp(data: torch.Tensor, segment_ids: torch.Tensor,
+                        num_segments: int):
+    """:func:`segment_moments` (K2) with its backward rule: ``(sum, count,
+    sum_of_squares)``, views of one packed row."""
+    if not (torch.is_grad_enabled() and data.requires_grad):
+        return segment_moments(data, segment_ids, num_segments)
+    return moments_views(
+        _SegmentMoments.apply(data, segment_ids, num_segments), data.shape[1]
+    )

@@ -1,0 +1,28 @@
+"""Training (port of ``hydragnn_tpu/train``): one step at a time.
+
+``Trainer(model, training_config)`` -> ``init_state`` -> ``put_batch`` ->
+``train_step`` (forward in training mode, loss, backward through the
+kernels' backward rules, AdamW or Adam, BatchNorm running statistics) ->
+``eval_step``. Epoch loops, staging, schedulers, checkpoints and meshes are
+not ported yet (``ROADMAP.md``, queue 1).
+"""
+
+from hydragnn_tpu_torch.train.common import TrainState, guard_enabled
+from hydragnn_tpu_torch.train.optimizer import (
+    get_learning_rate,
+    select_optimizer,
+    set_learning_rate,
+)
+from hydragnn_tpu_torch.train.steps import eval_step, train_step
+from hydragnn_tpu_torch.train.trainer import Trainer
+
+__all__ = [
+    "TrainState",
+    "Trainer",
+    "eval_step",
+    "get_learning_rate",
+    "guard_enabled",
+    "select_optimizer",
+    "set_learning_rate",
+    "train_step",
+]

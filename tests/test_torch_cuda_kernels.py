@@ -22,6 +22,16 @@ and without ``ze``, z compared on every edge, and each kernel's count held
 exactly to its own rule; on unaligned views (the scalar path), a float
 mask and no edges at all.
 
+The backward rules of K1-K3 (``segment_sum_vjp``, ``segment_moments_vjp``,
+``fused_gather_moments_vjp``) are held on the card against the same
+Functions on the CPU (plain forward, the same rule): K1's on its id
+patterns at D = 1, 3, 50 and 256 (a gather: exact); K3's and K2's on the
+moments' id patterns at D = 1, 64 and 256 with and without ``ze``, the
+cotangent of ``z`` included (``yj``'s gradient, summed at the senders
+through K1, within ``atomic_tolerance`` of ``|dz|`` summed there;
+elementwise gradients within ``1e-6 * (max |grad| + 1)``), and at the
+main path's largest batch (n_pad 5768, e_pad 69120, hidden 256).
+
 K1's run reduction is held on the id patterns that stress it (all ids
 equal; runs that cross a thread's, a block's and a tile's boundary; fully
 unsorted; out-of-range ids in the middle of a run) at D = 1, 3, 50, 256
@@ -57,10 +67,13 @@ from hydragnn_tpu_torch.ops import (
     fused_gather_sum_plain,
     fused_gather_weighted_sum,
     fused_gather_weighted_sum_plain,
+    fused_gather_moments_vjp,
     segment_moments,
     segment_moments_plain,
+    segment_moments_vjp,
     segment_sum,
     segment_sum_plain,
+    segment_sum_vjp,
 )
 from hydragnn_tpu_torch.ops.fused_mp import egnn_tolerance
 from hydragnn_tpu_torch.ops.segment_kernels import atomic_tolerance
@@ -612,14 +625,134 @@ def pytest_host_batch_reaches_the_card_in_one_buffer(card):
         g.pos = rng.random((n, 3)).astype(np.float32)
         g.edge_index = np.stack([np.arange(n), (np.arange(n) + 1) % n]).astype(np.int64)
         g.edge_attr = rng.random((n, 2)).astype(np.float32)
+        g.targets = [rng.random(1).astype(np.float32), rng.random((n, 2)).astype(np.float32)]
         graphs.append(g)
-    host = collate_graphs(graphs, *pad_sizes_for(9, 9, 3))
+    host = collate_graphs(graphs, *pad_sizes_for(9, 9, 3), head_types=("graph", "node"),
+                          head_dims=(1, 2))
     moved = host.to(card)
     torch.cuda.synchronize()
     ptrs = set()
-    for name in host.__dataclass_fields__:
-        h, d = getattr(host, name), getattr(moved, name)
+    pairs = [(name, getattr(host, name), getattr(moved, name))
+             for name in host.__dataclass_fields__ if name != "targets"]
+    pairs += [(f"targets[{i}]", h, d) for i, (h, d) in enumerate(zip(host.targets, moved.targets))]
+    assert len(moved.targets) == 2
+    for name, h, d in pairs:
         assert d.device.type == "cuda" and d.dtype == h.dtype and d.shape == h.shape, name
         assert torch.equal(d.cpu(), h), name
         ptrs.add(d.untyped_storage().data_ptr())
-    assert len(ptrs) == 1  # every field is a view of the one device buffer
+    assert len(ptrs) == 1  # every field, the targets too, is a view of the one device buffer
+
+
+# ---------------------------------------------------------------------------
+# the backward rules of K1-K3 on the card against the same Functions on the
+# CPU (plain forward, the same rule)
+# ---------------------------------------------------------------------------
+
+
+def _vjp_run(fn, inputs, grad_inputs, cotangents):
+    """``fn(*inputs)`` with ``grad_inputs`` (indices) requiring grad, its
+    outputs' backward with ``cotangents``; returns the outputs and the
+    gradients, detached."""
+    inputs = [t.detach().clone().requires_grad_(i in grad_inputs) if t is not None else None
+              for i, t in enumerate(inputs)]
+    outs = fn(*inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    torch.autograd.backward(outs, list(cotangents))
+    return [o.detach() for o in outs], [inputs[i].grad for i in grad_inputs]
+
+
+def _cpu(tensors):
+    return [None if t is None else t.cpu() for t in tensors]
+
+
+@pytest.mark.parametrize("d", [1, 3, 50, 256])
+@pytest.mark.parametrize("pattern", ["all_equal", "runs", "unsorted", "out_of_range_mid_run"])
+def pytest_segment_sum_vjp_on_the_card(card, pattern, d):
+    """K1's rule, ``g[ids]`` with zero out of range: a gather, exact."""
+    e, s = 3001, 100
+    rng = np.random.default_rng(d)
+    data = torch.from_numpy(rng.standard_normal((e, d)).astype(np.float32)).to(card)
+    ids = torch.from_numpy(_run_ids(e, s, pattern, seed=d)).to(card)
+    g = torch.from_numpy(rng.standard_normal((s, d)).astype(np.float32)).to(card)
+    fn = lambda x, i: segment_sum_vjp(x, i, s)  # noqa: E731
+    before = segment_sum.launches
+    outs, grads = _vjp_run(fn, [data, ids], [0], [g])
+    torch.cuda.synchronize()
+    assert segment_sum.launches == before + 1  # the forward only: the rule is a gather
+    ref_outs, ref_grads = _vjp_run(fn, _cpu([data, ids]), [0], [g.cpu()])
+    assert torch.equal(grads[0].cpu(), ref_grads[0])
+    tol = atomic_tolerance(segment_sum_plain(data.abs().cpu(), ids.cpu(), s))
+    assert float((outs[0].cpu() - ref_outs[0]).abs().max()) <= tol
+
+
+def _check_moment_vjps(x, snd, rcv, s, mask, ze, seed):
+    """K3's and K2's rules on the card against the CPU: K3 with the
+    cotangents of all four outputs (``z``'s included) into ``yj`` (summed
+    at the senders through K1) and ``ze``; K2 into its data."""
+    rng = np.random.default_rng(seed)
+    d, e = x.shape[1], snd.shape[0]
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(x.device)
+
+    cots = [rand(s, d), rand(s, 1), rand(s, d), rand(e, d)]
+    cpu_cots = _cpu(cots)
+    grad_inputs = [0] if ze is None else [0, 1]
+
+    def k3(snd, rcv, mask):
+        return lambda y, z_e: fused_gather_moments_vjp(y, snd, rcv, s, mask, ze=z_e)
+
+    before = (fused_gather_moments.launches, segment_sum.launches)
+    outs, grads = _vjp_run(k3(snd, rcv, mask), [x, ze], grad_inputs, cots)
+    torch.cuda.synchronize()
+    assert (fused_gather_moments.launches, segment_sum.launches) == (before[0] + 1, before[1] + 1)
+    k3_cpu = k3(*_cpu([snd, rcv, mask]))
+    ref_outs, ref_grads = _vjp_run(k3_cpu, _cpu([x, ze]), grad_inputs, cpu_cots)
+    # dz per edge: the same rule on the CPU with a zero ze (z unchanged)
+    _, (dz,) = _vjp_run(k3_cpu, [x.cpu(), torch.zeros((e, d))], [1], cpu_cots)
+    _check_moments([o.cpu() for o in outs], ref_outs, _moments_tolerance(ref_outs[3], rcv.cpu(), s))
+    yj_tol = atomic_tolerance(segment_sum_plain(dz.abs(), snd.cpu(), x.shape[0]))
+    assert float((grads[0].cpu() - ref_grads[0]).abs().max()) <= yj_tol
+    if ze is not None:  # elementwise: the same ops on both devices
+        assert float((grads[1].cpu() - ref_grads[1]).abs().max()) <= 1e-6 * (
+            float(ref_grads[1].abs().max()) + 1.0)
+
+    z = ref_outs[3]
+    before = segment_moments.launches
+    _, (g2,) = _vjp_run(lambda t: segment_moments_vjp(t, rcv, s), [z.to(x.device)], [0], cots[:3])
+    torch.cuda.synchronize()
+    assert segment_moments.launches == before + 1
+    _, (ref_g2,) = _vjp_run(lambda t: segment_moments_vjp(t, rcv.cpu(), s), [z], [0], cpu_cots[:3])
+    assert float((g2.cpu() - ref_g2).abs().max()) <= 1e-6 * (float(ref_g2.abs().max()) + 1.0)
+
+
+@pytest.mark.parametrize("d", [1, 64, 256])
+@pytest.mark.parametrize("pattern", MOMENT_PATTERNS)
+@pytest.mark.parametrize("with_ze", [False, True])
+def pytest_moments_vjps_on_the_card(card, pattern, d, with_ze):
+    x, snd, rcv, mask, s = _moments_case(card, pattern, d)
+    ze = None
+    if with_ze:
+        rng = np.random.default_rng(d + 5)
+        ze = torch.from_numpy(rng.standard_normal((snd.shape[0], d)).astype(np.float32)).to(card)
+    _check_moment_vjps(x, snd, rcv, s, mask, ze, seed=d)
+
+
+def pytest_vjps_at_the_main_path_shape(card):
+    """The main path's largest batch (n_pad 5768, e_pad 69120, hidden 256):
+    K3's and K2's rules, the padding node and the pool's K1 rule."""
+    from chip_smoke import FULL, largest_batch, make_graphs
+    from hydragnn_tpu_torch.serve import plan_from_samples
+
+    graphs = make_graphs(FULL["graphs"], FULL["nodes"], FULL["degree"], seed=0)
+    plan = plan_from_samples(graphs, max_batch_graphs=FULL["batch"], num_buckets=3)
+    batch = largest_batch(plan, graphs).to(card)
+    n, h = batch.num_nodes, FULL["hidden"]
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((n, h)).astype(np.float32)).to(card)
+    _check_moment_vjps(x, batch.senders, batch.receivers, n, batch.edge_mask, None, seed=2)
+    g = torch.from_numpy(rng.standard_normal((batch.num_graphs, h)).astype(np.float32)).to(card)
+    fn = lambda t, i: segment_sum_vjp(t, i, batch.num_graphs)  # noqa: E731
+    _, (got,) = _vjp_run(fn, [x, batch.node_graph], [0], [g])
+    _, (want,) = _vjp_run(fn, _cpu([x, batch.node_graph]), [0], [g.cpu()])
+    assert torch.equal(got.cpu(), want)

@@ -26,6 +26,7 @@ FORBIDDEN = ("jax", "flax", "optax", "hydragnn_tpu")
 def _port_files():
     files = sorted((REPO / "hydragnn_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10 and all(f.exists() for f in files)
+    assert REPO / "hydragnn_tpu_torch" / "train" / "trainer.py" in files
     return files
 
 
@@ -60,6 +61,7 @@ def pytest_port_sources_import_nothing_of_jax():
 def pytest_importing_the_port_loads_no_jax():
     code = (
         "import sys, hydragnn_tpu_torch, hydragnn_tpu_torch.serve, hydragnn_tpu_torch.ops\n"
+        "import hydragnn_tpu_torch.train\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'hydragnn_tpu')]\n"
         "assert not bad, bad\n"
     )

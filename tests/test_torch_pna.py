@@ -153,10 +153,10 @@ def pytest_pna_unported_options_raise():
         create_model_config({**arch(), "partition_axis": "data"}, device="cpu")
     with pytest.raises(ValueError):
         create_model_config(arch(), device="cpu", aggregation="dense")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        create_model_config({**arch(), "conv_checkpointing": True}, device="cpu")
     model = create_model_config(arch(), device="cpu")
     batch = collate_graphs(samples(), *pad_sizes_for(10, 40, 6))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.train()(batch)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model.eval().to(torch.bfloat16)(batch)
 
