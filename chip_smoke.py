@@ -45,25 +45,40 @@ Phases, in order; any failure raises and exits non-zero:
    graph target ``[1]`` and a node target ``[n, 1]`` per its
    ``output_dim``) trained through ``Trainer`` (``init_state`` ->
    ``put_batch`` -> ``train_step`` with AdamW at lr 1e-3 -> ``eval_step``)
-   on the largest bucket's batch (n_pad 5768, e_pad 69120, g_pad 65), once
-   per aggregation mode: 1 warm step, 20 timed steps (CUDA events, the
-   median of 5 windows of 4 steps), one profiled step. Every step launches
-   K3 3 times and K1 4 times (the pool, and K3's backward rule summing at
-   the senders) in ``fused`` mode, K2 3 times and K1 once in ``segment``
-   mode; the counts are held per step. Every loss is finite and the last
-   is below the first. Step 1 is held against two CPU copies of the model
-   taken before it, on the same batch: one in float64, the exact step's
-   stand-in, and one in float32 through the plain versions, which shows
-   how far float32 arithmetic itself lies from it (up to ~1% of a
-   gradient's max: sums that cancel, PNA's one-pass variance). Per tensor
-   (the loss, each gradient, each BatchNorm statistic), ``|card - exact|
-   <= (atol + 4 * level) * max|exact| + rtol * |exact|`` elementwise (the
-   serve phase's rtol 1e-3 and atol 1e-4; ``level`` the f32 copy's
-   largest error over its kind, relative to each tensor's max), and every
-   updated parameter within the serve bound plus what AdamW's first step
-   makes of the gradient's error (:func:`hold_step_against_cpu`). The
-   profiled step's device time is split into forward, backward and
-   optimizer (:func:`split_trace`). One ``{"train": ...}`` line per mode.
+   on the largest bucket's batch (n_pad 5768, e_pad 69120, g_pad 65): in
+   f32 in ``fused`` and ``segment`` mode, and with the batch's dense
+   neighbour lists (PNA's dense branch) in f32 and in bf16 mixed
+   precision. Each run: 1 warm step, 20 timed steps (CUDA events, the
+   median of 5 windows of 4 steps), one profiled step. Every step
+   launches K3 3 times and K1 4 times (the pool, and K3's backward rule
+   summing at the senders) in ``fused`` mode, K2 3 times and K1 once in
+   ``segment`` mode, K1 once (the pool) in ``dense`` mode; the counts are
+   held per step. Every loss is finite and the last is below the first.
+   Step 1 is held against CPU copies of the model taken before it, on
+   the same batch: one in float64, the exact step's stand-in, and the
+   witness, through the plain versions at the run's precision, which
+   shows how far that arithmetic itself lies from it (in float32 up to
+   ~1% of a gradient's max: sums that cancel, PNA's one-pass variance);
+   in bf16 a second witness takes the batch's graphs in the reverse
+   order.
+   Per tensor (the loss, each gradient, each BatchNorm statistic), ``|card
+   - exact| <= (atol + factor * level) * max|exact| + rtol * |exact|``
+   elementwise (the serve phase's rtol 1e-3 and atol 1e-4; ``level`` the
+   witness's error relative to each tensor's max, in f32 the largest over
+   the tensor's kind, in bf16 the tensor's own, the larger of its two
+   witnesses'; ``factor`` ``F32_FACTOR`` or ``BF16_FACTOR``), and every
+   updated
+   parameter within the serve bound plus what AdamW's first step makes of
+   the gradient's error (:func:`hold_step_against_cpu`). The profiled
+   step's device time is split into forward, backward and optimizer
+   (:func:`split_trace`). One ``{"train": ...}`` line per run.
+   Then the JAX package's headline, ``MXU_HEADLINE``, through the port's
+   ``bench_model(**MXU_HEADLINE, iters=20)``: one ``{"train": ...}``
+   line with ms per step, graphs/s, the step's
+   matmul FLOPs and MFU, the device split and the card's name and power
+   limit. PNA is also served once more in phase 4 on a plan whose batches
+   carry the dense lists (``plan_from_samples(need_neighbors=True)``);
+   building the lists is host work, in ``pack_ms_host``.
 6. Prints one JSON line per kernel case, the card's name and power limit,
    the ``{"kernels": [...]}`` summary (per kernel, its main case's
    ``ms`` and median ``device_ms`` beside the bound, the plain version's
@@ -94,7 +109,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
-from hydragnn_tpu_torch.data import GraphData
+from hydragnn_tpu_torch.benchmarks.model_bench import MXU_HEADLINE, bench_model, make_graphs
 from hydragnn_tpu_torch.graph import collate_graphs
 from hydragnn_tpu_torch.models import create_model_config
 from hydragnn_tpu_torch.ops import (
@@ -103,6 +118,7 @@ from hydragnn_tpu_torch.ops import (
     launch_counts,
     reset_launch_counts,
 )
+from hydragnn_tpu_torch.ops.dense_agg import attach_neighbor_lists
 from hydragnn_tpu_torch.ops.fused_mp import egnn_tolerance
 from hydragnn_tpu_torch.ops.segment_kernels import atomic_tolerance
 from hydragnn_tpu_torch.serve import (
@@ -156,13 +172,23 @@ SCHNET_FILTERS = 50  # model_bench's num_gaussians: SchNet's filters (swapped)
 SERVE_RTOL, SERVE_ATOL = 1e-3, 1e-4  # card (atomics, cuBLAS) against CPU
 TRAIN_CONFIG = {"Optimizer": {"type": "AdamW", "learning_rate": 1e-3}}
 TRAIN_WINDOWS, TRAIN_WINDOW_STEPS = 5, 4  # 20 timed steps
+HEADLINE_ITERS = 20  # bench.py's bench_headline_mxu: bench_model(**MXU_HEADLINE, iters=20)
+
+
+def aggregation_of(mode):
+    """The model's ``aggregation`` for a run's mode: a ``dense`` batch
+    takes the lists' branch whatever it is."""
+    return "fused" if mode == "dense" else mode
 
 
 def launches_per_forward(cfg, mode):
-    """``{kernel: launches}`` one forward of ``cfg``'s stack needs."""
+    """``{kernel: launches}`` one forward of ``cfg``'s stack needs (mode
+    ``dense``: PNA's neighbour-list branch runs no kernel)."""
     family, layers = cfg["model_type"], cfg["num_conv_layers"]
     counts = {name: 0 for name in KERNELS}
     counts["segment_sum"] = 1  # global_mean_pool
+    if mode == "dense":
+        return counts
     if mode == "fused":
         counts[FUSED_KERNEL[family]] = layers
     elif family == "PNA":
@@ -201,28 +227,6 @@ def arch(size, model_type="PNA"):
         "num_filters": size["hidden"],
         "radius": 5.0,
     }
-
-
-def make_graphs(num_graphs, nodes, degree, seed=0):
-    """benchmarks/model_bench.py:make_graphs: ~``nodes`` atoms, ``degree``
-    incident edges per node (ring-offset structure), random positions."""
-    rng = np.random.default_rng(seed)
-    out = []
-    for _ in range(num_graphs):
-        n = int(rng.integers(max(2, nodes - 10), nodes + 1))
-        g = GraphData(
-            x=rng.random((n, 1)).astype(np.float32),
-            pos=(rng.random((n, 3)) * n ** (1 / 3)).astype(np.float32),
-        )
-        src = np.repeat(np.arange(n), degree // 2)
-        dst = (src + rng.integers(1, n, src.shape[0])) % n
-        g.edge_index = np.stack(
-            [np.concatenate([src, dst]), np.concatenate([dst, src])]
-        ).astype(np.int64)
-        d = np.linalg.norm(g.pos[g.edge_index[0]] - g.pos[g.edge_index[1]], axis=1)
-        g.edge_attr = d[:, None].astype(np.float32)
-        out.append(g)
-    return out
 
 
 def sparse_yardstick(x, senders, receivers, num_segments, edge_mask, count=False):
@@ -572,7 +576,7 @@ def set_bn_stats(model, seed):
 
 def phase_serve(mode, cfg, plan, graphs, device, card, threads=4):
     family = cfg["model_type"]
-    model = create_model_config(cfg, device=device, aggregation=mode, seed=0)
+    model = create_model_config(cfg, device=device, aggregation=aggregation_of(mode), seed=0)
     set_bn_stats(model, seed=0)
     registry = ModelRegistry()
     registry.register(family.lower(), model)
@@ -713,13 +717,14 @@ def launches_per_train_step(mode, layers):
     """``{kernel: launches}`` one PNA training step needs: the forward's,
     and in ``fused`` mode one K1 per conv layer in K3's backward (the sum of
     ``dz`` at the senders). The pool's and K2's backward rules are gathers,
-    and ``segment`` mode's gather has PyTorch's own backward."""
+    ``segment`` mode's gather has PyTorch's own backward, and ``dense``
+    mode's runs no kernel: K1 pools, once."""
     counts = {name: 0 for name in KERNELS}
     counts["segment_sum"] = 1  # the pool
     if mode == "fused":
         counts["fused_gather_moments"] = layers
         counts["segment_sum"] += layers
-    else:
+    elif mode == "segment":
         counts["segment_moments"] = layers
     return counts
 
@@ -736,19 +741,29 @@ def set_targets(graphs, seed):
         ]
 
 
-def train_batch(plan, graphs, cfg):
-    """The largest bucket's batch, with the heads' targets."""
+def train_batch(plan, graphs, cfg, dense=False, reverse=False):
+    """The largest bucket's batch, with the heads' targets (and with
+    ``dense`` the neighbour lists, at the widths its edges need; with
+    ``reverse`` its graphs in the reverse order: the same step, summed in
+    another order)."""
     take, b = largest_take(plan, graphs)
+    if reverse:
+        take = take[::-1]
     lay = plan.layouts[b]
-    return collate_graphs(
+    batch = collate_graphs(
         take, lay.n_pad, lay.e_pad, lay.g_pad,
         head_types=tuple(cfg["output_type"]), head_dims=tuple(cfg["output_dim"]),
     )
+    return attach_neighbor_lists(batch) if dense else batch
 
 
-def cpu_step(model, host):
+def train_config(bf16=False):
+    return {**TRAIN_CONFIG, "mixed_precision": bool(bf16)}
+
+
+def cpu_step(model, host, bf16=False):
     """Step 1 of ``model`` (a CPU copy) on ``host``: its loss."""
-    trainer = Trainer(model, TRAIN_CONFIG)
+    trainer = Trainer(model, train_config(bf16))
     return trainer.train_step(trainer.init_state(host), host)[1]["loss"]
 
 
@@ -802,35 +817,53 @@ def as_float64(batch):
     def conv(t):
         return t.double() if t is not None and t.is_floating_point() else t
 
-    fields = {f.name: getattr(batch, f.name) for f in dataclasses.fields(batch)}
+    fields = {f.name: getattr(batch, f.name) for f in dataclasses.fields(batch)
+              if f.name != "extras"}  # the lists: integer and bool tensors
     return dataclasses.replace(batch, **{
         k: tuple(conv(t) for t in v) if k == "targets" else conv(v) for k, v in fields.items()
     })
 
 
-def cpu_references(model, host):
-    """Step 1 of two CPU copies of ``model`` (taken before any step) on
-    ``host``: through the plain versions in float32, and in float64, the
-    exact step's stand-in (:func:`float64_port`; a dispatch mode watches
-    every operation of that step, backward and optimizer included, and it
-    fails if any gives a float32 tensor). Returns ``((f32 model, loss),
-    (f64 model, loss))``."""
-    f32 = copy.deepcopy(model).cpu()
-    f64 = copy.deepcopy(f32).double()
+def cpu_references(model, host, bf16=False, reversed_host=None):
+    """Step 1 of CPU copies of ``model`` (taken before any step) on ``host``:
+    the witnesses, through the plain versions in float32 (with ``bf16``, in
+    bf16 mixed precision: the card's own arithmetic; then also on
+    ``reversed_host``, the same graphs in the reverse order, whose sums
+    round in another order), and in float64, the exact step's stand-in
+    (:func:`float64_port`; a dispatch mode watches every operation of that
+    step, backward and optimizer included, and it fails if any gives a
+    float32 tensor). Returns ``([(witness model, loss), ...], (f64 model,
+    loss))``."""
+    if bf16 and reversed_host is None:
+        raise ValueError("a bf16 step needs its second witness: pass reversed_host")
+    witness = copy.deepcopy(model).cpu()
+    f64 = copy.deepcopy(witness).double()
+    second = copy.deepcopy(witness) if bf16 else None
     with float64_port(), Float32Watch() as watch:
         loss64 = cpu_step(f64, as_float64(host))
     if watch.seen:
         raise AssertionError(f"float32 in the float64 step: {sorted(watch.seen)}")
-    return (f32, cpu_step(f32, host)), (f64, loss64)
+    witnesses = [(witness, cpu_step(witness, host, bf16))]
+    if bf16:
+        witnesses.append((second, cpu_step(second, reversed_host, bf16)))
+    return witnesses, (f64, loss64)
 
 
 # The card against the exact step may lie F32_FACTOR times as far as the
-# f32 CPU's worst tensor of the kind, relative to each tensor's scale. Over
-# 21 card runs (tools/train_step_tolerance.py, seeds 0-9, and this smoke)
-# the most any needed was 1.77, and one seed's card error moved 5.7-fold
-# between two runs (atomics); at 4 the check sees a fault above ~2% of a
-# gradient's max on this smoke's batch (PERF.md, PR 7).
+# f32 CPU's worst tensor of the kind, relative to each tensor's scale:
+# max(4, 1.25 times the most any card run has needed, rounded up). Over 21
+# card runs (PR 7) the most was 1.77, so 4 (PERF.md). One near-tied max on
+# seed 0, whose gradient the atomics send to either edge, needs 3.24 in
+# about one step in sixteen (PERF.md, PR 8; tools/step_repeat_events.py).
 F32_FACTOR = 4.0
+# A bf16 step is held per tensor against two bf16 CPU steps as the
+# witnesses (the batch's graphs in both orders; its level is each tensor's
+# own, the larger of the two, not its kind's worst): by the same rule,
+# 1.25 times the most the card needed over tools/train_step_tolerance.py
+# --bf16 --modes dense (seeds 0-9), rounded up, and at least 4. The most
+# was 1.99, so 4 (PERF.md; with one witness two seeds needed 16.9 and 37.1,
+# where it had landed near the exact value by chance).
+BF16_FACTOR = 4.0
 ZERO_GRAD = 1e-6  # a gradient below this share of the largest is zero exactly
 
 
@@ -853,43 +886,50 @@ def step_tensors(snap, loss):
     return out
 
 
-def hold_step_against_cpu(card, card_loss, cpu, exact):
+def hold_step_against_cpu(card, card_loss, cpu, exact, bf16=False):
     """Step 1 on the card against the exact step (float64 on the CPU), with
-    the float32 CPU step as the witness of what float32 arithmetic gives:
-    ``card`` is the card model's :func:`snapshot`, ``cpu`` and ``exact``
-    ``(model, loss)`` from :func:`cpu_references`.
+    the CPU step at the card's precision as the witness of what that
+    arithmetic gives: ``card`` is the card model's :func:`snapshot`,
+    ``cpu`` the witnesses and ``exact`` the exact ``(model, loss)`` from
+    :func:`cpu_references`, ``bf16`` the step's precision.
 
     Per tensor ``t`` (the loss, each gradient, each BatchNorm statistic)
     with scale ``s`` = its exact ``max |value|`` (for a gradient that is
     zero in exact arithmetic, below ``ZERO_GRAD`` of the largest, the
     largest gradient: its float32 value is rounding of terms that cancel),
-    the f32 CPU's level is ``max |cpu - exact| / s`` over the tensors of
-    its kind, and the card must hold ``|card - exact| <= (atol + F32_FACTOR
-    * level) * s + rtol * |exact|`` elementwise (the serve phase's rtol
-    1e-3 and atol 1e-4). Each updated parameter adds what AdamW's first
-    step (``lr * g / (|g| + eps)``, nearly ``lr * sign(g)``) makes of a
-    gradient error ``dg`` within the gradient's bound: ``lr * dg * eps /
-    ((|g| - dg)+ + eps)^2``, at most ``2 lr``.
+    the witness's level is ``max |cpu - exact| / s``: in f32 the largest
+    over the tensors of ``t``'s kind, in bf16 ``t``'s own, the larger of
+    its two witnesses' (bf16's level over a kind spans orders of
+    magnitude, and its worst would hold every gradient to nothing; one
+    witness can land close to the exact value by chance on an
+    ill-conditioned tensor, two orders seldom both do). The card must hold ``|card - exact| <= (atol +
+    factor * level) * s + rtol * |exact|`` elementwise (the serve phase's
+    rtol 1e-3 and atol 1e-4; ``factor`` ``F32_FACTOR`` or
+    ``BF16_FACTOR``). Each updated parameter adds what AdamW's first step
+    (``lr * g / (|g| + eps)``, nearly ``lr * sign(g)``) makes of a gradient
+    error ``dg`` within the gradient's bound: ``lr * dg * eps / ((|g| -
+    dg)+ + eps)^2``, at most ``2 lr``.
 
-    Returns the per-tensor rows, the violations and the levels; each row
-    also holds the card and the f32 CPU against the serve phase's bound
-    alone (``atol * s + rtol * |exact|``), which float32 arithmetic
-    does not meet everywhere."""
+    Returns the per-tensor rows, the violations and the levels per kind
+    (the worst); each row also holds the card and the witness against the
+    serve phase's bound alone (``atol * s + rtol * |exact|``), which
+    float32 arithmetic does not meet everywhere."""
     lr = TRAIN_CONFIG["Optimizer"]["learning_rate"]
     eps = 1e-8
+    factor = BF16_FACTOR if bf16 else F32_FACTOR
     want = step_tensors(snapshot(exact[0]), exact[1])
     got = step_tensors(card, card_loss)
-    f32 = step_tensors(snapshot(cpu[0]), cpu[1])
+    witnesses = [step_tensors(snapshot(m), loss) for m, loss in cpu]
     top_grad = max(float(t.abs().max()) for (k, _), t in want.items() if k == "grad" and t.numel())
     scale = {}
     for key, t in want.items():
         top = float(t.abs().max()) if t.numel() else 0.0
         scale[key] = top_grad if key[0] == "grad" and top <= ZERO_GRAD * top_grad else top
-    level = {}
+    own, level = {}, {}
     for key, t in want.items():
         if key[0] != "param" and t.numel() and scale[key] > 0:
-            err = float((f32[key] - t).abs().max()) / scale[key]
-            level[key[0]] = max(level.get(key[0], 0.0), err)
+            own[key] = max(float((w[key] - t).abs().max()) for w in witnesses) / scale[key]
+            level[key[0]] = max(level.get(key[0], 0.0), own[key])
     rows, bad, bounds = [], [], {}
     for key in sorted(want, key=lambda k: ("loss", "grad", "stat", "param").index(k[0])):
         t, s = want[key], scale[key]
@@ -903,23 +943,24 @@ def hold_step_against_cpu(card, card_loss, cpu, exact):
                 lr * dg * eps / (torch.clamp(g.abs() - dg, min=0.0) + eps) ** 2, max=2 * lr)
             room = None
         else:
-            room = level[kind] * s
-            allowed = stated + F32_FACTOR * room
+            room = (own.get(key, 0.0) if bf16 else level[kind]) * s
+            allowed = stated + factor * room
             if kind == "grad":
                 bounds[name] = allowed
         err = (got[key] - t).abs()
         over = float((err - stated).clamp(min=0.0).max())
         row = {
             "kind": kind, "name": name, "scale": s,
-            "err": float(err.max()), "cpu_err": float((f32[key] - t).abs().max()),
+            "err": float(err.max()),
+            "cpu_err": max(float((w[key] - t).abs().max()) for w in witnesses),
             "worst_over_tol": float((err / allowed).max()),
-            # the least F32_FACTOR that passes, and the smallest fault
+            # the least factor that passes, and the smallest fault
             # relative to the scale that the bound could miss
             "factor_needed": None if room is None else
             (over / room if room > 0 else (0.0 if over == 0 else None)),
             "reach": float(allowed.max()) / s if s > 0 else None,
             "card_outside_stated": bool((err > stated).any()),
-            "cpu_outside_stated": bool(((f32[key] - t).abs() > stated).any()),
+            "cpu_outside_stated": bool(((witnesses[0][key] - t).abs() > stated).any()),
         }
         rows.append(row)
         if not bool((err <= allowed).all()):
@@ -928,13 +969,13 @@ def hold_step_against_cpu(card, card_loss, cpu, exact):
 
 
 def outside_serve_bound(rows):
-    """Per kind, how many tensors of the card and of the f32 CPU step lie
-    outside the serve phase's bound alone, of how many."""
+    """Per kind, how many tensors of the card and of the witness's CPU step
+    lie outside the serve phase's bound alone, of how many."""
     out = {}
     for r in rows:
-        n = out.setdefault(r["kind"], {"card": 0, "f32_cpu": 0, "of": 0})
+        n = out.setdefault(r["kind"], {"card": 0, "cpu_witness": 0, "of": 0})
         n["card"] += r["card_outside_stated"]
-        n["f32_cpu"] += r["cpu_outside_stated"]
+        n["cpu_witness"] += r["cpu_outside_stated"]
         n["of"] += 1
     return out
 
@@ -975,22 +1016,83 @@ def split_trace(path):
     return by_phase, by_op, backward_ops, count
 
 
-def phase_train(mode, cfg, plan, graphs, device, card):
+def trace_split(trace, ms_per_step):
+    """A profiled step's device time from its trace (:func:`split_trace`),
+    by phase, with the busy share against ``ms_per_step``."""
+    by_phase, by_op, backward_ops, device_ops = split_trace(trace)
+    device_ms = sum(by_phase.values())
+    measured = device_ms > 0
+    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:10]
+    top_bwd = sorted(backward_ops.items(), key=lambda kv: -kv[1])[:10]
+    return dict(
+        device_ms_per_step={k.split(".")[-1]: v for k, v in by_phase.items()}
+        if measured else "not measured",
+        device_ms_total=device_ms if measured else "not measured",
+        device_busy_share=device_ms / ms_per_step if measured else "not measured",
+        device_ops_per_step=device_ops,
+        top_device_ms=[[k, v] for k, v in top],
+        top_backward_device_ms=[[k, v] for k, v in top_bwd],
+        clocks=clocks_line(),
+    )
+
+
+def phase_headline(size, device, card):
+    """The JAX package's headline training step, ``MXU_HEADLINE`` (PNA,
+    hidden 256, 3 conv layers, 64 graphs of 80-90 atoms at degree 12, the
+    dense neighbour lists, bf16), timed by the port's ``bench_model``: 1
+    warm step, 20 steps between CUDA events, one ``eval_step``, then one
+    profiled step. Every step and the evaluation launch K1 once (the pool).
+    Returns the launches."""
+    on_card = device.type == "cuda"
+    kw = dict(MXU_HEADLINE) if on_card else dict(
+        MXU_HEADLINE, hidden=size["hidden"], num_graphs=size["batch"],
+        nodes=size["nodes"], degree=size["degree"], layers=size["layers"])
+    iters = HEADLINE_ITERS if on_card else 2
+    trace = _build.REPO_ROOT / "build" / "chip_smoke" / "headline_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    reset_launch_counts()
+    row = bench_model(**kw, iters=iters, device=device, trace_path=trace if on_card else None)
+    counts = launch_counts()
+    per_step = launches_per_train_step("dense", kw["layers"])
+    per_eval = launches_per_forward(arch(size), "dense")
+    n_steps = 1 + iters + on_card
+    if on_card and counts != {k: n_steps * v + per_eval[k] for k, v in per_step.items()}:
+        raise AssertionError(f"MXU_HEADLINE: {n_steps} steps and eval launched {counts}")
+    if not np.isfinite(row["eval_loss"]):
+        raise AssertionError(f"MXU_HEADLINE: eval loss {row['eval_loss']}")
+    result = {"config": "MXU_HEADLINE", **row,
+              "launches_per_step": {k: v for k, v in per_step.items() if v}}
+    if on_card:
+        result.update(trace_split(trace, row["ms_per_step"]))
+    result.update(launches=counts, card=card)
+    emit({"train": result})
+    return counts
+
+
+def phase_train(mode, cfg, plan, graphs, device, card, bf16=False):
     """PNA training through the port's entry points: ``Trainer`` ->
-    ``init_state`` -> ``put_batch`` -> 1 + 20 ``train_step`` (AdamW) -> one
-    profiled step -> ``eval_step``, on the largest bucket's batch. Returns
-    the kernel launches of the run."""
-    model = create_model_config(cfg, device=device, aggregation=mode, seed=0)
-    host = train_batch(plan, graphs, cfg)
+    ``init_state`` -> ``put_batch`` -> 1 + 20 ``train_step`` (AdamW; with
+    ``bf16``, bf16 mixed precision) -> one profiled step -> ``eval_step``,
+    on the largest bucket's batch (``dense``: with the neighbour lists).
+    Returns the kernel launches of the run."""
+    model = create_model_config(cfg, device=device, aggregation=aggregation_of(mode), seed=0)
+    host = train_batch(plan, graphs, cfg, dense=mode == "dense")
+    precision = "bf16" if bf16 else "f32"
+    factor = BF16_FACTOR if bf16 else F32_FACTOR
     # step 1 on CPU copies first, so that none of their host threads runs
     # while the card is timed
-    cpu, exact = cpu_references(model, host)
-    trainer = Trainer(model, TRAIN_CONFIG)
+    reversed_host = train_batch(plan, graphs, cfg, dense=mode == "dense", reverse=True) \
+        if bf16 else None
+    cpu, exact = cpu_references(model, host, bf16, reversed_host)
+    trainer = Trainer(model, train_config(bf16))
+    if trainer.precision["mixed"] != bf16:
+        raise AssertionError(f"the trainer resolved {trainer.precision}, not {precision}")
     state = trainer.init_state(host)
     batch = trainer.put_batch(host)
     per_step = launches_per_train_step(mode, cfg["num_conv_layers"])
     launches = {name: 0 for name in KERNELS}
     on_card = device.type == "cuda"
+    what = f"PNA {mode} {precision}"
 
     def steps(n):
         nonlocal state
@@ -1001,7 +1103,7 @@ def phase_train(mode, cfg, plan, graphs, device, card):
             losses.append(met["loss"])
         counts = launch_counts()
         if on_card and counts != {k: n * v for k, v in per_step.items()}:
-            raise AssertionError(f"PNA {mode} train: {n} steps launched {counts}, "
+            raise AssertionError(f"{what} train: {n} steps launched {counts}, "
                                  f"expected {per_step} per step")
         for k, v in counts.items():
             launches[k] += v
@@ -1026,19 +1128,21 @@ def phase_train(mode, cfg, plan, graphs, device, card):
             window_ms.append((start, end))
     losses = [float(v) for v in torch.stack(losses).cpu()]
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"PNA {mode} train: losses {losses}")
-    rows, bad, level = hold_step_against_cpu(step1, first, cpu, exact)
+        raise AssertionError(f"{what} train: losses {losses}")
+    rows, bad, level = hold_step_against_cpu(step1, first, cpu, exact, bf16)
     closest = sorted(rows, key=lambda r: -r["worst_over_tol"])[:8]
-    emit({"train_check": {"mode": mode, "tensors": len(rows), "f32_level": level,
-                          "closest": closest, "violations": bad}})
+    emit({"train_check": {"mode": mode, "precision": precision, "tensors": len(rows),
+                          "cpu_level": level, "closest": closest, "violations": bad}})
     if bad:
-        raise AssertionError(f"PNA {mode} train step 1 against the exact step: {bad}")
+        raise AssertionError(f"{what} train step 1 against the exact step: {bad}")
     worst = {kind: max(r["err"] for r in rows if r["kind"] == kind)
              for kind in ("loss", "grad", "param", "stat")}
     worst["over_tol"] = max(r["worst_over_tol"] for r in rows)
+    need = max((r for r in rows if r["factor_needed"] is not None),
+               key=lambda r: r["factor_needed"])
     graphs_per_step = int(host.graph_mask.sum())
     result = {
-        "family": "PNA", "mode": mode,
+        "family": "PNA", "mode": mode, "precision": precision,
         "batch": f"n_pad {batch.num_nodes} e_pad {batch.num_edges} g_pad {batch.num_graphs}",
         "graphs_per_step": graphs_per_step,
         "steps": len(losses),
@@ -1048,10 +1152,11 @@ def phase_train(mode, cfg, plan, graphs, device, card):
         "max_param_err_vs_exact": worst["param"],
         "max_stat_err_vs_exact": worst["stat"],
         "worst_err_over_tolerance": worst["over_tol"],
-        "f32_cpu_level": level,
-        "f32_factor": F32_FACTOR,
-        "f32_factor_needed": max(r["factor_needed"] for r in rows
-                                 if r["factor_needed"] is not None),
+        "cpu_witness": "bf16 CPU steps, the graphs in both orders" if bf16 else "f32 CPU step",
+        "cpu_level": level,
+        "factor": factor,
+        "factor_needed": need["factor_needed"],
+        "factor_needed_by": f"{need['kind']} {need['name']}",
         "outside_serve_bound": outside_serve_bound(rows),
         "launches_per_step": {k: v for k, v in per_step.items() if v},
     }
@@ -1062,28 +1167,14 @@ def phase_train(mode, cfg, plan, graphs, device, card):
         result.update(ms_per_step=ms_per_step, ms_per_step_windows=per_window,
                       host_enqueue_ms_per_step_windows=host_ms,
                       graphs_per_s=graphs_per_step / ms_per_step * 1e3)
-        trace = _build.REPO_ROOT / "build" / "chip_smoke" / f"train_{mode}_trace.json"
+        trace = _build.REPO_ROOT / "build" / "chip_smoke" / f"train_{mode}_{precision}_trace.json"
         trace.parent.mkdir(parents=True, exist_ok=True)
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             steps(1)
             torch.cuda.synchronize()
         prof.export_chrome_trace(str(trace))
-        by_phase, by_op, backward_ops, device_ops = split_trace(trace)
-        device_ms = sum(by_phase.values())
-        measured = device_ms > 0
-        top = sorted(by_op.items(), key=lambda kv: -kv[1])[:10]
-        top_bwd = sorted(backward_ops.items(), key=lambda kv: -kv[1])[:10]
-        result.update(
-            device_ms_per_step={k.split(".")[-1]: v for k, v in by_phase.items()}
-            if measured else "not measured",
-            device_ms_total=device_ms if measured else "not measured",
-            device_busy_share=device_ms / ms_per_step if measured else "not measured",
-            device_ops_per_step=device_ops,
-            top_device_ms=[[k, v] for k, v in top],
-            top_backward_device_ms=[[k, v] for k, v in top_bwd],
-            clocks=clocks_line(),
-        )
+        result.update(trace_split(trace, ms_per_step))
     else:
         result.update(ms_per_step="not measured (cpu rehearsal)",
                       graphs_per_s="not measured (cpu rehearsal)")
@@ -1091,13 +1182,13 @@ def phase_train(mode, cfg, plan, graphs, device, card):
     ev = trainer.eval_step(state, batch)
     counts = launch_counts()
     if on_card and counts != launches_per_forward(cfg, mode):
-        raise AssertionError(f"PNA {mode} eval: launches {counts}")
+        raise AssertionError(f"{what} eval: launches {counts}")
     for k, v in counts.items():
         launches[k] += v
     eval_loss = float(ev["loss"])
     shapes = [tuple(o.shape) for o in ev["outputs"]]
     if not np.isfinite(eval_loss) or shapes != [(batch.num_graphs, 1), (batch.num_nodes, 1)]:
-        raise AssertionError(f"PNA {mode} eval: loss {eval_loss}, outputs {shapes}")
+        raise AssertionError(f"{what} eval: loss {eval_loss}, outputs {shapes}")
     result.update(eval_loss=eval_loss, launches=launches, card=card)
     emit({"train": result})
     return launches
@@ -1124,20 +1215,32 @@ def main(argv=None):
     for lay in plan.layouts:
         print(f"bucket: n_pad {lay.n_pad} e_pad {lay.e_pad} g_pad {lay.g_pad}", flush=True)
 
+    dense_plan = plan_from_samples(graphs, max_batch_graphs=size["batch"], num_buckets=3,
+                                   need_neighbors=True)
+    for lay in dense_plan.layouts:
+        print(f"dense bucket: n_pad {lay.n_pad} e_pad {lay.e_pad} g_pad {lay.g_pad} "
+              f"k_in {lay.k_in} k_out {lay.k_out}", flush=True)
+
     cases = phase_kernels(plan, graphs, size["hidden"], device)
     launches = {name: 0 for name in KERNELS}
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] += n
+
     for family in FAMILIES:
         cfg = arch(size, family)
         for mode in ("fused", "segment"):
-            served = phase_serve(mode, cfg, plan, graphs, device, card)
-            for name, n in served["launches"].items():
-                launches[name] += n
+            add(phase_serve(mode, cfg, plan, graphs, device, card)["launches"])
+    add(phase_serve("dense", arch(size, "PNA"), dense_plan, graphs, device, card)["launches"])
 
     set_targets(graphs, seed=1)
     train_cfg = arch(size, "PNA")
     for mode in ("fused", "segment"):
-        for name, n in phase_train(mode, train_cfg, plan, graphs, device, card).items():
-            launches[name] += n
+        add(phase_train(mode, train_cfg, plan, graphs, device, card))
+    for bf16 in (False, True):
+        add(phase_train("dense", train_cfg, plan, graphs, device, card, bf16=bf16))
+    add(phase_headline(size, device, card))
 
     # K2 and K6 beside K1 at the same receivers shape: the same [E, D] bytes
     # streamed, a sum where K2 also keeps squares and a count and K6

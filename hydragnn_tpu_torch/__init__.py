@@ -7,8 +7,11 @@ nothing of it, nor JAX. Its kernels are CUDA C++ for ``sm_90a``
 PyTorch version beside it, which runs for tensors on the CPU. Entry points
 run on the card unless the caller passes ``device="cpu"``.
 
-Ported so far: multi-head PNA inference served through
-``serve.InferenceServer`` (see ``ROADMAP.md`` for what follows).
+Ported so far: PNA, GIN, SAGE, SchNet and EGNN served through
+``serve.InferenceServer``; multi-head PNA trained one step at a time
+(``train.Trainer``), in f32 or bf16 mixed precision, with its dense
+neighbour-list branch; ``benchmarks.model_bench`` times the step (see
+``ROADMAP.md`` for what follows).
 """
 
 from hydragnn_tpu_torch.data import GraphData

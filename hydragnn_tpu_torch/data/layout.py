@@ -2,9 +2,11 @@
 
 A :class:`BatchLayout` is one set of pad sizes; :func:`collate_for_layout`
 packs samples into it. Node-count bucket boundaries come from an exact DP
-over the distinct node counts (:func:`_partition_node_bounds`). Only the
-segment layout is ported: no DimeNet triplet tables and no dense
-neighbour lists (see ``ROADMAP.md``).
+over the distinct node counts (:func:`_partition_node_bounds`). A layout
+with ``need_neighbors`` also carries the dense neighbour lists
+(``ops/dense_agg.py``) at its widths ``k_in``/``k_out``;
+:func:`needs_dense_neighbors` decides whether a stack's layouts do. DimeNet's
+triplet tables are not ported (see ``ROADMAP.md``).
 """
 
 import math
@@ -12,8 +14,11 @@ from dataclasses import dataclass
 from typing import List
 
 import numpy as np
+import torch
 
 from hydragnn_tpu_torch.graph.batch import GraphBatch, collate_graphs, pad_sizes_for
+from hydragnn_tpu_torch.ops import autotune
+from hydragnn_tpu_torch.ops.dense_agg import build_neighbor_lists
 
 
 @dataclass
@@ -21,6 +26,10 @@ class BatchLayout:
     n_pad: int
     e_pad: int
     g_pad: int
+    # dense neighbour lists: fixed in/out-degree widths
+    need_neighbors: bool = False
+    k_in: int = 0
+    k_out: int = 0
 
 
 def _lcm(a: int, b: int) -> int:
@@ -54,8 +63,28 @@ def _partition_node_bounds(nodes: np.ndarray, num_buckets: int) -> List[int]:
     return bounds[::-1]
 
 
+def needs_dense_neighbors(arch_config: dict) -> bool:
+    """Whether a stack's batches carry the dense neighbour lists: the JAX
+    package's rule (``data/loaders.py:129-166``) without its cache tier.
+    ``HYDRAGNN_AGG`` first, then an explicit ``dense_aggregation``, then
+    the static policy (``ops/autotune.py``). The JAX package also consults
+    its measured per-width cache before the static policy; the port has no
+    such cache yet (``ROADMAP.md``), so the static policy decides.
+    Off under graph partitioning."""
+    if arch_config.get("partition_axis"):
+        return False
+    forced = autotune.env_force()
+    if forced is not None:
+        return forced == "dense"
+    flag = arch_config.get("dense_aggregation")
+    if flag is not None:
+        return bool(flag)
+    return autotune.auto_dense_aggregation(arch_config)
+
+
 def _layout_from_maxima(max_nodes: int, max_edges: int, batch_size: int,
-                        mult: int, device_multiple: int) -> BatchLayout:
+                        mult: int, device_multiple: int, need_neighbors: bool = False,
+                        k_in: int = 1, k_out: int = 1) -> BatchLayout:
     n_pad, e_pad, g_pad = pad_sizes_for(
         max_nodes,
         max_edges,
@@ -64,10 +93,19 @@ def _layout_from_maxima(max_nodes: int, max_edges: int, batch_size: int,
         edge_multiple=mult,
         graph_multiple=max(device_multiple, 1),
     )
-    return BatchLayout(n_pad, e_pad, g_pad)
+    return BatchLayout(n_pad, e_pad, g_pad, need_neighbors=need_neighbors,
+                       k_in=max(int(k_in), 1), k_out=max(int(k_out), 1))
 
 
 def collate_for_layout(samples, layout: BatchLayout) -> GraphBatch:
     """Collate ``samples`` into the static shapes of ``layout`` (inputs
-    only, on the host; move the batch with ``GraphBatch.to``)."""
-    return collate_graphs(samples, layout.n_pad, layout.e_pad, layout.g_pad)
+    only, on the host; move the batch with ``GraphBatch.to``), with the
+    dense neighbour lists in ``extras`` when the layout asks for them."""
+    batch = collate_graphs(samples, layout.n_pad, layout.e_pad, layout.g_pad)
+    if not layout.need_neighbors:
+        return batch
+    lists = build_neighbor_lists(
+        batch.senders.numpy(), batch.receivers.numpy(), batch.edge_mask.numpy(),
+        layout.n_pad, layout.k_in, layout.k_out,
+    )
+    return batch.with_extras({k: torch.from_numpy(v) for k, v in lists.items()})

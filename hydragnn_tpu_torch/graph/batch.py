@@ -9,11 +9,13 @@ is always a padding node.
 Collation runs on the host in numpy; the batch then moves to the device
 with :meth:`GraphBatch.to`. Training batches carry one target tensor per
 head (graph heads ``[G, d]``, node heads ``[N, d]``, zero in the padding
-rows); serving batches carry none.
+rows); serving batches carry none. ``extras`` holds what a layout adds
+beside the edge list: the dense neighbour lists (``ops/dense_agg.py``),
+integer and bool tensors by name.
 """
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +41,7 @@ class GraphBatch:
     edge_mask: torch.Tensor  # [E] bool
     graph_mask: torch.Tensor  # [G] bool
     targets: Tuple[torch.Tensor, ...] = ()  # per head: [G, d] or [N, d]
+    extras: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
     @property
     def num_nodes(self) -> int:
@@ -56,21 +59,30 @@ class GraphBatch:
     def device(self) -> torch.device:
         return self.x.device
 
+    def with_extras(self, extras: Dict[str, torch.Tensor]) -> "GraphBatch":
+        """The same batch with ``extras`` merged into its own."""
+        return dataclasses.replace(self, extras={**self.extras, **extras})
+
     def to(self, device) -> "GraphBatch":
         """The same batch on ``device`` (``self`` when already there).
 
-        A host batch goes to the card in one copy: every field is staged
-        into one pinned byte buffer (:func:`stage_bytes`), the buffer is
-        copied without blocking the host, and the fields come back as views
-        of the device buffer (:func:`unstage_bytes`)."""
+        A host batch goes to the card in one copy: every field, the targets
+        and the extras included, is staged into one pinned byte buffer
+        (:func:`stage_bytes`), the buffer is copied without blocking the
+        host, and the fields come back as views of the device buffer
+        (:func:`unstage_bytes`)."""
         device = torch.device(device)
         if self.x.device == device:
             return self
         names = [
             f.name for f in dataclasses.fields(self)
-            if f.name != "targets" and getattr(self, f.name) is not None
+            if f.name not in ("targets", "extras") and getattr(self, f.name) is not None
         ]
-        tensors = [getattr(self, name) for name in names] + list(self.targets)
+        keys = list(self.extras)
+        tensors = (
+            [getattr(self, name) for name in names] + list(self.targets)
+            + [self.extras[k] for k in keys]
+        )
         if self.x.device.type != "cpu":
             moved = [t.to(device) for t in tensors]
         else:
@@ -79,7 +91,9 @@ class GraphBatch:
             moved = unstage_bytes(host.to(device, non_blocking=pin), spans)
         fields = {f.name: None for f in dataclasses.fields(self)}
         fields.update(zip(names, moved))
-        fields["targets"] = tuple(moved[len(names):])
+        n_targets = len(self.targets)
+        fields["targets"] = tuple(moved[len(names) : len(names) + n_targets])
+        fields["extras"] = dict(zip(keys, moved[len(names) + n_targets :]))
         return GraphBatch(**fields)
 
 

@@ -9,6 +9,7 @@ segments give the reduction's identity (0 for sums, ``fill`` for min/max).
 import torch
 
 from hydragnn_tpu_torch.ops import segment_kernels
+from hydragnn_tpu_torch.ops.segment_kernels import upcast
 
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
@@ -19,8 +20,7 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     Low precision in, f32 accumulate, the caller's dtype back: bf16/f16
     data is summed in float32 and the result cast back."""
     in_dtype = data.dtype
-    if in_dtype in (torch.bfloat16, torch.float16):
-        data = data.to(torch.float32)
+    data = upcast(data)
     flat = data.reshape(data.shape[0], -1)
     out = segment_kernels.segment_sum_vjp(flat.contiguous(), segment_ids, num_segments)
     out = out.reshape((num_segments,) + tuple(data.shape[1:]))

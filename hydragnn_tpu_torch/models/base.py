@@ -10,10 +10,15 @@ stacks (``conv``). Submodules carry the JAX package's parameter names
 ``head_{h}_bn_{l}``), which is what lets ``models/bridge.py`` map one onto
 the other by path.
 
-Training and eval in float32: ``forward`` runs the BatchNorm training
-branch in ``train()`` mode, and :meth:`HydraBase.loss` is the weighted
-multi-task loss (or, with ``loss_nll``, the Gaussian NLL on one extra
-log-variance channel per head). bf16 compute is queued in ``ROADMAP.md``.
+``forward`` runs the BatchNorm training branch in ``train()`` mode, and
+:meth:`HydraBase.loss` is the weighted multi-task loss (or, with
+``loss_nll``, the Gaussian NLL on one extra log-variance channel per head).
+The forward computes in the dtypes it is given, as the JAX package's does:
+with bf16 parameters and inputs (``train/steps.py``'s mixed precision) the
+products run in bf16, BatchNorm statistics and losses in float32, and the
+kernels on float32 upcasts. A batch with dense neighbour lists takes the
+convs' dense branch, which only PNA has in the port; the other stacks raise
+on it.
 """
 
 import math
@@ -31,6 +36,7 @@ from hydragnn_tpu_torch.models.common import (
     global_mean_pool,
     masked_error,
     masked_gaussian_nll,
+    matmul,
     uniform_,
 )
 
@@ -72,9 +78,11 @@ class MLPNode(nn.Module):
             kernel = getattr(self, f"kernel_{i}")
             bias = getattr(self, f"bias_{i}")
             if self.num_mlp == 1:
-                h = h @ kernel[0] + bias[0]
+                h = matmul(h, kernel[0]) + bias[0]
             else:
-                h = torch.einsum("nf,nfo->no", h, kernel[sel]) + bias[sel]
+                k = kernel[sel]
+                dtype = torch.promote_types(h.dtype, k.dtype)
+                h = torch.einsum("nf,nfo->no", h.to(dtype), k.to(dtype)) + bias[sel]
             if i < n_layers - 1:
                 h = self.act(h)
         return h
@@ -92,6 +100,9 @@ class HydraBase(nn.Module):
     # (the JAX package's ``conv_use_batchnorm``, ``base.py:244-251``); node
     # conv heads keep theirs in every stack
     conv_use_batchnorm = True
+    # whether the convs take the dense neighbour-list branch for a batch
+    # that carries the lists (only PNA's is ported)
+    dense_branch = False
 
     def __init__(
         self,
@@ -217,13 +228,13 @@ class HydraBase(nn.Module):
         """Per-head outputs: graph heads ``[G, dim]``, node heads
         ``[N, dim]`` (padding rows zero for ``mlp`` heads); ``dim`` has one
         more column, the log-variance, under ``loss_nll``."""
-        param = next(self.parameters())
-        if param.dtype != torch.float32:
+        batch = batch.to(next(self.parameters()).device)
+        if "nbr_idx" in batch.extras and not self.dense_branch:
             raise NotImplementedError(
-                f"{param.dtype} compute is not ported yet (the port computes in "
-                "float32, as the JAX package serves): see ROADMAP.md"
+                f"{type(self).__name__} has no dense neighbour-list branch in the "
+                "port yet (the JAX package's takes one for such a batch): see "
+                "ROADMAP.md, queue 1"
             )
-        batch = batch.to(param.device)
         x, pos = batch.x, batch.pos
         for i in range(self.num_conv_layers):
             c, pos = getattr(self, f"encoder_conv_{i}")(x, pos, batch)

@@ -8,8 +8,14 @@ torch-style ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))`` for weights and biases,
 and the JAX package's own inits for its raw ``x @ W`` matrices
 (:func:`glorot_uniform_`, :func:`small_uniform_`).
 
+Products promote as JAX's do (:func:`matmul`): a bf16 input times an f32
+weight, or the other way round, is an f32 product, and a linear layer adds
+its bias as a second operation, rounding twice in bf16 where JAX does.
+
 The aggregation helpers at the end are the convs' message passing in the
-two modes (:data:`AGGREGATIONS`).
+two modes (:data:`AGGREGATIONS`). A kernel takes float32: bf16 inputs are
+upcast before its wrapper, and its result goes back to the input's dtype,
+as the JAX package's fused kernels do.
 """
 
 import math
@@ -25,6 +31,7 @@ from hydragnn_tpu_torch.ops import (
     fused_gather_sum,
     fused_gather_weighted_sum,
 )
+from hydragnn_tpu_torch.ops.segment_kernels import upcast
 
 
 def uniform_(param: torch.Tensor, bound: float, generator: torch.Generator):
@@ -35,8 +42,17 @@ def uniform_(param: torch.Tensor, bound: float, generator: torch.Generator):
         param.copy_(draw * (2.0 * bound) - bound)
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype of the two, as JAX's ``@`` (PyTorch's
+    refuses mixed dtypes)."""
+    dtype = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dtype) @ w.to(dtype)
+
+
 class TorchLinear(nn.Module):
-    """``y = x @ weight.T + bias`` with torch.nn.Linear's default init."""
+    """``y = x @ weight.T``, then ``y + bias`` (JAX's ``TorchLinear``: two
+    operations, not ``F.linear``'s fused one), with torch.nn.Linear's
+    default init."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  device=None):
@@ -55,7 +71,8 @@ class TorchLinear(nn.Module):
             uniform_(self.bias, bound, generator)
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        y = matmul(x, self.weight.t())
+        return y if self.bias is None else y + self.bias
 
 
 class SplitLinear(TorchLinear):
@@ -66,7 +83,7 @@ class SplitLinear(TorchLinear):
     def piece(self, x, start: int):
         """``x @ weight[:, start : start + x.shape[-1]].T`` — one concat
         segment's contribution (no bias; add :attr:`bias` once)."""
-        return F.linear(x, self.weight[:, start : start + x.shape[-1]])
+        return matmul(x, self.weight[:, start : start + x.shape[-1]].t())
 
 
 def get_activation(name: str) -> Callable:
@@ -280,7 +297,7 @@ def gather_segment_sum(x, senders, receivers, num_segments, edge_mask,
     aggregation: K4 (``"fused"``) or the gather in PyTorch and K1
     (``"segment"``). Returns ``[S, D]`` in ``x.dtype``."""
     if check_aggregation(aggregation) == "fused":
-        return fused_gather_sum(x, senders, receivers, num_segments, edge_mask).to(x.dtype)
+        return fused_gather_sum(upcast(x), senders, receivers, num_segments, edge_mask).to(x.dtype)
     return segment_sum(_masked_gather(x, senders, edge_mask), receivers, num_segments)
 
 
@@ -291,7 +308,7 @@ def gather_segment_mean(x, senders, receivers, num_segments, edge_mask,
     for the sum and a count of the mask. Returns ``[S, D]`` in
     ``x.dtype``."""
     if check_aggregation(aggregation) == "fused":
-        mean, _deg = fused_gather_mean(x, senders, receivers, num_segments, edge_mask)
+        mean, _deg = fused_gather_mean(upcast(x), senders, receivers, num_segments, edge_mask)
         return mean.to(x.dtype)
     total = segment_sum(_masked_gather(x, senders, edge_mask), receivers, num_segments)
     deg = segment_count(receivers, num_segments, weights=edge_mask)
@@ -304,5 +321,7 @@ def gather_weighted_segment_sum(h, w, senders, receivers, num_segments,
     aggregation (``w`` comes masked): K6 or the gather in PyTorch and
     K1."""
     if check_aggregation(aggregation) == "fused":
-        return fused_gather_weighted_sum(h, w, senders, receivers, num_segments).to(h.dtype)
+        return fused_gather_weighted_sum(
+            upcast(h), upcast(w), senders, receivers, num_segments
+        ).to(h.dtype)
     return segment_sum(h[senders.to(torch.int64)] * w, receivers, num_segments)

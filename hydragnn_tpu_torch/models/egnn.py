@@ -29,10 +29,12 @@ from hydragnn_tpu_torch.models.common import (
     SplitLinear,
     TorchLinear,
     check_aggregation,
+    matmul,
     safe_sqrt,
     small_uniform_,
 )
 from hydragnn_tpu_torch.ops import fused_egnn_edge_phase
+from hydragnn_tpu_torch.ops.segment_kernels import upcast
 
 
 class E_GCL(nn.Module):
@@ -75,12 +77,14 @@ class E_GCL(nn.Module):
                 params += [self.coord_mlp_0.weight.t().contiguous(),
                            self.coord_mlp_0.bias, self.coord_mlp_1]
             both = fused_egnn_edge_phase(
-                y_snd, y_rcv, pos, params, batch.senders, batch.receivers, n,
-                batch.edge_mask, ze=ze,
+                upcast(y_snd), upcast(y_rcv), pos, [upcast(p) for p in params],
+                batch.senders, batch.receivers, n, batch.edge_mask, ze=upcast(ze),
             )
+            agg = both[:, :hd].to(x.dtype)  # the kernel's f32, back to x's dtype
         else:
+            # at e's dtype, as the JAX package's segment branch leaves it
             both = self._edge_phase_segment(y_snd, y_rcv, w_rad, ze, pos, batch)
-        agg = both[:, :hd].to(x.dtype)
+            agg = both[:, :hd]
         if self.equivariant:
             pos = pos + both[:, hd : hd + 3] / torch.clamp(both[:, -1], min=1.0)[:, None]
         h = F.relu(self.node_mlp_0(torch.cat([x, agg], dim=-1)))
@@ -102,7 +106,7 @@ class E_GCL(nn.Module):
         e = F.relu(self.edge_mlp_1(F.relu(e)))
         e = torch.where(emask, e, 0.0)
         if self.equivariant:
-            cw = torch.tanh(F.relu(self.coord_mlp_0(e)) @ self.coord_mlp_1)
+            cw = torch.tanh(matmul(F.relu(self.coord_mlp_0(e)), self.coord_mlp_1))
             trans = torch.where(emask, torch.clamp(coord_diff * cw, -100.0, 100.0), 0.0)
             e = torch.cat([e, trans, emask.to(e.dtype)], dim=-1)
         return segment_sum(e, batch.senders, pos.shape[0])

@@ -7,8 +7,13 @@ histogram, one pre-layer and one post-layer, optional edge encoder.
 The message MLP is one Linear, so ``m = yi[receiver] + z[edge]`` with
 ``yi = x @ Wi + b``, ``yj = x @ Wj`` from node-axis products and
 ``z = yj[sender] (+ e @ We)``; every aggregator of ``m`` reduces to one of
-``z`` shifted by ``yi`` (std ignores the shift). The statistics of ``z``
-come from one of two kernels, chosen by ``aggregation``:
+``z`` shifted by ``yi`` (std ignores the shift). A batch that carries the
+dense neighbour lists (``batch.extras["nbr_idx"]``, as in the JAX package)
+takes the dense branch: ``z [N, K, D]`` gathered through the lists
+(``ops/dense_agg.gather_neighbors``, whose backward is a gather through
+the reverse lists) and reduced over K by PyTorch ops; no kernel of the card
+runs there. Otherwise the statistics of ``z`` come from one of two
+kernels, chosen by ``aggregation``:
 
 - ``"fused"`` (the JAX package's ``HYDRAGNN_AGG=fused``): K3,
   ``fused_gather_moments`` gathers, masks and reduces in one pass and
@@ -20,7 +25,10 @@ Both go through the kernels' backward rules (``*_vjp``); in ``segment``
 mode the gather's gradient is PyTorch's own index backward, as XLA's is
 for the JAX package's.
 
-The dense neighbour-list branch is not ported (see ``ROADMAP.md``).
+In bf16 each branch keeps the JAX package's dtypes: ``fused`` casts its
+statistics back to ``yj``'s dtype, ``segment`` keeps K2's float32
+statistics (which promote the conv's tail to float32), and ``dense``
+returns them at the message dtype.
 """
 
 import math
@@ -33,6 +41,7 @@ from hydragnn_tpu_torch.graph.segment import segment_minmax_fused
 from hydragnn_tpu_torch.models.base import HydraBase
 from hydragnn_tpu_torch.models.common import SplitLinear, TorchLinear, check_aggregation
 from hydragnn_tpu_torch.ops import fused_gather_moments_vjp, segment_moments_vjp
+from hydragnn_tpu_torch.ops.dense_agg import dense_minmax, dense_moments, gather_neighbors
 
 
 def pna_degree_averages(deg_histogram) -> Tuple[float, float]:
@@ -72,25 +81,38 @@ class PNAConv(nn.Module):
         if self.use_edge:
             ze = pre.piece(self.edge_encoder(batch.edge_attr), 2 * self.in_dim)
 
-        if self.aggregation == "fused":
-            s, cnt, sq, z = fused_gather_moments_vjp(
-                yj, batch.senders, batch.receivers, n, batch.edge_mask, ze=ze
-            )
-            # back to the caller's dtype (the kernel accumulates in f32)
-            s, cnt, sq, z = (a.to(yj.dtype) for a in (s, cnt, sq, z))
-        else:
-            z = yj[batch.senders.to(torch.int64)]  # [E, D]
+        extras = batch.extras
+        if "nbr_idx" in extras:
+            nbr_mask = extras["nbr_mask"]
+            z = gather_neighbors(
+                yj, extras["nbr_idx"], extras["rev_idx"], extras["rev_mask"]
+            )  # [N, K, D]
             if ze is not None:
-                z = z + ze
-            z = torch.where(batch.edge_mask[:, None], z, 0.0)
-            s, cnt, sq = segment_moments_vjp(z, batch.receivers, n)
-        has = cnt > 0
-        deg = torch.clamp(cnt, min=1.0)
-        mean_z = s / deg
-        # PNA std numerics: sqrt(relu(E[z^2] - E[z]^2) + eps), identical for
-        # m = yi + z because the variance ignores the constant shift
-        std = torch.sqrt(torch.clamp(sq / deg - mean_z * mean_z, min=0.0) + 1e-5)
-        mn_z, mx_z = segment_minmax_fused(z, batch.receivers, n, has=has)
+                z = z + ze[extras["nbr_edge"].to(torch.int64)]
+            z = torch.where(nbr_mask[..., None], z, 0.0)
+            mean_z, std, deg, has = dense_moments(z, nbr_mask)
+            mn_z, mx_z = dense_minmax(z, nbr_mask, has)
+        else:
+            if self.aggregation == "fused":
+                s, cnt, sq, z = fused_gather_moments_vjp(
+                    yj, batch.senders, batch.receivers, n, batch.edge_mask, ze=ze
+                )
+                # back to the caller's dtype (the kernel accumulates in f32)
+                s, cnt, sq, z = (a.to(yj.dtype) for a in (s, cnt, sq, z))
+            else:
+                z = yj[batch.senders.to(torch.int64)]  # [E, D]
+                if ze is not None:
+                    z = z + ze
+                z = torch.where(batch.edge_mask[:, None], z, 0.0)
+                # K2's statistics stay f32, as the JAX package's do
+                s, cnt, sq = segment_moments_vjp(z, batch.receivers, n)
+            has = cnt > 0
+            deg = torch.clamp(cnt, min=1.0)
+            mean_z = s / deg
+            # PNA std numerics: sqrt(relu(E[z^2] - E[z]^2) + eps), identical
+            # for m = yi + z because the variance ignores the constant shift
+            std = torch.sqrt(torch.clamp(sq / deg - mean_z * mean_z, min=0.0) + 1e-5)
+            mn_z, mx_z = segment_minmax_fused(z, batch.receivers, n, has=has)
 
         # shift yi back in; empty receivers keep the fill of 0
         mean = torch.where(has, yi + mean_z, 0.0)
@@ -113,6 +135,8 @@ class PNAConv(nn.Module):
 
 class PNAStack(HydraBase):
     """PNA with the degree histogram ``deg`` and an aggregation mode."""
+
+    dense_branch = True
 
     def __init__(self, deg, device=None, **common):
         super().__init__(**common)

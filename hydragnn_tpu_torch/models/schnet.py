@@ -29,6 +29,7 @@ from hydragnn_tpu_torch.models.common import (
     check_aggregation,
     gather_weighted_segment_sum,
     glorot_uniform_,
+    matmul,
     safe_sqrt,
     small_uniform_,
 )
@@ -93,12 +94,12 @@ class CFConv(nn.Module):
         w = self.filter_1(shifted_softplus(self.filter_0(rbf)))
         cos_cut = 0.5 * (torch.cos(edge_weight * math.pi / self.cutoff) + 1.0)
         w = torch.where(emask, w * cos_cut[:, None], 0.0)
-        h = x @ self.lin1
+        h = matmul(x, self.lin1)
 
         if self.equivariant:
             diff = pos[send] - pos[recv]
             coord_diff = diff / (safe_sqrt((diff * diff).sum(-1, keepdim=True)) + 1.0)
-            cw = F.relu(self.coord_mlp_0(w)) @ self.coord_mlp_1
+            cw = matmul(F.relu(self.coord_mlp_0(w)), self.coord_mlp_1)
             trans = torch.where(emask, torch.clamp(coord_diff * cw, -100.0, 100.0), 0.0)
             # the update and the real out-degree from one pass at the senders
             both = segment_sum(
@@ -110,7 +111,7 @@ class CFConv(nn.Module):
         aggr = gather_weighted_segment_sum(
             h, w, batch.senders, batch.receivers, n, self.aggregation
         )
-        return aggr @ self.lin2 + self.bias2, pos
+        return matmul(aggr, self.lin2) + self.bias2, pos
 
 
 class SCFStack(HydraBase):

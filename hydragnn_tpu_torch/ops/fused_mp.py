@@ -43,6 +43,7 @@ from hydragnn_tpu_torch.ops.segment_kernels import (
     pack_moments_rows,
     segment_sum,
     segment_sum_plain,
+    upcast,
 )
 
 _F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
@@ -215,7 +216,8 @@ def fused_gather_moments_vjp(yj: torch.Tensor, senders: torch.Tensor,
     """:func:`fused_gather_moments` (K3) with its backward rule; the
     wrapper itself where autograd records nothing (as
     ``segment_kernels.segment_sum_vjp``). Returns ``(s, cnt, sq, z)`` as
-    the wrapper does."""
+    the wrapper does, float32 (bf16 ``yj`` and ``ze`` are upcast first)."""
+    yj, ze = upcast(yj), upcast(ze)
     if not (torch.is_grad_enabled()
             and (yj.requires_grad or (ze is not None and ze.requires_grad))):
         return fused_gather_moments(yj, senders, receivers, num_segments, edge_mask, ze)

@@ -11,7 +11,7 @@ TPU kernels' contract, each a wrapper over a CUDA kernel
   unweighted.
 
 Ids outside ``[0, S)`` add nothing. Data is ``[E, D]`` float32 (callers
-upcast), ids ``[E]`` int32; outputs are float32.
+upcast bf16 with :func:`upcast`), ids ``[E]`` int32; outputs are float32.
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; it never falls back. A wrapper
@@ -89,6 +89,15 @@ def atomic_tolerance(abs_sums: torch.Tensor) -> float:
     a run-dependent order: ``1e-5 * (max |partial sum| + 1)``, where every
     partial sum is bounded by the segment's sum of absolute values."""
     return 1e-5 * (float(abs_sums.abs().max()) + 1.0) if abs_sums.numel() else 1e-5
+
+
+def upcast(t):
+    """``t`` in float32 where it is bf16 or f16 (a kernel's input), else
+    ``t`` itself (float64 stays float64; ``None`` stays ``None``). Outside
+    an autograd Function, so the gradient comes back at ``t``'s dtype."""
+    if t is not None and t.dtype in (torch.bfloat16, torch.float16):
+        return t.to(torch.float32)
+    return t
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -321,7 +330,9 @@ def segment_sum_vjp(data: torch.Tensor, segment_ids: torch.Tensor,
 def segment_moments_vjp(data: torch.Tensor, segment_ids: torch.Tensor,
                         num_segments: int):
     """:func:`segment_moments` (K2) with its backward rule: ``(sum, count,
-    sum_of_squares)``, views of one packed row."""
+    sum_of_squares)``, views of one packed row, float32 (bf16 data is
+    upcast first)."""
+    data = upcast(data)
     if not (torch.is_grad_enabled() and data.requires_grad):
         return segment_moments(data, segment_ids, num_segments)
     return moments_views(

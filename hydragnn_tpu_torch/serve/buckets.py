@@ -8,8 +8,10 @@ bucket falls through to the next larger one. Packing is budget-greedy:
 requests accumulate until the next one would overflow the bucket's pads,
 so every packed batch fits its layout by construction.
 
-Only segment layouts are ported (no triplet or dense-neighbour packing),
-and the port serves from one card, so graph pads need no device multiple.
+A plan built with ``need_neighbors`` packs the dense neighbour lists into
+every batch, at widths taken per bucket from its samples' degrees. Triplet
+packing is not ported, and the port serves from one card, so graph pads
+need no device multiple.
 """
 
 from dataclasses import dataclass
@@ -25,6 +27,7 @@ from hydragnn_tpu_torch.data.layout import (
     _partition_node_bounds,
     collate_for_layout,
 )
+from hydragnn_tpu_torch.ops.dense_agg import max_degree
 
 
 class GraphTooLarge(ValueError):
@@ -121,6 +124,7 @@ def plan_from_samples(
     samples: Sequence[GraphData],
     max_batch_graphs: int = 8,
     num_buckets: int = 3,
+    need_neighbors: bool = False,
     headroom: float = 1.0,
 ) -> ServingBucketPlan:
     """Derive a serving plan from representative graphs.
@@ -128,13 +132,22 @@ def plan_from_samples(
     Buckets are worst-case sized: ``max_batch_graphs`` graphs each at the
     bucket's observed maxima always fit. ``headroom`` multiplies the
     observed per-bucket maxima so slightly larger production graphs still
-    admit."""
+    admit. ``need_neighbors``: the batches carry the dense neighbour lists,
+    each bucket at the largest in- and out-degree of its samples."""
     if not samples:
         raise ValueError("plan_from_samples needs at least one sample")
     if headroom < 1.0:
         raise ValueError("headroom must be >= 1.0")
     nodes = np.asarray([s.num_nodes for s in samples])
     edges = np.asarray([s.num_edges for s in samples])
+    kis = kos = np.ones(len(samples), np.int64)
+    if need_neighbors:
+        deg = [
+            max_degree(s.edge_index[0], s.edge_index[1]) if s.num_edges else (1, 1)
+            for s in samples
+        ]
+        kis = np.asarray([d[0] for d in deg])
+        kos = np.asarray([d[1] for d in deg])
     device_multiple = 1  # one card
     mult = _lcm(8, device_multiple)
     layouts, capacities = [], []
@@ -147,7 +160,10 @@ def plan_from_samples(
         cap_nodes = int(np.ceil(hi * headroom))
         cap_edges = max(int(np.ceil(int(edges[mask].max()) * headroom)), 1)
         layouts.append(
-            _layout_from_maxima(cap_nodes, cap_edges, max_batch_graphs, mult, device_multiple)
+            _layout_from_maxima(
+                cap_nodes, cap_edges, max_batch_graphs, mult, device_multiple,
+                need_neighbors, int(kis[mask].max()), int(kos[mask].max()),
+            )
         )
         capacities.append(BucketCapacity(max_nodes=cap_nodes, max_edges=cap_edges))
         lo = hi

@@ -2,7 +2,8 @@
 
 ``Trainer(model, training_config)`` -> ``init_state`` -> ``put_batch`` ->
 ``train_step`` (forward in training mode, loss, backward through the
-kernels' backward rules, AdamW or Adam, BatchNorm running statistics) ->
+kernels' backward rules, AdamW or Adam, BatchNorm running statistics; in
+bf16 mixed precision where the JAX package's rule says so) ->
 ``eval_step``. Epoch loops, staging, schedulers, checkpoints and meshes are
 not ported yet (``ROADMAP.md``, queue 1).
 """

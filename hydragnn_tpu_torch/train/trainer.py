@@ -3,12 +3,12 @@ needs): ``__init__``, ``init_state``, ``put_batch``, ``train_step`` and
 ``eval_step``, on the model's device.
 
 The compute precision is the JAX package's decision
-(``models.create.resolve_precision``); where it resolves to bf16 the
-trainer raises, since the port computes in f32 only and must not train in
-f32 where the JAX package would use bf16. Not ported yet (``ROADMAP.md``,
-queue 1): epochs and ``train_validate_test``, staging and scan paths,
-prefetch, the divergence guard's host side, checkpoints, ``freeze_conv``
-and meshes.
+(``models.create.resolve_precision``), kept in ``precision``; where it
+resolves to bf16 the training step runs in bf16 mixed precision
+(``steps.train_step(mixed=True)``), and evaluation stays float32. Not
+ported yet (``ROADMAP.md``, queue 1): epochs and ``train_validate_test``,
+staging and scan paths, prefetch, the divergence guard's host side,
+checkpoints, ``freeze_conv`` and meshes.
 """
 
 from hydragnn_tpu_torch.graph.batch import GraphBatch
@@ -24,16 +24,10 @@ class Trainer:
             raise NotImplementedError(
                 "meshes are not ported yet: see ROADMAP.md, queue 1, item 8"
             )
-        precision = resolve_precision(model, training_config)
-        if precision["mixed"]:
-            raise NotImplementedError(
-                f"bf16 mixed precision (resolved from {precision['source']}) is not "
-                "ported yet: the port computes in float32 only, see ROADMAP.md"
-            )
         self.model = model
         self.training_config = training_config
         self.freeze_conv = freeze_conv
-        self.precision = precision
+        self.precision = resolve_precision(model, training_config)
         self.guarded = guard_enabled(training_config)
         self.device = next(model.parameters()).device
 
@@ -56,7 +50,8 @@ class Trainer:
         return batch.to(self.device)
 
     def train_step(self, state: TrainState, batch: GraphBatch):
-        return steps.train_step(state, self.put_batch(batch), guarded=self.guarded)
+        return steps.train_step(state, self.put_batch(batch), guarded=self.guarded,
+                                mixed=self.precision["mixed"])
 
     def eval_step(self, state: TrainState, batch: GraphBatch):
         return steps.eval_step(state, self.put_batch(batch))

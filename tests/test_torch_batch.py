@@ -28,11 +28,14 @@ def pytest_collate_matches_jax(with_edge_attr):
     got = collate_graphs(graphs, *pads)
     for f in dataclasses.fields(got):
         mine, theirs = getattr(got, f.name), getattr(ref, f.name)
-        if theirs is None:
+        if theirs is None and f.name != "extras":
             assert mine is None, f.name
             continue
         if f.name == "targets":  # one per head; none without head types
             assert mine == () and tuple(theirs) == (), f.name
+            continue
+        if f.name == "extras":  # none without a layout that asks (JAX: None)
+            assert mine == {}, f.name
             continue
         theirs = np.asarray(theirs)
         assert mine.numpy().dtype == theirs.dtype, f.name
@@ -46,8 +49,8 @@ def pytest_collate_matches_jax(with_edge_attr):
 def pytest_staged_batch_round_trips_through_one_buffer():
     graphs = samples(num=3, seed=6, with_edge_attr=True)
     batch = collate_graphs(graphs, *pad_sizes_for(10, 40, 4))
-    names = [f.name for f in dataclasses.fields(batch) if f.name != "targets"]
-    tensors = [getattr(batch, n) for n in names]  # targets: () without head types
+    names = [f.name for f in dataclasses.fields(batch) if f.name not in ("targets", "extras")]
+    tensors = [getattr(batch, n) for n in names]  # targets: (), extras: {} here
     buf, spans = stage_bytes(tensors)
     assert buf.dtype == torch.uint8 and buf.ndim == 1
     assert all(off % 16 == 0 for off, *_ in spans)

@@ -40,6 +40,12 @@ scalar path). K7's tile is held at H = 8, 33, 100, 128 and 256 with 1001
 edges, with and without ``ze``, the coordinate parameters, and all edges
 on one sender.
 
+The dense branch's gather (``ops/dense_agg.gather_neighbors``, PyTorch
+ops in a Function with the reverse-list backward) is held on the card
+against the same Function on the CPU at the headline's ``[5768, 22, 256]``
+in f32 and bf16, and one PNA dense bf16 training step against the exact
+step within ``chip_smoke.BF16_FACTOR``'s bound.
+
 Marked ``cuda``; each test skips inside itself when no card is present.
 On the H100 run ``python -m pytest tests/test_torch_cuda_kernels.py -q
 -p no:randomly --noconftest``: this file imports only the port, while the
@@ -633,9 +639,9 @@ def pytest_host_batch_reaches_the_card_in_one_buffer(card):
     torch.cuda.synchronize()
     ptrs = set()
     pairs = [(name, getattr(host, name), getattr(moved, name))
-             for name in host.__dataclass_fields__ if name != "targets"]
+             for name in host.__dataclass_fields__ if name not in ("targets", "extras")]
     pairs += [(f"targets[{i}]", h, d) for i, (h, d) in enumerate(zip(host.targets, moved.targets))]
-    assert len(moved.targets) == 2
+    assert len(moved.targets) == 2 and host.extras == moved.extras == {}
     for name, h, d in pairs:
         assert d.device.type == "cuda" and d.dtype == h.dtype and d.shape == h.shape, name
         assert torch.equal(d.cpu(), h), name
@@ -756,3 +762,79 @@ def pytest_vjps_at_the_main_path_shape(card):
     _, (got,) = _vjp_run(fn, [x, batch.node_graph], [0], [g])
     _, (want,) = _vjp_run(fn, _cpu([x, batch.node_graph]), [0], [g.cpu()])
     assert torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# the dense neighbour-list branch (no kernel of its own) and bf16 training
+# ---------------------------------------------------------------------------
+
+
+def _headline_lists():
+    """``MXU_HEADLINE``'s batch with its lists (n_pad 5768, K_in 22,
+    K_out 22), on the host."""
+    from hydragnn_tpu_torch.benchmarks import model_bench
+    from hydragnn_tpu_torch.ops.dense_agg import attach_neighbor_lists
+
+    h = model_bench.MXU_HEADLINE
+    graphs = model_bench.make_graphs(h["num_graphs"], h["nodes"], h["degree"], seed=0)
+    return attach_neighbor_lists(model_bench._collate(graphs, h["num_graphs"], h["nodes"], h["degree"]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def pytest_gather_neighbors_on_the_card(card, dtype):
+    """``gather_neighbors``' Function on the card against the same Function
+    on the CPU at the headline's ``[5768, 22, 256]``: the gather exactly;
+    the reverse-list backward (a sum over K_out in float32, then the
+    cotangent's dtype) within ``atomic_tolerance`` of the summed ``|g|``,
+    and in bf16 one bf16 rounding (``2^-8`` of the value) more."""
+    from hydragnn_tpu_torch.ops.dense_agg import gather_neighbors
+
+    batch = _headline_lists()
+    lists = [batch.extras[k] for k in ("nbr_idx", "rev_idx", "rev_mask")]
+    n, k_in = lists[0].shape
+    assert (n, k_in, lists[1].shape[1]) == (5768, 22, 22)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((n, 256)).astype(np.float32)).to(dtype)
+    g = torch.from_numpy(rng.standard_normal((n, k_in, 256)).astype(np.float32)).to(dtype)
+    g = torch.where(batch.extras["nbr_mask"][..., None], g, 0.0)
+    fn = lambda t, *ls: gather_neighbors(t, *ls)  # noqa: E731
+    outs, (grad,) = _vjp_run(fn, [x.to(card)] + [t.to(card) for t in lists], [0], [g.to(card)])
+    ref_outs, (ref_grad,) = _vjp_run(fn, [x] + lists, [0], [g])
+    assert outs[0].dtype == grad.dtype == dtype
+    assert torch.equal(outs[0].cpu(), ref_outs[0])
+    abs_sum = torch.zeros((n, 256)).index_add_(
+        0, lists[0].reshape(-1).long(), g.float().abs().reshape(-1, 256))
+    tol = atomic_tolerance(abs_sum)
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -8 * ref_grad.float().abs()
+    assert bool(((grad.cpu().float() - ref_grad.float()).abs() <= tol).all())
+
+
+def pytest_pna_dense_bf16_step_on_the_card(card):
+    """One PNA dense bf16 step (16 graphs at the headline's width) on the
+    card against the exact step, as the smoke holds it: each tensor within
+    ``BF16_FACTOR`` times the bf16 CPU steps' own error on it (the graphs
+    in both orders)."""
+    import chip_smoke as cs
+    from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.serve import plan_from_samples
+    from hydragnn_tpu_torch.train import Trainer
+
+    size = dict(cs.FULL, graphs=16, batch=16)
+    graphs = cs.make_graphs(size["graphs"], size["nodes"], size["degree"], seed=0)
+    plan = plan_from_samples(graphs, max_batch_graphs=size["batch"], num_buckets=1)
+    cs.set_targets(graphs, seed=1)
+    cfg = cs.arch(size, "PNA")
+    host = cs.train_batch(plan, graphs, cfg, dense=True)
+    model = create_model_config(cfg, device=card, seed=0)
+    cpu, exact = cs.cpu_references(
+        model, host, bf16=True,
+        reversed_host=cs.train_batch(plan, graphs, cfg, dense=True, reverse=True))
+    trainer = Trainer(model, cs.train_config(bf16=True))
+    before = segment_sum.launches
+    _, met = trainer.train_step(trainer.init_state(host), trainer.put_batch(host))
+    torch.cuda.synchronize()
+    assert segment_sum.launches == before + 1  # the pool; the dense branch runs no kernel
+    rows, bad, _ = cs.hold_step_against_cpu(cs.snapshot(model), float(met["loss"]), cpu, exact,
+                                            bf16=True)
+    assert rows and not bad, bad

@@ -11,6 +11,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from hydragnn_tpu_torch.benchmarks.model_bench import bench_model
 from hydragnn_tpu_torch.data import GraphData
 from hydragnn_tpu_torch.models import create_model_config
 from hydragnn_tpu_torch.serve import InferenceServer, ModelRegistry, plan_from_samples
@@ -27,6 +28,8 @@ def _port_files():
     files = sorted((REPO / "hydragnn_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10 and all(f.exists() for f in files)
     assert REPO / "hydragnn_tpu_torch" / "train" / "trainer.py" in files
+    for new in ("ops/dense_agg.py", "ops/autotune.py", "benchmarks/model_bench.py"):
+        assert REPO / "hydragnn_tpu_torch" / new in files
     return files
 
 
@@ -61,7 +64,8 @@ def pytest_port_sources_import_nothing_of_jax():
 def pytest_importing_the_port_loads_no_jax():
     code = (
         "import sys, hydragnn_tpu_torch, hydragnn_tpu_torch.serve, hydragnn_tpu_torch.ops\n"
-        "import hydragnn_tpu_torch.train\n"
+        "import hydragnn_tpu_torch.train, hydragnn_tpu_torch.benchmarks.model_bench\n"
+        "import hydragnn_tpu_torch.ops.dense_agg, hydragnn_tpu_torch.ops.autotune\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'hydragnn_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -80,6 +84,8 @@ def pytest_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     plan = plan_from_samples(_graphs(GraphData, PLAN_SIZES, 0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         InferenceServer(ModelRegistry(), plan)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_model(hidden=16, num_graphs=2, nodes=8, degree=4, layers=1, iters=1)
     with pytest.raises(ValueError):
         resolve_device("mps")
     assert resolve_device("cpu") == torch.device("cpu")

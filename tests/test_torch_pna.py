@@ -12,6 +12,8 @@ they matter. Only real rows are compared (``graph_mask``/``node_mask``).
 Tolerance: rtol 1e-4, atol 1e-5 (contraction orders differ).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -155,10 +157,15 @@ def pytest_pna_unported_options_raise():
         create_model_config(arch(), device="cpu", aggregation="dense")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_model_config({**arch(), "conv_checkpointing": True}, device="cpu")
+    # bf16 compute is ported: a bf16 forward runs and returns bf16, as
+    # JAX's does in fused mode (tests/test_torch_bf16.py holds its values)
     model = create_model_config(arch(), device="cpu")
     batch = collate_graphs(samples(), *pad_sizes_for(10, 40, 6))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.eval().to(torch.bfloat16)(batch)
+    batch = dataclasses.replace(batch, x=batch.x.to(torch.bfloat16))
+    with torch.inference_mode():
+        outs = model.eval().to(torch.bfloat16)(batch)
+    assert [o.dtype for o in outs] == [torch.bfloat16, torch.bfloat16]
+    assert all(bool(torch.isfinite(o.float()).all()) for o in outs)
 
 
 def pytest_bridge_rejects_incomplete_variables():

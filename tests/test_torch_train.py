@@ -13,8 +13,8 @@ on the same batch (numpy seeds) and the same weights (``models/bridge.py``).
   in ``segment`` mode against ``HYDRAGNN_PALLAS=1``, through the JAX
   ``Trainer._train_step`` (Pallas in interpret mode): the per-step loss,
   the final parameters and the BatchNorm statistics.
-- ``eval_step``, the batch's targets, and what the trainer refuses (bf16,
-  unported optimizers, ``freeze_conv``, meshes).
+- ``eval_step``, the batch's targets, the precision the trainer resolves,
+  and what it refuses (unported optimizers, ``freeze_conv``, meshes).
 
 The biases of an encoder conv's last two layers (``post_nn``, ``lin``)
 feed a BatchNorm in training mode, which subtracts the batch mean: the
@@ -328,17 +328,18 @@ def pytest_batch_targets_match_jax_and_travel_with_the_batch():
 
 
 def pytest_trainer_refuses_bf16_and_what_is_not_ported(monkeypatch):
+    """bf16 is ported: the trainer keeps the precision the JAX package's
+    rule resolves (env, then explicit, then the width policy). What is not
+    ported still raises."""
     monkeypatch.delenv("HYDRAGNN_MIXED_PRECISION", raising=False)
     small = create_model_config(arch(), device="cpu")
     wide = create_model_config(arch(hidden=128), device="cpu")
-    for model, config in ((small, {"mixed_precision": True}), (wide, {"mixed_precision": "auto"})):
-        with pytest.raises(NotImplementedError, match="bf16"):
-            Trainer(model, config)
+    assert Trainer(small, {"mixed_precision": True}).precision == {"mixed": True, "source": "explicit"}
+    assert Trainer(wide, {"mixed_precision": "auto"}).precision == {"mixed": True, "source": "policy"}
     assert Trainer(small, {"mixed_precision": "auto"}).precision == {"mixed": False, "source": "policy"}
     assert Trainer(wide, {}).precision == {"mixed": False, "source": "default"}
     monkeypatch.setenv("HYDRAGNN_MIXED_PRECISION", "1")
-    with pytest.raises(NotImplementedError, match="bf16"):
-        Trainer(small, {})
+    assert Trainer(small, {}).precision == {"mixed": True, "source": "env"}
     monkeypatch.setenv("HYDRAGNN_MIXED_PRECISION", "0")
     assert Trainer(wide, {"mixed_precision": "auto"}).precision["source"] == "env"
     monkeypatch.delenv("HYDRAGNN_MIXED_PRECISION")
