@@ -26,8 +26,9 @@ Phases, in order; any failure raises and exits non-zero:
    call that computes the same function, where there is one (K1:
    ``index_add_``; K4 and K5: ``torch.sparse.mm`` of the CSR adjacency,
    :func:`sparse_yardstick`); ``device_ms``, the kernel alone (the same 20
-   calls queued behind ``torch.cuda._sleep``, so the device runs them back
-   to back; min, median and max of 5 repeats), for the kernel and the
+   calls, fewer where they would fill the launch queue, queued behind
+   ``torch.cuda._sleep``, so the device runs them back to back; min,
+   median and max of 5 repeats), for the kernel and the
    library call. Then samples the SM clock and power draw.
 4. Serve: bench.py's MXU-scale row for each of PNA, GIN, SAGE, SchNet and
    EGNN (hidden 256, 3 conv layers, a graph head and a node head of
@@ -109,12 +110,19 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
-from hydragnn_tpu_torch.benchmarks.model_bench import MXU_HEADLINE, bench_model, make_graphs
+from hydragnn_tpu_torch.benchmarks.model_bench import (
+    MXU_HEADLINE,
+    MXU_ROWS,
+    _arch,
+    bench_model,
+    make_graphs,
+)
 from hydragnn_tpu_torch.graph import collate_graphs
 from hydragnn_tpu_torch.models import create_model_config
 from hydragnn_tpu_torch.ops import (
     KERNELS,
     _build,
+    fused_mp,
     launch_counts,
     reset_launch_counts,
 )
@@ -172,6 +180,7 @@ SCHNET_FILTERS = 50  # model_bench's num_gaussians: SchNet's filters (swapped)
 SERVE_RTOL, SERVE_ATOL = 1e-3, 1e-4  # card (atomics, cuBLAS) against CPU
 TRAIN_CONFIG = {"Optimizer": {"type": "AdamW", "learning_rate": 1e-3}}
 TRAIN_WINDOWS, TRAIN_WINDOW_STEPS = 5, 4  # 20 timed steps
+STACK_TRAIN_WINDOWS = 2  # GIN, SAGE, SchNet, EGNN: 8 timed steps a run
 HEADLINE_ITERS = 20  # bench.py's bench_headline_mxu: bench_model(**MXU_HEADLINE, iters=20)
 
 
@@ -539,6 +548,7 @@ def phase_kernels(plan, graphs, hidden, device):
             bound=bound(nbytes, ops),
         ))
 
+    cases += rule_cases(batch, hidden, rng, device)
     if device.type == "cuda":
         torch.cuda.synchronize()
         print(f"clocks after the kernel timings: {clocks_line()}", flush=True)
@@ -556,6 +566,125 @@ def phase_kernels(plan, graphs, hidden, device):
     )
     print(f"kernels: K1-K7 ({', '.join(KERNELS)}) {status} ({len(cases)} cases)",
           flush=True)
+    return cases
+
+
+def plain_grad(plain, args, g):
+    """The plain version of a backward rule: ``torch.autograd.grad`` of
+    ``plain(*args)`` (a kernel's plain version; its first output where it
+    has several) with respect to every argument, pulled back from ``g``."""
+    leaves = [a.detach().requires_grad_(True) for a in args]
+    out = plain(*leaves)
+    return torch.autograd.grad(out[0] if isinstance(out, tuple) else out, leaves, g)
+
+
+def rule_cases(batch, hidden, rng, device):
+    """The backward rules of K4-K7 (``ops/fused_mp.py``, ``*_rule``: what
+    each ``*_vjp`` Function's backward runs) on card tensors at the main
+    path's shapes, each held against its plain version: ``torch.autograd``
+    through the kernel's plain forward on the same inputs. K4's and K5's
+    rules (K4 with the ids swapped; K5 scales the cotangent by ``1 /
+    max(deg, 1)`` first) at D = hidden, with ``torch.sparse.mm`` of the
+    transposed adjacency as the library yardstick; K6's (``d_h``: K6
+    swapped; ``d_w`` in PyTorch) at its 50 filters and at hidden; K7's
+    (``d_y_snd``, ``d_y_rcv``, ``d_pos`` and the six parameters) with the
+    coordinate parameters, tolerance :func:`egnn_tolerance` of each
+    gradient."""
+    n_pad, e_pad = batch.num_nodes, batch.num_edges
+    snd, rcv, edge_mask = batch.senders, batch.receivers, batch.edge_mask
+    ids_bytes = 2 * e_pad * 4 + e_pad
+
+    def rand(rows, cols, mask=None):
+        t = torch.from_numpy(rng.standard_normal((rows, cols)).astype(np.float32)).to(device)
+        return t if mask is None else torch.where(mask, t, 0.0)
+
+    def err_tol(got, ref, tols):
+        errs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
+        worst = max(range(len(errs)), key=lambda i: errs[i] / tols[i])
+        return errs[worst], tols[worst]
+
+    cases = []
+    fgs, fgs_plain = KERNELS["fused_gather_sum"]
+    fgmean, fgmean_plain = KERNELS["fused_gather_mean"]
+    x = rand(n_pad, hidden, batch.node_mask[:, None])
+    g = rand(n_pad, hidden)
+    _, deg = fgmean_plain(x, snd, rcv, n_pad, edge_mask)
+    g_scaled = g / torch.clamp(deg, min=1.0)
+    r_deg = torch.clamp(deg[:, 0], min=1.0)[torch.where((rcv >= 0) & (rcv < n_pad), rcv, 0)]
+    for name, fn, plain, mask, cot in (
+        ("fused_gather_sum",
+         lambda: fused_mp.fused_gather_sum_rule(g, snd, rcv, n_pad, edge_mask),
+         lambda: plain_grad(lambda t: fgs_plain(t, snd, rcv, n_pad, edge_mask), [x], g),
+         edge_mask, g),
+        ("fused_gather_mean",
+         lambda: fused_mp.fused_gather_mean_rule(g, deg, snd, rcv, n_pad, edge_mask),
+         lambda: plain_grad(lambda t: fgmean_plain(t, snd, rcv, n_pad, edge_mask), [x], g),
+         edge_mask.to(torch.float32) / r_deg, g_scaled),
+    ):
+        got, (ref,) = fn(), plain()
+        a, xs = sparse_yardstick(g, rcv, snd, n_pad, mask)  # the transposed adjacency
+        deg_bytes = n_pad * 4 if name == "fused_gather_mean" else 0
+        cases.append(dict(
+            kernel=name, rule=True, case=f"backward rule d_x [{n_pad},{hidden}] E {e_pad}",
+            main=True, err=float((got - ref).abs().max()),
+            tol=atomic_tolerance(fgs_plain(cot.abs(), rcv, snd, n_pad, edge_mask)),
+            **timings(fn, plain, lambda: torch.sparse.mm(a, xs), device),
+            # the function's bytes: g (and deg) and the ids read, d_x written
+            bound=bound(2 * n_pad * hidden * 4 + deg_bytes + ids_bytes,
+                        2 * e_pad * hidden + (n_pad * hidden if deg_bytes else 0)),
+        ))
+
+    fgw, fgw_plain = KERNELS["fused_gather_weighted_sum"]
+    for d in (SCHNET_FILTERS, hidden):
+        h, w, g = rand(n_pad, d), rand(e_pad, d, edge_mask[:, None]), rand(n_pad, d)
+        fn = lambda: fused_mp.fused_gather_weighted_sum_rule(g, h, w, snd, rcv)  # noqa: E731
+        plain = lambda: plain_grad(  # noqa: E731
+            lambda a, b: fgw_plain(a, b, snd, rcv, n_pad), [h, w], g)
+        got, ref = fn(), plain()
+        err, tol = err_tol(got, ref, [
+            atomic_tolerance(fgw_plain(g.abs(), w.abs(), rcv, snd, n_pad)),
+            1e-6 * (float(ref[1].abs().max()) + 1.0),  # one product per element
+        ])
+        cases.append(dict(
+            kernel="fused_gather_weighted_sum", rule=True,
+            case=f"backward rule d_h, d_w h [{n_pad},{d}] w [{e_pad},{d}]",
+            main=d == SCHNET_FILTERS, err=err, tol=tol,
+            **timings(fn, plain, None, device),
+            # g, h, w read; d_h, d_w written; both id arrays
+            bound=bound((3 * n_pad * d + 2 * e_pad * d) * 4 + 2 * e_pad * 4, 3 * e_pad * d),
+        ))
+
+    egnn, egnn_plain = KERNELS["fused_egnn_edge_phase"]
+    lim = 1.0 / np.sqrt(hidden)
+
+    def unif(*shape):
+        return torch.from_numpy(rng.uniform(-lim, lim, shape).astype(np.float32)).to(device)
+
+    y_snd, y_rcv, pos = rand(n_pad, hidden), rand(n_pad, hidden), batch.pos
+    params = [unif(hidden), unif(hidden, hidden), unif(hidden), unif(hidden, hidden),
+              unif(hidden), unif(hidden, 1)]
+    g = rand(n_pad, hidden + 4)
+    fn = lambda: fused_mp.fused_egnn_edge_phase_rule(  # noqa: E731
+        g, y_snd, y_rcv, pos, params, snd, rcv, edge_mask)
+    plain = lambda: plain_grad(  # noqa: E731
+        lambda a, b, p, *ps: egnn_plain(a, b, p, list(ps), snd, rcv, n_pad, edge_mask),
+        [y_snd, y_rcv, pos] + params, g)
+    d_y_snd, d_y_rcv, d_pos, _, d_params = fn()
+    got, ref = [d_y_snd, d_y_rcv, d_pos] + list(d_params), plain()
+    err, tol = err_tol(got, ref, [egnn_tolerance(r) for r in ref])
+    nbytes = (
+        (n_pad * (hidden + 4) + 2 * n_pad * hidden + 3 * n_pad) * 4  # g, y_snd, y_rcv, pos
+        + 2 * sum(p.numel() for p in params) * 4 + ids_bytes  # params and their gradients
+        + (2 * n_pad * hidden + 3 * n_pad) * 4  # d_y_snd, d_y_rcv, d_pos
+    )
+    # the edge body again, then each H x H product's input and weight
+    # gradients (twice its forward's operations)
+    cases.append(dict(
+        kernel="fused_egnn_edge_phase", rule=True,
+        case=f"backward rule H {hidden} E {e_pad} +coord",
+        main=True, err=err, tol=tol, **timings(fn, plain, None, device),
+        bound=bound(nbytes, e_pad * (3 * 2 * hidden * hidden * 2 + 30 * hidden)),
+    ))
     return cases
 
 
@@ -713,19 +842,29 @@ def breakdown(family, mode, model, plan, graphs, device, card, iters=5):
 TRAIN_PHASES = ("train_step.forward", "train_step.backward", "train_step.optimizer")
 
 
-def launches_per_train_step(mode, layers):
-    """``{kernel: launches}`` one PNA training step needs: the forward's,
-    and in ``fused`` mode one K1 per conv layer in K3's backward (the sum of
-    ``dz`` at the senders). The pool's and K2's backward rules are gathers,
-    ``segment`` mode's gather has PyTorch's own backward, and ``dense``
-    mode's runs no kernel: K1 pools, once."""
-    counts = {name: 0 for name in KERNELS}
-    counts["segment_sum"] = 1  # the pool
-    if mode == "fused":
-        counts["fused_gather_moments"] = layers
+def launches_per_train_step(cfg, mode):
+    """``{kernel: launches}`` one training step of ``cfg``'s stack needs:
+    the forward's, and in ``fused`` mode each backward rule's. K3's rule
+    sums at the senders through K1, once a layer; K4's and K5's launch K4
+    with the ids swapped, K6's K6, for every layer but the first of GIN and
+    SAGE (whose input, the batch's ``x``, takes no gradient) and for every
+    layer of SchNet (whose ``h = x @ lin1`` does); K7's folds through K1 at
+    the senders and at the receivers, and again for ``pos`` in every layer
+    after an equivariant one. The pool's and K2's rules are gathers,
+    ``segment`` mode's gather has PyTorch's own backward, and ``dense`` mode
+    runs no kernel but the pool."""
+    family, layers = cfg["model_type"], cfg["num_conv_layers"]
+    counts = launches_per_forward(cfg, mode)
+    if mode != "fused":
+        return counts
+    if family == "PNA":
         counts["segment_sum"] += layers
-    elif mode == "segment":
-        counts["segment_moments"] = layers
+    elif family in ("GIN", "SAGE"):
+        counts["fused_gather_sum"] += layers - 1
+    elif family == "SchNet":
+        counts["fused_gather_weighted_sum"] += layers
+    elif family == "EGNN":
+        counts["segment_sum"] += 2 * layers + 2 * (layers - 1) * bool(cfg["equivariance"])
     return counts
 
 
@@ -1036,45 +1175,50 @@ def trace_split(trace, ms_per_step):
     )
 
 
-def phase_headline(size, device, card):
-    """The JAX package's headline training step, ``MXU_HEADLINE`` (PNA,
-    hidden 256, 3 conv layers, 64 graphs of 80-90 atoms at degree 12, the
-    dense neighbour lists, bf16), timed by the port's ``bench_model``: 1
-    warm step, 20 steps between CUDA events, one ``eval_step``, then one
-    profiled step. Every step and the evaluation launch K1 once (the pool).
-    Returns the launches."""
+def phase_bench(name, row, size, device, card):
+    """One ``bench_model`` row (``row``: its keyword arguments) through the
+    port's ``bench_model``: 1 warm step, 20 steps between CUDA events, one
+    ``eval_step``, then one profiled step; every step and the evaluation
+    launch what :func:`launches_per_train_step` and
+    :func:`launches_per_forward` say (the row's mode: ``dense`` with the
+    lists, else ``bench_model``'s ``segment``). The CPU rehearsal runs the
+    row at the tiny size. Prints one ``{"train": ...}`` line; returns the
+    launches."""
     on_card = device.type == "cuda"
-    kw = dict(MXU_HEADLINE) if on_card else dict(
-        MXU_HEADLINE, hidden=size["hidden"], num_graphs=size["batch"],
+    kw = dict(row) if on_card else dict(
+        row, hidden=size["hidden"], num_graphs=size["batch"],
         nodes=size["nodes"], degree=size["degree"], layers=size["layers"])
     iters = HEADLINE_ITERS if on_card else 2
-    trace = _build.REPO_ROOT / "build" / "chip_smoke" / "headline_trace.json"
+    trace = _build.REPO_ROOT / "build" / "chip_smoke" / f"bench_{name}_trace.json"
     trace.parent.mkdir(parents=True, exist_ok=True)
     reset_launch_counts()
-    row = bench_model(**kw, iters=iters, device=device, trace_path=trace if on_card else None)
+    result = bench_model(**kw, iters=iters, device=device, trace_path=trace if on_card else None)
     counts = launch_counts()
-    per_step = launches_per_train_step("dense", kw["layers"])
-    per_eval = launches_per_forward(arch(size), "dense")
+    cfg = _arch(kw["model_type"], kw["hidden"], kw["layers"], kw["nodes"])
+    mode = "dense" if kw.get("dense") else "segment"
+    per_step = launches_per_train_step(cfg, mode)
+    per_eval = launches_per_forward(cfg, mode)
     n_steps = 1 + iters + on_card
     if on_card and counts != {k: n_steps * v + per_eval[k] for k, v in per_step.items()}:
-        raise AssertionError(f"MXU_HEADLINE: {n_steps} steps and eval launched {counts}")
-    if not np.isfinite(row["eval_loss"]):
-        raise AssertionError(f"MXU_HEADLINE: eval loss {row['eval_loss']}")
-    result = {"config": "MXU_HEADLINE", **row,
+        raise AssertionError(f"{name}: {n_steps} steps and eval launched {counts}")
+    if not np.isfinite(result["eval_loss"]):
+        raise AssertionError(f"{name}: eval loss {result['eval_loss']}")
+    result = {"config": name, **result,
               "launches_per_step": {k: v for k, v in per_step.items() if v}}
     if on_card:
-        result.update(trace_split(trace, row["ms_per_step"]))
+        result.update(trace_split(trace, result["ms_per_step"]))
     result.update(launches=counts, card=card)
     emit({"train": result})
     return counts
 
 
-def phase_train(mode, cfg, plan, graphs, device, card, bf16=False):
-    """PNA training through the port's entry points: ``Trainer`` ->
-    ``init_state`` -> ``put_batch`` -> 1 + 20 ``train_step`` (AdamW; with
-    ``bf16``, bf16 mixed precision) -> one profiled step -> ``eval_step``,
-    on the largest bucket's batch (``dense``: with the neighbour lists).
-    Returns the kernel launches of the run."""
+def phase_train(mode, cfg, plan, graphs, device, card, bf16=False, windows=TRAIN_WINDOWS):
+    """Training of ``cfg``'s stack through the port's entry points:
+    ``Trainer`` -> ``init_state`` -> ``put_batch`` -> 1 + ``windows`` x 4
+    ``train_step`` (AdamW; with ``bf16``, bf16 mixed precision) -> one
+    profiled step -> ``eval_step``, on the largest bucket's batch
+    (``dense``: with the neighbour lists). Returns the kernel launches of
+    the run."""
     model = create_model_config(cfg, device=device, aggregation=aggregation_of(mode), seed=0)
     host = train_batch(plan, graphs, cfg, dense=mode == "dense")
     precision = "bf16" if bf16 else "f32"
@@ -1089,10 +1233,11 @@ def phase_train(mode, cfg, plan, graphs, device, card, bf16=False):
         raise AssertionError(f"the trainer resolved {trainer.precision}, not {precision}")
     state = trainer.init_state(host)
     batch = trainer.put_batch(host)
-    per_step = launches_per_train_step(mode, cfg["num_conv_layers"])
+    per_step = launches_per_train_step(cfg, mode)
     launches = {name: 0 for name in KERNELS}
     on_card = device.type == "cuda"
-    what = f"PNA {mode} {precision}"
+    family = cfg["model_type"]
+    what = f"{family} {mode} {precision}"
 
     def steps(n):
         nonlocal state
@@ -1116,7 +1261,7 @@ def phase_train(mode, cfg, plan, graphs, device, card, bf16=False):
     # issuing them (close to the events' time when the host sets the pace)
     window_ms, host_ms = [], []
     losses = [first]
-    for _ in range(TRAIN_WINDOWS):
+    for _ in range(windows):
         if on_card:
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
@@ -1131,18 +1276,20 @@ def phase_train(mode, cfg, plan, graphs, device, card, bf16=False):
         raise AssertionError(f"{what} train: losses {losses}")
     rows, bad, level = hold_step_against_cpu(step1, first, cpu, exact, bf16)
     closest = sorted(rows, key=lambda r: -r["worst_over_tol"])[:8]
-    emit({"train_check": {"mode": mode, "precision": precision, "tensors": len(rows),
+    emit({"train_check": {"family": family, "mode": mode, "precision": precision,
+                          "tensors": len(rows),
                           "cpu_level": level, "closest": closest, "violations": bad}})
     if bad:
         raise AssertionError(f"{what} train step 1 against the exact step: {bad}")
-    worst = {kind: max(r["err"] for r in rows if r["kind"] == kind)
+    # SchNet and EGNN (no encoder BatchNorm, mlp heads) have no statistics
+    worst = {kind: max((r["err"] for r in rows if r["kind"] == kind), default=None)
              for kind in ("loss", "grad", "param", "stat")}
     worst["over_tol"] = max(r["worst_over_tol"] for r in rows)
     need = max((r for r in rows if r["factor_needed"] is not None),
                key=lambda r: r["factor_needed"])
     graphs_per_step = int(host.graph_mask.sum())
     result = {
-        "family": "PNA", "mode": mode, "precision": precision,
+        "family": family, "mode": mode, "precision": precision,
         "batch": f"n_pad {batch.num_nodes} e_pad {batch.num_edges} g_pad {batch.num_graphs}",
         "graphs_per_step": graphs_per_step,
         "steps": len(losses),
@@ -1167,7 +1314,8 @@ def phase_train(mode, cfg, plan, graphs, device, card, bf16=False):
         result.update(ms_per_step=ms_per_step, ms_per_step_windows=per_window,
                       host_enqueue_ms_per_step_windows=host_ms,
                       graphs_per_s=graphs_per_step / ms_per_step * 1e3)
-        trace = _build.REPO_ROOT / "build" / "chip_smoke" / f"train_{mode}_{precision}_trace.json"
+        trace = (_build.REPO_ROOT / "build" / "chip_smoke"
+                 / f"train_{family}_{mode}_{precision}_trace.json")
         trace.parent.mkdir(parents=True, exist_ok=True)
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
@@ -1202,6 +1350,7 @@ def main(argv=None):
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="tiny size on the CPU through the plain versions; no success line")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     if args.cpu_rehearsal:
         device, size, card = torch.device("cpu"), TINY, "cpu rehearsal (no device time)"
@@ -1232,15 +1381,23 @@ def main(argv=None):
         cfg = arch(size, family)
         for mode in ("fused", "segment"):
             add(phase_serve(mode, cfg, plan, graphs, device, card)["launches"])
-    add(phase_serve("dense", arch(size, "PNA"), dense_plan, graphs, device, card)["launches"])
+    # the dense plan: PNA, and GIN and SAGE, which the JAX package's static
+    # policy serves on the lists at this width
+    for family in ("PNA", "GIN", "SAGE"):
+        add(phase_serve("dense", arch(size, family), dense_plan, graphs, device, card)["launches"])
 
     set_targets(graphs, seed=1)
-    train_cfg = arch(size, "PNA")
-    for mode in ("fused", "segment"):
-        add(phase_train(mode, train_cfg, plan, graphs, device, card))
-    for bf16 in (False, True):
-        add(phase_train("dense", train_cfg, plan, graphs, device, card, bf16=bf16))
-    add(phase_headline(size, device, card))
+    for family in FAMILIES:
+        # SchNet with its equivariant update here (the bench rows have none)
+        cfg = dict(arch(size, family), equivariance=family in ("SchNet", "EGNN"))
+        windows = TRAIN_WINDOWS if family == "PNA" else STACK_TRAIN_WINDOWS
+        for mode, bf16 in (("fused", False), ("segment", False), ("dense", False),
+                           ("dense", True)):
+            add(phase_train(mode, cfg, plan, graphs, device, card, bf16=bf16, windows=windows))
+    add(phase_bench("MXU_HEADLINE", MXU_HEADLINE, size, device, card))
+    for row in MXU_ROWS:
+        name = f"MXU_{row['model_type']}_{'dense_bf16' if row.get('dense') else 'segment_f32'}"
+        add(phase_bench(name, row, size, device, card))
 
     # K2 and K6 beside K1 at the same receivers shape: the same [E, D] bytes
     # streamed, a sum where K2 also keeps squares and a count and K6
@@ -1256,8 +1413,10 @@ def main(argv=None):
               flush=True)
     summary = []
     for name in KERNELS:
-        mine = [c for c in cases if c["kernel"] == name]
+        mine = [c for c in cases if c["kernel"] == name and not c.get("rule")]
         main_case = next(c for c in mine if c["main"])
+        rule = next((c for c in cases if c["kernel"] == name and c.get("rule") and c["main"]),
+                    None)
         summary.append({
             "name": name,
             "route": "cuda",
@@ -1276,6 +1435,22 @@ def main(argv=None):
             "reference": reference.get(name, (None, None))[0],
             "reference_device_ms": reference.get(name, (None, None))[1],
         })
+        if rule is not None:  # its backward rule, at the main path's shapes
+            summary[-1]["backward_rule"] = {
+                "case": rule["case"],
+                "max_abs_err": max(c["err"] for c in cases
+                                   if c["kernel"] == name and c.get("rule")),
+                "ms": rule["ms"],
+                "device_ms": median(rule["device_ms"]),
+                "device_ms_min_max": min_max(rule["device_ms"]),
+                "forward_device_ms": median(main_case["device_ms"]),
+                "plain_ms": rule["plain_ms"],
+                "bound_ms": rule["bound_ms"],
+                "bound_by": rule["bound_by"],
+                "library_ms": rule["library_ms"],
+                "library_device_ms": median(rule["library_device_ms"]),
+            }
+    print(f"wall: {time.perf_counter() - t_start:.1f} s", flush=True)
     if args.cpu_rehearsal:
         emit({"kernels": summary})
         print("cpu rehearsal finished: no device was measured", flush=True)

@@ -6,7 +6,8 @@ neighbour lists when asked -> ``create_model_config(_arch(...))`` ->
 ``Trainer`` with AdamW at lr 1e-3 and ``mixed_precision = bf16``), takes
 one warm step, then times ``iters`` steps with CUDA events around them and
 one synchronise at the end, then takes one ``eval_step``. :data:`MXU_HEADLINE` is the JAX package's
-headline configuration (``bench.py:517-518``).
+headline configuration (``bench.py:517-518``), :data:`MXU_ROWS` its
+MXU-scale rows of GIN, SAGE, SchNet and EGNN (``bench.py:302-305``).
 
 ``flops_per_step`` is the matmul work of one step (forward and backward),
 counted from the products' shapes by ``torch.utils.flop_counter
@@ -36,6 +37,14 @@ from hydragnn_tpu_torch.utils import resolve_device
 
 MXU_HEADLINE = dict(model_type="PNA", hidden=256, num_graphs=64, nodes=90,
                     degree=12, layers=3, dense=True, bf16=True)
+# the MXU-scale matrix of the stacks the port trains besides PNA
+# (``bench.py:302-305``): each at hidden 256 on the oc20 shape, in segment
+# f32 and in dense bf16
+MXU_ROWS = [
+    dict(model_type=m, hidden=256, num_graphs=64, nodes=90, degree=12, layers=3, **mode)
+    for m in ("GIN", "SAGE", "SchNet", "EGNN")
+    for mode in ({}, {"dense": True, "bf16": True})
+]
 
 # peak dense TFLOP/s by torch.cuda.get_device_name() and precision (NVIDIA
 # H100 SXM data sheet: bf16 on the tensor cores without sparsity; f32

@@ -17,8 +17,8 @@ The forward computes in the dtypes it is given, as the JAX package's does:
 with bf16 parameters and inputs (``train/steps.py``'s mixed precision) the
 products run in bf16, BatchNorm statistics and losses in float32, and the
 kernels on float32 upcasts. A batch with dense neighbour lists takes the
-convs' dense branch, which only PNA has in the port; the other stacks raise
-on it.
+convs' dense branch, which every ported stack has; a stack without one
+(``dense_branch`` False) raises on it.
 """
 
 import math
@@ -101,7 +101,7 @@ class HydraBase(nn.Module):
     # conv heads keep theirs in every stack
     conv_use_batchnorm = True
     # whether the convs take the dense neighbour-list branch for a batch
-    # that carries the lists (only PNA's is ported)
+    # that carries the lists
     dense_branch = False
 
     def __init__(

@@ -13,9 +13,10 @@ weight, or the other way round, is an f32 product, and a linear layer adds
 its bias as a second operation, rounding twice in bf16 where JAX does.
 
 The aggregation helpers at the end are the convs' message passing in the
-two modes (:data:`AGGREGATIONS`). A kernel takes float32: bf16 inputs are
-upcast before its wrapper, and its result goes back to the input's dtype,
-as the JAX package's fused kernels do.
+two modes (:data:`AGGREGATIONS`), through the kernels' backward rules
+(``ops``: ``*_vjp``). A kernel takes float32: bf16 inputs are upcast
+before its wrapper, and its result goes back to the input's dtype, as the
+JAX package's fused kernels do.
 """
 
 import math
@@ -27,11 +28,10 @@ from torch import nn
 
 from hydragnn_tpu_torch.graph.segment import segment_count, segment_sum
 from hydragnn_tpu_torch.ops import (
-    fused_gather_mean,
-    fused_gather_sum,
-    fused_gather_weighted_sum,
+    fused_gather_mean_vjp,
+    fused_gather_sum_vjp,
+    fused_gather_weighted_sum_vjp,
 )
-from hydragnn_tpu_torch.ops.segment_kernels import upcast
 
 
 def uniform_(param: torch.Tensor, bound: float, generator: torch.Generator):
@@ -297,7 +297,7 @@ def gather_segment_sum(x, senders, receivers, num_segments, edge_mask,
     aggregation: K4 (``"fused"``) or the gather in PyTorch and K1
     (``"segment"``). Returns ``[S, D]`` in ``x.dtype``."""
     if check_aggregation(aggregation) == "fused":
-        return fused_gather_sum(upcast(x), senders, receivers, num_segments, edge_mask).to(x.dtype)
+        return fused_gather_sum_vjp(x, senders, receivers, num_segments, edge_mask).to(x.dtype)
     return segment_sum(_masked_gather(x, senders, edge_mask), receivers, num_segments)
 
 
@@ -308,7 +308,7 @@ def gather_segment_mean(x, senders, receivers, num_segments, edge_mask,
     for the sum and a count of the mask. Returns ``[S, D]`` in
     ``x.dtype``."""
     if check_aggregation(aggregation) == "fused":
-        mean, _deg = fused_gather_mean(upcast(x), senders, receivers, num_segments, edge_mask)
+        mean, _deg = fused_gather_mean_vjp(x, senders, receivers, num_segments, edge_mask)
         return mean.to(x.dtype)
     total = segment_sum(_masked_gather(x, senders, edge_mask), receivers, num_segments)
     deg = segment_count(receivers, num_segments, weights=edge_mask)
@@ -321,7 +321,5 @@ def gather_weighted_segment_sum(h, w, senders, receivers, num_segments,
     aggregation (``w`` comes masked): K6 or the gather in PyTorch and
     K1."""
     if check_aggregation(aggregation) == "fused":
-        return fused_gather_weighted_sum(
-            upcast(h), upcast(w), senders, receivers, num_segments
-        ).to(h.dtype)
+        return fused_gather_weighted_sum_vjp(h, w, senders, receivers, num_segments).to(h.dtype)
     return segment_sum(h[senders.to(torch.int64)] * w, receivers, num_segments)

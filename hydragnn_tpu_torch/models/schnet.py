@@ -11,6 +11,13 @@ BatchNorm. With ``equivariance``, every conv but the last moves the
 positions by the mean of a bounded coordinate update, summed at the
 senders through K1.
 
+A batch that carries the dense neighbour lists takes the dense frame
+(``schnet.py:77-183`` of the JAX package): the positions gathered through
+the lists, every per-edge value ``[N, K, *]`` masked by ``nbr_mask``, the
+coordinate update summed at the senders through the reverse lists
+(``ops/dense_agg.aggregate_to_senders``, the count from ``rev_mask``) and
+the filtered sum a masked sum over K of ``gather_neighbors(h) * w``.
+
 ``lin1``, ``lin2``, ``bias2`` and ``coord_mlp_1`` are raw parameters in
 the JAX package's ``x @ W`` layout (so the bridge copies them as they are);
 the filter and coordinate layers are ``TorchLinear``s.
@@ -33,6 +40,7 @@ from hydragnn_tpu_torch.models.common import (
     safe_sqrt,
     small_uniform_,
 )
+from hydragnn_tpu_torch.ops.dense_agg import aggregate_to_senders, dense_sum, gather_neighbors
 
 
 def shifted_softplus(x):
@@ -81,41 +89,64 @@ class CFConv(nn.Module):
 
     def forward(self, x, pos, batch):
         n = x.shape[0]
-        send = batch.senders.to(torch.int64)
-        recv = batch.receivers.to(torch.int64)
-        emask = batch.edge_mask[:, None]
-        if self.use_edge_attr:
-            edge_weight = torch.linalg.vector_norm(batch.edge_attr, dim=-1)
+        extras = batch.extras
+        dense = "nbr_idx" in extras
+        if dense:
+            # the dense frame: every per-edge value is [N, K, *] (receiver,
+            # slot); pos goes through the lists' gather, so the equivariant
+            # backward is scatter-free too
+            nbr, nmask = extras["nbr_idx"], extras["nbr_mask"]
+            rev, rmask = extras["rev_idx"], extras["rev_mask"]
+            pos_j = gather_neighbors(pos, nbr, rev, rmask)
+            diff = pos_j - pos[:, None, :]
+            emask = nmask[..., None]
+            edge_attr = batch.edge_attr[extras["nbr_edge"].to(torch.int64)] \
+                if self.use_edge_attr else None
         else:
-            diff = pos[send] - pos[recv]
+            diff = pos[batch.senders.to(torch.int64)] - pos[batch.receivers.to(torch.int64)]
+            emask = batch.edge_mask[:, None]
+            edge_attr = batch.edge_attr
+        if self.use_edge_attr:
+            edge_weight = torch.linalg.vector_norm(edge_attr, dim=-1)
+        else:
             edge_weight = safe_sqrt((diff * diff).sum(-1))
         rbf = self.smearing(edge_weight)
 
         w = self.filter_1(shifted_softplus(self.filter_0(rbf)))
         cos_cut = 0.5 * (torch.cos(edge_weight * math.pi / self.cutoff) + 1.0)
-        w = torch.where(emask, w * cos_cut[:, None], 0.0)
+        w = torch.where(emask, w * cos_cut[..., None], 0.0)
         h = matmul(x, self.lin1)
 
         if self.equivariant:
-            diff = pos[send] - pos[recv]
             coord_diff = diff / (safe_sqrt((diff * diff).sum(-1, keepdim=True)) + 1.0)
             cw = matmul(F.relu(self.coord_mlp_0(w)), self.coord_mlp_1)
             trans = torch.where(emask, torch.clamp(coord_diff * cw, -100.0, 100.0), 0.0)
-            # the update and the real out-degree from one pass at the senders
-            both = segment_sum(
-                torch.cat([trans, batch.edge_mask.to(trans.dtype)[:, None]], -1),
-                batch.senders, n,
-            )
-            pos = pos + both[:, :3] / torch.clamp(both[:, 3], min=1.0)[:, None]
+            if dense:
+                # the sum at the senders through the reverse lists; the
+                # count is the real out-degree
+                agg = aggregate_to_senders(trans, nbr, nmask, rev, rmask)
+                cnt = rmask.sum(dim=1).to(trans.dtype)
+            else:
+                # the update and the real out-degree from one pass at the senders
+                both = segment_sum(
+                    torch.cat([trans, batch.edge_mask.to(trans.dtype)[:, None]], -1),
+                    batch.senders, n,
+                )
+                agg, cnt = both[:, :3], both[:, 3]
+            pos = pos + agg / torch.clamp(cnt, min=1.0)[:, None]
 
-        aggr = gather_weighted_segment_sum(
-            h, w, batch.senders, batch.receivers, n, self.aggregation
-        )
+        if dense:
+            aggr = dense_sum(gather_neighbors(h, nbr, rev, rmask) * w, nmask)
+        else:
+            aggr = gather_weighted_segment_sum(
+                h, w, batch.senders, batch.receivers, n, self.aggregation
+            )
         return matmul(aggr, self.lin2) + self.bias2, pos
 
 
 class SCFStack(HydraBase):
     conv_use_batchnorm = False  # Identity feature layers, as the reference
+    dense_branch = True
 
     def __init__(self, num_filters: int, num_gaussians: int, radius: float,
                  device=None, **common):

@@ -10,24 +10,29 @@
 | K6 | ``fused_mp.fused_gather_weighted_sum`` | ``fused_mp.fused_message_reduce`` op ``mul`` | ``csrc/fused_mp.cu`` |
 | K7 | ``fused_mp.fused_egnn_edge_phase`` | ``fused_mp.fused_message_reduce`` op ``egnn`` | ``csrc/fused_egnn.cu`` |
 
-K1-K3 take gradients through ``segment_sum_vjp``, ``segment_moments_vjp``
-and ``fused_gather_moments_vjp``: a ``torch.autograd.Function`` around the
-wrapper, with the JAX package's backward rule in PyTorch (K3's sender fold
-through K1). The wrappers themselves, and K4-K7, are forward-only.
+Each kernel takes gradients through its ``*_vjp`` twin: a
+``torch.autograd.Function`` around the wrapper, with the JAX package's
+backward rule, which runs the port's kernels on the card (K3's and K7's
+folds through K1, K4's and K5's through K4 with the ids swapped, K6's
+through K6 swapped). The wrappers themselves are forward-only.
 """
 
 from hydragnn_tpu_torch.ops.fused_mp import (
     fused_egnn_edge_phase,
     fused_egnn_edge_phase_plain,
+    fused_egnn_edge_phase_vjp,
     fused_gather_mean,
     fused_gather_mean_plain,
+    fused_gather_mean_vjp,
     fused_gather_moments,
     fused_gather_moments_plain,
     fused_gather_moments_vjp,
     fused_gather_sum,
     fused_gather_sum_plain,
+    fused_gather_sum_vjp,
     fused_gather_weighted_sum,
     fused_gather_weighted_sum_plain,
+    fused_gather_weighted_sum_vjp,
 )
 from hydragnn_tpu_torch.ops.segment_kernels import (
     segment_moments,
@@ -64,15 +69,19 @@ __all__ = [
     "KERNELS",
     "fused_egnn_edge_phase",
     "fused_egnn_edge_phase_plain",
+    "fused_egnn_edge_phase_vjp",
     "fused_gather_mean",
     "fused_gather_mean_plain",
+    "fused_gather_mean_vjp",
     "fused_gather_moments",
     "fused_gather_moments_plain",
     "fused_gather_moments_vjp",
     "fused_gather_sum",
     "fused_gather_sum_plain",
+    "fused_gather_sum_vjp",
     "fused_gather_weighted_sum",
     "fused_gather_weighted_sum_plain",
+    "fused_gather_weighted_sum_vjp",
     "launch_counts",
     "reset_launch_counts",
     "segment_moments",

@@ -1,6 +1,6 @@
 """Dense neighbour-list aggregation: message passing without a scatter
-(port of the part of ``hydragnn_tpu/ops/dense_agg.py`` that PNA's dense
-branch runs).
+(port of the part of ``hydragnn_tpu/ops/dense_agg.py`` that the dense
+branches of PNA, GIN, SAGE, SchNet and EGNN run).
 
 The host turns a batch's edge list into fixed-width lists per node (numpy):
 ``nbr_idx [N, K_in]``, the sender of each incoming-edge slot, with
@@ -8,18 +8,21 @@ The host turns a batch's edge list into fixed-width lists per node (numpy):
 ``rev_idx [N, K_out]``, the flat ``receiver * K_in + slot`` of each
 outgoing edge, with ``rev_mask``. Every aggregation is then a masked
 reduction over the K axis, and the gather's backward reads the cotangent
-through the reverse list: a gather and a sum, never a scatter.
+through the reverse list: a gather and a sum, never a scatter. A sum at
+the senders (EGNN's messages, SchNet's coordinate update) reads the
+per-slot values through the reverse list, and its backward gathers
+through the forward list.
 
-:func:`gather_neighbors` is a ``torch.autograd.Function`` with that rule
-(the JAX package's ``custom_vjp``). The statistics accumulate in
-``torch.float32`` whatever the message dtype and come back at it, as the
-JAX package's do. No kernel of the card runs here: the JAX package's dense
-branch is XLA gathers and reductions (its Pallas variant lost to XLA's
-fusion and was deleted), so the port's is PyTorch ops.
+:func:`gather_neighbors` and :func:`aggregate_to_senders` are
+``torch.autograd.Function``s with those rules (the JAX package's
+``custom_vjp``s). The sums and statistics accumulate in ``torch.float32``
+whatever the message dtype and come back at it, as the JAX package's do.
+No kernel of the card runs here: the JAX package's dense branch is XLA
+gathers and reductions (its Pallas variant lost to XLA's fusion and was
+deleted), so the port's is PyTorch ops.
 
-Not ported: ``group_sum``, ``gather_rows_to_slots``, ``slots_to_rows``,
-``aggregate_to_senders`` and ``dense_sum`` (the dense branches of the
-other stacks) and the slot tables of DimeNet; see ``ROADMAP.md``.
+Not ported: ``group_sum``, ``gather_rows_to_slots`` and ``slots_to_rows``
+and the slot tables (DimeNet's triplet path); see ``ROADMAP.md``.
 """
 
 from typing import Optional, Tuple
@@ -165,3 +168,40 @@ def dense_minmax(h: torch.Tensor, nbr_mask: torch.Tensor, has: torch.Tensor,
     mx = torch.where(m, h, -_BIG).amax(dim=1)
     mn = torch.where(m, h, _BIG).amin(dim=1)
     return torch.where(has, mn, fill), torch.where(has, mx, fill)
+
+
+class _AggregateToSenders(torch.autograd.Function):
+    """``_agg_send_fwd`` / ``_agg_send_bwd`` (``dense_agg.py:259-290``):
+    per-slot values ``h [N, K_in, D]`` summed at their senders through the
+    reverse list, masked by ``rev_mask``, in ``torch.float32`` and back at
+    ``h``'s dtype; the backward gathers the cotangent through ``nbr_idx``,
+    masked by ``nbr_mask``."""
+
+    @staticmethod
+    def forward(ctx, h, nbr_idx, nbr_mask, rev_idx, rev_mask):
+        ctx.save_for_backward(nbr_idx, nbr_mask)
+        n, k_in, d = h.shape
+        contrib = h.reshape(n * k_in, d).index_select(0, rev_idx.reshape(-1))
+        contrib = contrib.reshape(n, rev_idx.shape[1], d)
+        hm = torch.where(rev_mask[..., None], contrib, 0.0).to(torch.float32)
+        return hm.sum(dim=1).to(h.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        nbr_idx, nbr_mask = ctx.saved_tensors
+        n, k_in = nbr_idx.shape
+        gh = g.index_select(0, nbr_idx.reshape(-1)).reshape(n, k_in, g.shape[1])
+        return torch.where(nbr_mask[..., None], gh, 0.0), None, None, None, None
+
+
+def aggregate_to_senders(h: torch.Tensor, nbr_idx: torch.Tensor, nbr_mask: torch.Tensor,
+                         rev_idx: torch.Tensor, rev_mask: torch.Tensor) -> torch.Tensor:
+    """Sum per-slot values ``h [N, K_in, D]`` (keyed by receiver and slot)
+    onto their **sender** nodes -> ``[N, D]``, scatter-free both ways."""
+    return _AggregateToSenders.apply(h, nbr_idx, nbr_mask, rev_idx, rev_mask)
+
+
+def dense_sum(h: torch.Tensor, nbr_mask: torch.Tensor) -> torch.Tensor:
+    """The masked sum over the K axis of ``h [N, K, D]``, in
+    ``torch.float32``, returned at ``h``'s dtype."""
+    return torch.where(nbr_mask[..., None], h, 0.0).to(torch.float32).sum(dim=1).to(h.dtype)

@@ -18,11 +18,22 @@ count sums the edge mask.
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. The wrappers are forward-only;
-K3 takes gradients through :func:`fused_gather_moments_vjp`, a
-``torch.autograd.Function`` around its wrapper with the JAX package's
-backward rule (the sender fold through K1). K4-K7's backward rules are
-queued in ``ROADMAP.md`` (queue 2). Launches are counted in
-``<wrapper>.launches``. Kernel against plain on
+each takes gradients through its ``*_vjp`` twin, a
+``torch.autograd.Function`` around the wrapper with the JAX package's
+backward rule (``_fused_bwd``, ``hydragnn_tpu/ops/fused_mp.py:376-452``)
+applied to its op. The rules run the port's kernels on the card:
+
+| Id | Rule (``*_rule``) | Kernels it launches |
+|----|-------------------|---------------------|
+| K3 | ``dz`` per edge in PyTorch, summed at the senders | K1 |
+| K4 | the kernel itself with the two id arrays swapped | K4 |
+| K5 | the cotangent over ``max(deg, 1)``, then K4 swapped | K4 |
+| K6 | ``d_h``: K6 swapped; ``d_w = h[s] * g[r]`` in PyTorch | K6 |
+| K7 | the edge body recomputed and pulled back by autograd, the node rows folded at the senders and the receivers | K1 (2 or 4) |
+
+An id outside the table gathers a zero row and adds nothing, in the rules
+as in the forwards: a padded edge gets a zero cotangent. Launches are
+counted in ``<wrapper>.launches``, the rules' too. Kernel against plain on
 the card: relative tolerance ``1e-5 * (max |partial sum| + 1)`` (atomics
 add in a run-dependent order); K7 :func:`egnn_tolerance`.
 """
@@ -209,6 +220,12 @@ class _FusedGatherMoments(torch.autograd.Function):
         return d_yj, d_ze, None, None, None, None
 
 
+def _records(*tensors) -> bool:
+    """Whether autograd records a call on ``tensors`` (``None`` allowed)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def fused_gather_moments_vjp(yj: torch.Tensor, senders: torch.Tensor,
                              receivers: torch.Tensor, num_segments: int,
                              edge_mask: torch.Tensor,
@@ -218,8 +235,7 @@ def fused_gather_moments_vjp(yj: torch.Tensor, senders: torch.Tensor,
     ``segment_kernels.segment_sum_vjp``). Returns ``(s, cnt, sq, z)`` as
     the wrapper does, float32 (bf16 ``yj`` and ``ze`` are upcast first)."""
     yj, ze = upcast(yj), upcast(ze)
-    if not (torch.is_grad_enabled()
-            and (yj.requires_grad or (ze is not None and ze.requires_grad))):
+    if not _records(yj, ze):
         return fused_gather_moments(yj, senders, receivers, num_segments, edge_mask, ze)
     out, z = _FusedGatherMoments.apply(
         yj, ze, senders, receivers, num_segments, edge_mask
@@ -354,6 +370,80 @@ def fused_gather_mean(x: torch.Tensor, senders: torch.Tensor,
 fused_gather_mean.launches = 0
 
 
+def fused_gather_sum_rule(g, senders, receivers, num_nodes, edge_mask):
+    """K4's backward rule: ``d_x[s] = sum_{e: snd=s} mask_e * g[r_e]``,
+    which is K4 with the two id arrays swapped (a receiver outside ``[0,
+    S)`` gathers a zero row of ``g``, a sender outside ``[0, N)`` adds
+    nothing). No ``[E, D]`` intermediate; the kernel flushes each run of
+    equal reduce ids with atomics, so the senders' order (unsorted where
+    the edges are grouped by receiver) costs time, not correctness."""
+    return fused_gather_sum(g.contiguous(), receivers, senders, num_nodes, edge_mask)
+
+
+def fused_gather_mean_rule(g_mean, deg, senders, receivers, num_nodes, edge_mask):
+    """K5's backward rule: the mean's cotangent over ``max(deg, 1)``, then
+    :func:`fused_gather_sum_rule`. ``deg`` (the mask summed) carries no
+    gradient."""
+    scaled = g_mean / torch.clamp(deg, min=1.0)
+    return fused_gather_sum_rule(scaled, senders, receivers, num_nodes, edge_mask)
+
+
+class _FusedGatherSum(torch.autograd.Function):
+    """K4 with ``_fused_bwd``'s rule for op ``copy`` (``fused_mp.py:67-69``):
+    :func:`fused_gather_sum_rule`."""
+
+    @staticmethod
+    def forward(ctx, x, senders, receivers, num_segments, edge_mask):
+        ctx.save_for_backward(senders, receivers, edge_mask)
+        ctx.num_nodes = x.shape[0]
+        return fused_gather_sum(x.detach(), senders, receivers, num_segments, edge_mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        senders, receivers, edge_mask = ctx.saved_tensors
+        d_x = fused_gather_sum_rule(g, senders, receivers, ctx.num_nodes, edge_mask)
+        return d_x, None, None, None, None
+
+
+class _FusedGatherMean(torch.autograd.Function):
+    """K5 with ``_fused_bwd``'s rule for op ``copy_count`` (``:72-74``) and
+    the division outside it (``:475-487``): :func:`fused_gather_mean_rule`
+    on the saved degree."""
+
+    @staticmethod
+    def forward(ctx, x, senders, receivers, num_segments, edge_mask):
+        mean, deg = fused_gather_mean(x.detach(), senders, receivers, num_segments, edge_mask)
+        ctx.mark_non_differentiable(deg)
+        ctx.save_for_backward(deg, senders, receivers, edge_mask)
+        ctx.num_nodes = x.shape[0]
+        return mean, deg
+
+    @staticmethod
+    def backward(ctx, g_mean, _g_deg):
+        deg, senders, receivers, edge_mask = ctx.saved_tensors
+        d_x = fused_gather_mean_rule(g_mean, deg, senders, receivers, ctx.num_nodes, edge_mask)
+        return d_x, None, None, None, None
+
+
+def fused_gather_sum_vjp(x, senders, receivers, num_segments, edge_mask):
+    """:func:`fused_gather_sum` (K4) with its backward rule; the wrapper
+    itself where autograd records nothing. float32 out (bf16 ``x`` is
+    upcast first)."""
+    x = upcast(x)
+    if not _records(x):
+        return fused_gather_sum(x, senders, receivers, num_segments, edge_mask)
+    return _FusedGatherSum.apply(x, senders, receivers, num_segments, edge_mask)
+
+
+def fused_gather_mean_vjp(x, senders, receivers, num_segments, edge_mask):
+    """:func:`fused_gather_mean` (K5) with its backward rule: ``(mean,
+    deg)``, float32, ``deg`` without a gradient."""
+    x = upcast(x)
+    if not _records(x):
+        return fused_gather_mean(x, senders, receivers, num_segments, edge_mask)
+    return _FusedGatherMean.apply(x, senders, receivers, num_segments, edge_mask)
+
+
 # ---------------------------------------------------------------------------
 # K6 op "mul" (SchNet)
 # ---------------------------------------------------------------------------
@@ -399,6 +489,45 @@ def fused_gather_weighted_sum(h: torch.Tensor, w: torch.Tensor,
 fused_gather_weighted_sum.launches = 0
 
 
+def fused_gather_weighted_sum_rule(g, h, w, senders, receivers, need_h=True, need_w=True):
+    """K6's backward rule (``_fused_bwd`` for op ``mul``, ``:77-79``):
+    ``d_h`` is K6 with the two id arrays swapped, ``d_h[s] = sum_{e: snd=s}
+    g[r_e] * w[e]``; ``d_w[e] = h[s_e] * g[r_e]`` (the JAX rule's ``d_ef =
+    xs * ge``) in PyTorch, zero where either id is out of range. Returns
+    ``(d_h, d_w)``, ``None`` for one not asked for."""
+    g = g.contiguous()
+    d_h = (fused_gather_weighted_sum(g, w, receivers, senders, h.shape[0])
+           if need_h else None)
+    d_w = _gather_rows(h, senders) * gather_cotangent(g, receivers) if need_w else None
+    return d_h, d_w
+
+
+class _FusedGatherWeightedSum(torch.autograd.Function):
+    """K6 with :func:`fused_gather_weighted_sum_rule`."""
+
+    @staticmethod
+    def forward(ctx, h, w, senders, receivers, num_segments):
+        ctx.save_for_backward(h, w, senders, receivers)
+        return fused_gather_weighted_sum(h.detach(), w.detach(), senders, receivers,
+                                         num_segments)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, senders, receivers = ctx.saved_tensors
+        d_h, d_w = fused_gather_weighted_sum_rule(
+            g, h, w, senders, receivers, *ctx.needs_input_grad[:2])
+        return d_h, d_w, None, None, None
+
+
+def fused_gather_weighted_sum_vjp(h, w, senders, receivers, num_segments):
+    """:func:`fused_gather_weighted_sum` (K6) with its backward rule;
+    float32 out (bf16 ``h`` and ``w`` are upcast first)."""
+    h, w = upcast(h), upcast(w)
+    if not _records(h, w):
+        return fused_gather_weighted_sum(h, w, senders, receivers, num_segments)
+    return _FusedGatherWeightedSum.apply(h, w, senders, receivers, num_segments)
+
+
 # ---------------------------------------------------------------------------
 # K7: op "egnn" (EGNN's edge phase)
 # ---------------------------------------------------------------------------
@@ -427,22 +556,20 @@ def _check_egnn_inputs(y_snd, y_rcv, pos, edge_params, senders, receivers,
         _check_f32(name, p, shape, dev)
 
 
-def fused_egnn_edge_phase_plain(y_snd, y_rcv, pos, edge_params, senders,
-                                receivers, num_segments, edge_mask, ze=None):
-    """Plain PyTorch version of :func:`fused_egnn_edge_phase`: the edge
-    MLP on gathered rows, then one ``index_add_`` of the packed messages at
-    the senders."""
-    _check_egnn_inputs(y_snd, y_rcv, pos, edge_params, senders, receivers,
-                       num_segments, edge_mask, ze)
+def _egnn_messages(xs, xr, pos_s, pos_r, edge_params, mask, ze=None):
+    """K7's edge body on gathered rows (``mask [E, 1]`` float): the packed
+    per-edge message ``[e, (trans,) mask]`` that the kernel sums at the
+    senders. The plain version's and the backward rule's (which pulls its
+    cotangent back through it), as the JAX rule recomputes ``_op_egnn``."""
     w_rad, w2, b2 = edge_params[:3]
-    mask = edge_mask.to(torch.float32)[:, None]
-    coord_diff = _gather_rows(pos, senders) - _gather_rows(pos, receivers)
+    coord_diff = pos_s - pos_r
     radial = (coord_diff * coord_diff).sum(-1, keepdim=True)
-    # the double-where safe sqrt: a zero distance gives 0, never NaN
+    # the double-where safe sqrt: a zero distance gives 0, never NaN, and
+    # a zero gradient
     nonzero = radial > 0
     norm = torch.where(nonzero, torch.sqrt(torch.where(nonzero, radial, 1.0)), 0.0)
     coord_diff = coord_diff / (norm + 1.0)
-    pre = _gather_rows(y_snd, senders) + _gather_rows(y_rcv, receivers) + radial * w_rad
+    pre = xs + xr + radial * w_rad
     if ze is not None:
         pre = pre + ze
     e = torch.relu(torch.relu(pre) @ w2 + b2) * mask
@@ -450,9 +577,22 @@ def fused_egnn_edge_phase_plain(y_snd, y_rcv, pos, edge_params, senders,
         wc0, bc0, wc1 = edge_params[3:]
         cw = torch.tanh(torch.relu(e @ wc0 + bc0) @ wc1)
         trans = torch.clamp(coord_diff * cw, -100.0, 100.0) * mask
-        msg = torch.cat([e, trans, mask], dim=1)
-    else:
-        msg = torch.cat([e, mask], dim=1)
+        return torch.cat([e, trans, mask], dim=1)
+    return torch.cat([e, mask], dim=1)
+
+
+def fused_egnn_edge_phase_plain(y_snd, y_rcv, pos, edge_params, senders,
+                                receivers, num_segments, edge_mask, ze=None):
+    """Plain PyTorch version of :func:`fused_egnn_edge_phase`: the edge
+    MLP on gathered rows, then one ``index_add_`` of the packed messages at
+    the senders."""
+    _check_egnn_inputs(y_snd, y_rcv, pos, edge_params, senders, receivers,
+                       num_segments, edge_mask, ze)
+    msg = _egnn_messages(
+        _gather_rows(y_snd, senders), _gather_rows(y_rcv, receivers),
+        _gather_rows(pos, senders), _gather_rows(pos, receivers), edge_params,
+        edge_mask.to(torch.float32)[:, None], ze,
+    )
     return segment_sum_plain(msg, senders, num_segments)
 
 
@@ -531,3 +671,88 @@ def fused_egnn_edge_phase(y_snd: torch.Tensor, y_rcv: torch.Tensor,
 
 
 fused_egnn_edge_phase.launches = 0
+
+
+def fused_egnn_edge_phase_rule(g, y_snd, y_rcv, pos, edge_params, senders, receivers,
+                               edge_mask, ze=None, needs=None):
+    """K7's backward rule (``_fused_bwd`` for op ``egnn``, ``:97-149``):
+    the edge body recomputed per edge from the saved inputs
+    (:func:`_egnn_messages`), the cotangent of the packed sum gathered at
+    the **senders** (K7's reduce ids; zero out of range) and pulled back by
+    ``torch.autograd.grad``; the node rows' cotangents folded through K1,
+    ``y_snd``'s and ``pos``'s sender half at the senders, ``y_rcv``'s and
+    ``pos``'s receiver half at the receivers. ``pos`` gets its gradient as
+    JAX's ``node_a = [y_snd, pos]`` and ``node_b = [y_rcv, pos]`` do: with
+    ``equivariance`` each layer's ``pos`` feeds the next layer's radial
+    term. A zero distance (a padded edge) goes through the double-where
+    square root: a zero gradient, never NaN.
+
+    ``needs``: which of ``(y_snd, y_rcv, pos, ze, *edge_params)`` want a
+    gradient (default all present). Returns ``(d_y_snd, d_y_rcv, d_pos,
+    d_ze, [d_params])``, ``None`` for each not asked for."""
+    inputs = [y_snd, y_rcv, pos, ze] + list(edge_params)
+    if needs is None:
+        needs = [t is not None for t in inputs]
+    n = y_snd.shape[0]
+    y_snd, y_rcv, pos = y_snd.detach(), y_rcv.detach(), pos.detach()
+    mask = edge_mask.to(torch.float32)[:, None]
+    with torch.enable_grad():
+        leaves = [_gather_rows(y_snd, senders), _gather_rows(y_rcv, receivers),
+                  _gather_rows(pos, senders), _gather_rows(pos, receivers),
+                  None if ze is None else ze.detach()] + [p.detach() for p in edge_params]
+        want = [needs[0], needs[1], needs[2], needs[2]] + list(needs[3:])
+        for t, w in zip(leaves, want):
+            if t is not None:
+                t.requires_grad_(bool(w))
+        xs, xr, pos_s, pos_r, ze_leaf = leaves[:5]
+        msg = _egnn_messages(xs, xr, pos_s, pos_r, leaves[5:], mask, ze_leaf)
+        asked = [t for t, w in zip(leaves, want) if w]
+        grads = iter(torch.autograd.grad(msg, asked, gather_cotangent(g.contiguous(), senders)))
+    d = [next(grads) if w else None for w in want]
+    fold = lambda t, ids: segment_sum(t.contiguous(), ids, n)  # noqa: E731
+    d_y_snd = None if d[0] is None else fold(d[0], senders)
+    d_y_rcv = None if d[1] is None else fold(d[1], receivers)
+    d_pos = None if d[2] is None else fold(d[2], senders) + fold(d[3], receivers)
+    return d_y_snd, d_y_rcv, d_pos, d[4], d[5:]
+
+
+class _FusedEgnnEdgePhase(torch.autograd.Function):
+    """K7 with :func:`fused_egnn_edge_phase_rule`; the edge parameters come
+    last, as many as are given (3 or 6)."""
+
+    @staticmethod
+    def forward(ctx, y_snd, y_rcv, pos, ze, senders, receivers, num_segments, edge_mask,
+                *edge_params):
+        ctx.save_for_backward(y_snd, y_rcv, pos, ze, senders, receivers, edge_mask,
+                              *edge_params)
+        return fused_egnn_edge_phase(
+            y_snd.detach(), y_rcv.detach(), pos.detach(), [p.detach() for p in edge_params],
+            senders, receivers, num_segments, edge_mask,
+            None if ze is None else ze.detach(),
+        )
+
+    @staticmethod
+    def backward(ctx, g):
+        y_snd, y_rcv, pos, ze, senders, receivers, edge_mask, *params = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        d_y_snd, d_y_rcv, d_pos, d_ze, d_params = fused_egnn_edge_phase_rule(
+            g, y_snd, y_rcv, pos, params, senders, receivers, edge_mask, ze,
+            needs=needs[:4] + needs[8:],
+        )
+        return (d_y_snd, d_y_rcv, d_pos, d_ze, None, None, None, None, *d_params)
+
+
+def fused_egnn_edge_phase_vjp(y_snd: torch.Tensor, y_rcv: torch.Tensor,
+                              pos: torch.Tensor, edge_params: Sequence[torch.Tensor],
+                              senders: torch.Tensor, receivers: torch.Tensor,
+                              num_segments: int, edge_mask: torch.Tensor,
+                              ze: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`fused_egnn_edge_phase` (K7) with its backward rule; float32
+    out (bf16 inputs and parameters are upcast first)."""
+    y_snd, y_rcv, pos, ze = upcast(y_snd), upcast(y_rcv), upcast(pos), upcast(ze)
+    edge_params = [upcast(p) for p in edge_params]
+    if not _records(y_snd, y_rcv, pos, ze, *edge_params):
+        return fused_egnn_edge_phase(y_snd, y_rcv, pos, edge_params, senders, receivers,
+                                     num_segments, edge_mask, ze)
+    return _FusedEgnnEdgePhase.apply(y_snd, y_rcv, pos, ze, senders, receivers,
+                                     num_segments, edge_mask, *edge_params)

@@ -77,10 +77,9 @@ def check_cuda_launch(name: str, *tensors: torch.Tensor):
         if t.requires_grad and torch.is_grad_enabled():
             raise NotImplementedError(
                 f"{name}: the kernel wrapper is forward-only (run it under "
-                "torch.inference_mode()). K1-K3 take gradients through "
-                "segment_sum_vjp, segment_moments_vjp and "
-                "fused_gather_moments_vjp; the backward rules of K4-K7 are "
-                "queued in ROADMAP.md, queue 2"
+                "torch.inference_mode()); gradients go through its *_vjp "
+                f"twin ({name}_vjp), the autograd Function with the "
+                "kernel's backward rule"
             )
 
 

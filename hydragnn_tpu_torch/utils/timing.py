@@ -56,9 +56,11 @@ def device_ms(fn, device, iters=20, repeats=5):
     """Device time: ``[min, median, max]`` over ``repeats`` of the mean ms
     per call, with the ``iters`` calls queued behind ``torch.cuda._sleep``
     so that the host cannot set the pace. The sleep is four times what the
-    host took to enqueue the calls; a repeat in which the device reached
-    the first call before the host had queued the last one sleeps four
-    times longer and runs again. ``None`` for a CPU device."""
+    host took to enqueue the calls. A repeat in which the device reached
+    the first call before the host had queued the last one runs again with
+    half the calls (a function of many launches fills the card's launch
+    queue, and the host then waits on the sleep); at one call, with a
+    sleep four times longer. ``None`` for a CPU device."""
     if device.type != "cuda":
         return None
     fn()
@@ -82,6 +84,8 @@ def device_ms(fn, device, iters=20, repeats=5):
         torch.cuda.synchronize()
         if queued:
             out.append(start.elapsed_time(end) / iters)
+        elif iters > 1:
+            iters //= 2
         elif cycles > 100 * SLEEP_CYCLES_PER_S:
             raise RuntimeError("device_ms: the host paces the calls even behind a 100 s sleep")
         else:

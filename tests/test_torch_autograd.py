@@ -1,6 +1,6 @@
-"""Port parity of the gradients: the backward rules of K1, K2 and K3, the
-min/max pass, the losses and ``MaskedBatchNorm`` in training mode, each
-against the JAX package on the same inputs (numpy seeds).
+"""Port parity of the gradients: the backward rules of K1-K7, the min/max
+pass, the losses and ``MaskedBatchNorm`` in training mode, each against the
+JAX package on the same inputs (numpy seeds).
 
 - K1 ``segment_sum_vjp``, K2 ``segment_moments_vjp`` and K3
   ``fused_gather_moments_vjp`` against ``jax.vjp`` of
@@ -10,6 +10,14 @@ against the JAX package on the same inputs (numpy seeds).
   Function runs the plain version forward and its own hand-written
   backward rule, which is what these tests hold (the ``grad_fn`` is the
   Function's).
+- K4 ``fused_gather_sum_vjp``, K5 ``fused_gather_mean_vjp``, K6
+  ``fused_gather_weighted_sum_vjp`` and K7 ``fused_egnn_edge_phase_vjp``
+  against ``jax.vjp`` of the JAX package's wrappers over
+  ``fused_message_reduce`` (ops ``copy``, ``copy_count``, ``mul``,
+  ``egnn``; Pallas in interpret mode, its rule ``_fused_bwd``), with
+  out-of-range senders and receivers and padded edges: every input's
+  gradient, K7's ``pos`` and six parameters included, zero on the
+  out-of-range rows, and finite where a padded edge has zero length.
 - ``segment_minmax_fused`` with exact ties (duplicate edges give equal
   ``z`` at one receiver): both libraries split a max's gradient evenly.
 - ``masked_error`` (mse, mae, rmse, smooth_l1) and
@@ -30,15 +38,23 @@ from hydragnn_tpu.graph import segment_minmax_fused as jax_segment_minmax_fused
 from hydragnn_tpu.models.common import MaskedBatchNorm as JaxMaskedBatchNorm
 from hydragnn_tpu.models.common import masked_error as jax_masked_error
 from hydragnn_tpu.models.common import masked_gaussian_nll as jax_masked_gaussian_nll
+from hydragnn_tpu.ops import fused_egnn_edge_phase as jax_fused_egnn_edge_phase
+from hydragnn_tpu.ops import fused_gather_mean as jax_fused_gather_mean
 from hydragnn_tpu.ops import fused_gather_moments as jax_fused_gather_moments
+from hydragnn_tpu.ops import fused_gather_sum as jax_fused_gather_sum
+from hydragnn_tpu.ops import fused_gather_weighted_sum as jax_fused_gather_weighted_sum
 from hydragnn_tpu.ops import segment_moments as jax_segment_moments
 from hydragnn_tpu.ops import segment_sum_onehot as jax_segment_sum
 
 from hydragnn_tpu_torch.graph import segment_minmax_fused
 from hydragnn_tpu_torch.models.common import MaskedBatchNorm, masked_error, masked_gaussian_nll
 from hydragnn_tpu_torch.ops import (
+    fused_egnn_edge_phase_vjp,
+    fused_gather_mean_vjp,
     fused_gather_moments,
     fused_gather_moments_vjp,
+    fused_gather_sum_vjp,
+    fused_gather_weighted_sum_vjp,
     launch_counts,
     segment_moments,
     segment_moments_vjp,
@@ -179,6 +195,106 @@ def pytest_fused_gather_moments_vjp_without_z_cotangent():
     s, _, sq, _ = fused_gather_moments_vjp(y, _t(snd), _t(rcv), n, _t(mask))
     ((s * _t(w)).sum() + sq.sum()).backward()
     _close(y.grad, want)
+
+
+@pytest.mark.parametrize("d", [1, 5])
+@pytest.mark.parametrize("op", ["copy", "copy_count", "mul"])
+def pytest_fused_gather_rules_match_jax(op, d):
+    """K4, K5 and K6's rules: ``x``'s (``h``'s and ``w``'s) gradient; an
+    out-of-range sender's edge gives nothing back, an out-of-range
+    receiver's cotangent reads zero, a masked edge adds nothing."""
+    rng = np.random.default_rng(40 + d + 3 * len(op))
+    n, e = 13, 80
+    x, snd, rcv, mask, _ = _moments_case(rng, n, e, d, False)
+    w = rng.standard_normal((e, d)).astype(np.float32) * mask[:, None]
+    g = rng.standard_normal((n, d)).astype(np.float32)
+    g_deg = rng.standard_normal((n, 1)).astype(np.float32)  # no gradient either side
+    ids = (jnp.asarray(snd), jnp.asarray(rcv))
+    if op == "copy":
+        jfn = lambda a: jax_fused_gather_sum(a, *ids, n, jnp.asarray(mask), interpret=True)  # noqa: E731
+        fn, args, cots = fused_gather_sum_vjp, (x,), (g,)
+    elif op == "copy_count":
+        jfn = lambda a: jax_fused_gather_mean(a, *ids, n, jnp.asarray(mask), interpret=True)  # noqa: E731
+        fn, args, cots = fused_gather_mean_vjp, (x,), (g, g_deg)
+    else:
+        jfn = lambda a, b: jax_fused_gather_weighted_sum(a, b, *ids, n, interpret=True)  # noqa: E731
+        fn, args, cots = fused_gather_weighted_sum_vjp, (x, w), (g,)
+    out, vjp = jax.vjp(jfn, *(jnp.asarray(a) for a in args))
+    want = vjp(tuple(jnp.asarray(c) for c in cots) if len(cots) > 1 else jnp.asarray(cots[0]))
+
+    inputs = [_t(a, grad=True) for a in args]
+    if op == "mul":
+        got = fn(*inputs, _t(snd), _t(rcv), n)
+    else:
+        got = fn(*inputs, _t(snd), _t(rcv), n, _t(mask))
+    got = got if isinstance(got, tuple) else (got,)
+    out = out if isinstance(out, tuple) else (out,)
+    assert type(got[0].grad_fn).__name__.startswith("_FusedGather")
+    for a, b in zip(got, out):
+        _close(a.detach(), b)
+    torch.autograd.backward(got[:1], [_t(cots[0])])
+    for t, wnt in zip(inputs, want):
+        _close(t.grad, wnt)
+    assert np.all(inputs[0].grad.numpy()[n - 1] == 0.0) or op == "mul"  # padded edges
+    if op == "mul":
+        dw = inputs[1].grad.numpy()
+        assert np.all(dw[[5, 9]] == 0.0)  # out-of-range senders gather zero
+        assert np.all(dw[[3, 7, 11]] == 0.0)  # out-of-range receivers read no cotangent
+
+
+def _egnn_case(rng, n, e, h, coord):
+    y_snd, snd, rcv, mask, ze = _moments_case(rng, n, e, h, True)
+    y_rcv = rng.standard_normal((n, h)).astype(np.float32)
+    pos = rng.standard_normal((n, 3)).astype(np.float32) * 2.0
+    pos[n - 1] = 0.0  # the padding node: padded edges have zero length
+    rcv[-5:] = n - 1
+    lim = 1.0 / np.sqrt(h)
+    shapes = [(h,), (h, h), (h,)] + ([(h, h), (h,), (h, 1)] if coord else [])
+    params = [(rng.uniform(-lim, lim, s) * (2.0 if i < 3 else 1.0)).astype(np.float32)
+              for i, s in enumerate(shapes)]
+    return y_snd, y_rcv, pos, params, snd, rcv, mask, ze
+
+
+@pytest.mark.parametrize("h", [4, 9])
+@pytest.mark.parametrize("coord", [False, True])
+@pytest.mark.parametrize("with_ze", [False, True])
+def pytest_fused_egnn_rule_matches_jax(h, coord, with_ze):
+    """K7's rule: the gradients of ``y_snd``, ``y_rcv``, ``pos`` (through
+    both the senders' and the receivers' rows), ``ze`` and every edge
+    parameter, against ``jax.vjp`` of the JAX wrapper; the padded edges'
+    zero lengths give a finite (zero) gradient."""
+    rng = np.random.default_rng(60 + h + 2 * coord + 4 * with_ze)
+    n, e = 13, 80
+    y_snd, y_rcv, pos, params, snd, rcv, mask, ze = _egnn_case(rng, n, e, h, coord)
+    width = h + (4 if coord else 1)
+    g = rng.standard_normal((n, width)).astype(np.float32)
+    np_args = [y_snd, y_rcv, pos] + ([ze] if with_ze else []) + params
+    k = 4 if with_ze else 3
+
+    def jfn(*a):
+        return jax_fused_egnn_edge_phase(
+            a[0], a[1], a[2], list(a[k:]), jnp.asarray(snd), jnp.asarray(rcv), n,
+            jnp.asarray(mask), ze=a[3] if with_ze else None, interpret=True)
+
+    out, vjp = jax.vjp(jfn, *(jnp.asarray(a) for a in np_args))
+    want = vjp(jnp.asarray(g))
+
+    inputs = [_t(a, grad=True) for a in np_args]
+    got = fused_egnn_edge_phase_vjp(
+        inputs[0], inputs[1], inputs[2], inputs[k:], _t(snd), _t(rcv), n, _t(mask),
+        ze=inputs[3] if with_ze else None)
+    assert type(got.grad_fn).__name__ == "_FusedEgnnEdgePhaseBackward"
+    _close(got.detach(), out)
+    got.backward(_t(g))
+    for name, t, wnt in zip(["y_snd", "y_rcv", "pos", "ze"][:k] + ["param"] * len(params),
+                            inputs, want):
+        assert bool(torch.isfinite(t.grad).all()), name
+        scale = max(1.0, float(np.abs(np.asarray(wnt)).max()))
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(wnt), rtol=RTOL,
+                                   atol=ATOL * scale, err_msg=name)
+    assert float(inputs[2].grad.abs().max()) > 0  # pos gets its gradient
+    # the senders' rows of edges whose sender is out of range get nothing
+    assert np.all(inputs[0].grad.numpy()[n - 1] == 0.0)
 
 
 def pytest_vjp_functions_take_the_wrapper_without_grad():

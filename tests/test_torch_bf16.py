@@ -257,19 +257,20 @@ def _record(losses, model, start):
     }
 
 
-def _kinds(run):
-    """``{kind: {name: tensor}}``, the cancelled biases a kind of their own."""
+def _kinds(run, cancelled=_null_space):
+    """``{kind: {name: tensor}}``, the cancelled biases (``cancelled(name)``)
+    a kind of their own."""
     out = {"loss": run["loss"], "update": {}, "cancelled": {}, "stat": run["stat"]}
     for n, t in run["update"].items():
-        out["cancelled" if _null_space(n) else "update"][n] = t
+        out["cancelled" if cancelled(n) else "update"][n] = t
     return out
 
 
-def trajectories(mode, seed):
+def trajectories(mode, seed, cfg=None):
     """The exact (float64), JAX bf16 and port bf16 trajectories of one
-    mode from one set of weights."""
+    mode from one set of weights (``cfg``: multi-head PNA unless given)."""
     graphs = _graphs(seed)
-    cfg = arch()
+    cfg = arch() if cfg is None else cfg
     host, batch = _trajectory_batches(graphs, mode)
     saved = {k: os.environ.pop(k, None) for k in ("HYDRAGNN_AGG", "HYDRAGNN_PALLAS")}
     try:
@@ -301,11 +302,13 @@ def trajectories(mode, seed):
     return exact, jrun, port
 
 
-def hold(exact, jrun, port, factor):
+def hold(exact, jrun, port, factor, cancelled=_null_space):
     """Per kind: ``(scale, level, port's worst / scale)`` and the
     tensors outside ``(factor * level + FLOOR) * scale``; the need is
-    ``(worst - FLOOR) / level``."""
-    ex, jx, pt = _kinds(exact), _kinds(jrun), _kinds(port)
+    ``(worst - FLOOR) / level``. ``cancelled``: which parameters' updates
+    are the BatchNorm-cancelled kind."""
+    ex, jx, pt = (_kinds(r, cancelled) for r in (exact, jrun, port))
+    ex = {k: v for k, v in ex.items() if v}  # a stack may have no statistics
     top = {k: max(float(t.abs().max()) for t in v.values()) for k, v in ex.items()}
     top["cancelled"] = top["update"]  # exact updates ~0: rounding noise
     rows, bad = {}, []

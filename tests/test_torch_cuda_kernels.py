@@ -32,6 +32,16 @@ through K1, within ``atomic_tolerance`` of ``|dz|`` summed there;
 elementwise gradients within ``1e-6 * (max |grad| + 1)``), and at the
 main path's largest batch (n_pad 5768, e_pad 69120, hidden 256).
 
+The backward rules of K4-K7 (``fused_gather_sum_vjp``,
+``fused_gather_mean_vjp``, ``fused_gather_weighted_sum_vjp``,
+``fused_egnn_edge_phase_vjp``) are held the same way: K4's and K5's (K4
+with the ids swapped, K5's cotangent over ``max(deg, 1)`` first) on the
+K4/K5 id patterns at D = 1, 64 and 256; K6's ``d_h`` (K6 swapped) on its
+patterns at D = 1 to 256 and ``d_w`` (a product, exact up to one rounding);
+K7's ``d_y_snd``, ``d_y_rcv``, ``d_pos`` (``pos`` requiring grad, padded
+edges of zero length), ``d_ze`` and the six parameters at H = 8, 33, 128
+and 256, within ``egnn_tolerance`` of each gradient.
+
 K1's run reduction is held on the id patterns that stress it (all ids
 equal; runs that cross a thread's, a block's and a tile's boundary; fully
 unsorted; out-of-range ids in the middle of a run) at D = 1, 3, 50, 256
@@ -65,14 +75,18 @@ from hydragnn_tpu_torch.graph import collate_graphs, pad_sizes_for
 from hydragnn_tpu_torch.ops import (
     fused_egnn_edge_phase,
     fused_egnn_edge_phase_plain,
+    fused_egnn_edge_phase_vjp,
     fused_gather_mean,
     fused_gather_mean_plain,
+    fused_gather_mean_vjp,
     fused_gather_moments,
     fused_gather_moments_plain,
     fused_gather_sum,
     fused_gather_sum_plain,
+    fused_gather_sum_vjp,
     fused_gather_weighted_sum,
     fused_gather_weighted_sum_plain,
+    fused_gather_weighted_sum_vjp,
     fused_gather_moments_vjp,
     segment_moments,
     segment_moments_plain,
@@ -588,25 +602,34 @@ def pytest_fused_egnn_edge_phase_kernel_widths(card, h, coord, one_sender):
 
 
 def pytest_cuda_kernels_are_forward_only(card):
+    """A wrapper called with grad on an input that requires it raises and
+    names its ``*_vjp`` twin, which takes the gradient through the rule."""
     data = torch.zeros((8, 4), device=card, requires_grad=True)
     ids = torch.zeros(8, dtype=torch.int32, device=card)
     mask = ids > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="segment_sum_vjp"):
         segment_sum(data, ids, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="forward-only"):
         segment_moments(data, ids, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="forward-only"):
         fused_gather_moments(data, ids, ids, 2, mask)
-    for fn in (fused_gather_sum, fused_gather_mean):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for fn, vjp in ((fused_gather_sum, fused_gather_sum_vjp),
+                    (fused_gather_mean, fused_gather_mean_vjp)):
+        with pytest.raises(NotImplementedError, match=f"{fn.__name__}_vjp"):
             fn(data, ids, ids, 2, mask)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_gather_weighted_sum(data, torch.zeros((8, 4), device=card), ids, ids, 2)
+        out = vjp(data, ids, ids, 2, mask)
+        (out[0] if isinstance(out, tuple) else out).sum().backward()
+    w = torch.zeros((8, 4), device=card)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        fused_gather_weighted_sum(data, w, ids, ids, 2)
+    fused_gather_weighted_sum_vjp(data, w, ids, ids, 2).sum().backward()
     params = [torch.zeros(4, device=card), torch.zeros((4, 4), device=card),
               torch.zeros(4, device=card)]
     pos = torch.zeros((8, 3), device=card)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="forward-only"):
         fused_egnn_edge_phase(data, data, pos, params, ids, ids, 2, mask)
+    fused_egnn_edge_phase_vjp(data, data, pos, params, ids, ids, 2, mask).sum().backward()
+    assert data.grad is not None
     with torch.inference_mode():  # parameters that require grad, where none is recorded
         fused_egnn_edge_phase(data, data, pos, params, ids, ids, 2, mask)
     with pytest.raises(ValueError, match="contiguous"):
@@ -838,3 +861,97 @@ def pytest_pna_dense_bf16_step_on_the_card(card):
     rows, bad, _ = cs.hold_step_against_cpu(cs.snapshot(model), float(met["loss"]), cpu, exact,
                                             bf16=True)
     assert rows and not bad, bad
+
+
+# ---------------------------------------------------------------------------
+# the backward rules of K4-K7 on the card against the same Functions on the
+# CPU (plain forward, the same rule on the plain versions)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d", [1, 64, 256])
+@pytest.mark.parametrize("pattern", COPY_PATTERNS)
+def pytest_gather_sum_mean_rules_on_the_card(card, pattern, d):
+    """K4's rule (K4 with the ids swapped) and K5's (the cotangent over
+    ``max(deg, 1)``, then the same): ``x``'s gradient within
+    ``atomic_tolerance`` of the swapped fold of ``|g|``; each backward one
+    K4 launch."""
+    x, snd, rcv, mask, s = _copy_case(card, pattern, d)
+    rng = np.random.default_rng(d + 11)
+    g = torch.from_numpy(rng.standard_normal((s, d)).astype(np.float32)).to(card)
+    for vjp, scale in ((fused_gather_sum_vjp, False), (fused_gather_mean_vjp, True)):
+        def fn(t, i, j, m, vjp=vjp):
+            out = vjp(t, i, j, s, m)
+            return out[0] if scale else out  # K5's deg takes no gradient
+
+        before = fused_gather_sum.launches
+        _, (got,) = _vjp_run(lambda t: fn(t, snd, rcv, mask), [x], [0], [g])
+        torch.cuda.synchronize()
+        assert fused_gather_sum.launches == before + 1 + (not scale)  # the rule (and K4 forward)
+        cpu = _cpu([snd, rcv, mask])
+        _, (want,) = _vjp_run(lambda t: fn(t, *cpu), [x.cpu()], [0], [g.cpu()])
+        cot = g.cpu()
+        if scale:
+            deg = fused_gather_mean_plain(x.cpu(), *cpu[:2], s, cpu[2])[1]
+            cot = cot / torch.clamp(deg, min=1.0)
+        tol = atomic_tolerance(fused_gather_sum_plain(cot.abs(), cpu[1], cpu[0], x.shape[0],
+                                                      cpu[2]))
+        assert got.shape == x.shape
+        assert float((got.cpu() - want).abs().max()) <= tol, vjp.__name__
+
+
+@pytest.mark.parametrize("d", MUL_WIDTHS)
+@pytest.mark.parametrize("pattern", COPY_PATTERNS)
+def pytest_weighted_sum_rule_on_the_card(card, pattern, d):
+    """K6's rule: ``d_h`` (K6 with the ids swapped) within
+    ``atomic_tolerance``, ``d_w = h[s] * g[r]`` within one rounding."""
+    h, snd, rcv, mask, s = _copy_case(card, pattern, d)
+    w = _weights(card, mask, d, d + 4)
+    rng = np.random.default_rng(d + 12)
+    g = torch.from_numpy(rng.standard_normal((s, d)).astype(np.float32)).to(card)
+    fn = lambda a, b, i, j: fused_gather_weighted_sum_vjp(a, b, i, j, s)  # noqa: E731
+    before = fused_gather_weighted_sum.launches
+    _, (d_h, d_w) = _vjp_run(lambda a, b: fn(a, b, snd, rcv), [h, w], [0, 1], [g])
+    torch.cuda.synchronize()
+    assert fused_gather_weighted_sum.launches == before + 2  # forward and d_h
+    cpu = _cpu([snd, rcv])
+    _, (want_h, want_w) = _vjp_run(lambda a, b: fn(a, b, *cpu), [h.cpu(), w.cpu()], [0, 1],
+                                   [g.cpu()])
+    tol = atomic_tolerance(fused_gather_weighted_sum_plain(g.cpu().abs(), w.cpu().abs(), cpu[1],
+                                                           cpu[0], h.shape[0]))
+    assert float((d_h.cpu() - want_h).abs().max()) <= tol
+    assert float((d_w.cpu() - want_w).abs().max()) <= 1e-6 * (float(want_w.abs().max()) + 1.0)
+
+
+@pytest.mark.parametrize("h", [8, 33, 128, 256])
+@pytest.mark.parametrize("coord", [False, True])
+def pytest_egnn_rule_on_the_card(card, h, coord):
+    """K7's rule: every input's gradient (``pos``'s through both its
+    sender and receiver rows) within ``egnn_tolerance`` of the CPU's,
+    finite where a padded edge has zero length; its folds are K1 launches
+    (two for the node rows, two more for ``pos``)."""
+    e, s = 1001, 61
+    y_snd, y_rcv, pos, params, snd, rcv, mask, ze = _egnn_case(
+        card, e, h, s, coord, one_sender=False, seed=h + 3 * coord)
+    rcv = torch.where(mask, rcv, s - 1)
+    snd = torch.where(mask, snd, s - 1)  # padded edges: the padding node, zero length
+    rng = np.random.default_rng(h)
+    g = torch.from_numpy(rng.standard_normal((s, h + (4 if coord else 1))).astype(np.float32))
+    inputs = [y_snd, y_rcv, pos, ze] + params
+    grad_inputs = list(range(len(inputs)))
+
+    def fn(snd, rcv, mask):
+        return lambda a, b, p, z, *ps: fused_egnn_edge_phase_vjp(a, b, p, list(ps), snd, rcv, s,
+                                                                 mask, ze=z)
+
+    before = (fused_egnn_edge_phase.launches, segment_sum.launches)
+    outs, grads = _vjp_run(fn(snd, rcv, mask), inputs, grad_inputs, [g.to(card)])
+    torch.cuda.synchronize()
+    assert (fused_egnn_edge_phase.launches, segment_sum.launches) == (before[0] + 1, before[1] + 4)
+    ref_outs, ref_grads = _vjp_run(fn(*_cpu([snd, rcv, mask])), _cpu(inputs), grad_inputs, [g])
+    assert float((outs[0].cpu() - ref_outs[0]).abs().max()) <= egnn_tolerance(ref_outs[0])
+    names = ["y_snd", "y_rcv", "pos", "ze"] + [f"param {i}" for i in range(len(params))]
+    for name, got, want in zip(names, grads, ref_grads):
+        assert bool(torch.isfinite(got).all()), name
+        assert float((got.cpu() - want).abs().max()) <= egnn_tolerance(want), name
+    assert float(ref_grads[2].abs().max()) > 0  # pos gets its gradient

@@ -8,16 +8,21 @@ package's.
   forward and ``jax.vjp``, in f32 (rtol 1e-5, atol 1e-6): random data with
   empty receivers; exact ties, whose gradient both split evenly; and bf16
   inputs on a 1/8 grid, where every sum is exact and so are the results.
-- PNA's dense forward and parameter gradients against the JAX dense branch
-  in f32 (forward rtol 1e-4 / atol 1e-5; gradients at
-  ``test_torch_train.py``'s rtol 1e-4 / atol 1e-5 of the tensor's max),
-  with and without edge features, and against the port's own ``fused``
-  branch at rtol 2e-4 / atol 2e-5 (``tests/test_dense_agg.py``'s bound
-  between the JAX branches).
+- ``dense_sum`` and ``aggregate_to_senders`` (the sum at the senders
+  through the reverse lists, whose backward gathers through the forward
+  lists) against JAX's, forward and ``jax.vjp``, in f32 and exactly on a
+  bf16 grid.
+- The dense forward and parameter gradients of PNA, GIN, SAGE, SchNet and
+  EGNN against the JAX dense branch in f32 (forward rtol 1e-4 / atol
+  1e-5; gradients at ``test_torch_train.py``'s rtol 1e-4 / atol 1e-5 of
+  the tensor's max), with and without edge features (SchNet's edge
+  lengths, EGNN's encoded ``edge_attr``) and the coordinate updates, and
+  against the port's own ``fused`` branch at rtol 2e-4 / atol 2e-5
+  (``tests/test_dense_agg.py``'s bound between the JAX branches).
 - ``collate_for_layout``, ``plan_from_samples(need_neighbors=True)``,
   ``needs_dense_neighbors`` and the static policy against JAX's; the lists
-  travel in ``GraphBatch.to``'s one staged buffer; the stacks without a
-  dense branch in the port refuse a batch that carries the lists.
+  travel in ``GraphBatch.to``'s one staged buffer; a stack without a
+  dense branch refuses a batch that carries the lists.
 """
 
 import dataclasses
@@ -47,6 +52,7 @@ from hydragnn_tpu_torch.ops import dense_agg as dense
 from hydragnn_tpu_torch.serve import plan_from_samples
 
 from test_torch_gin_sage import arch as family_arch
+from test_torch_gin_sage import jax_variables as family_variables
 from test_torch_pna import arch, jax_variables, samples
 from test_torch_serve import PLAN_SIZES, _graphs
 
@@ -188,6 +194,44 @@ def pytest_dense_minmax_splits_tied_gradients_as_jax():
     np.testing.assert_allclose(x.grad.numpy().ravel(), [0.0, 1 / 3, 1 / 3, 1 / 3])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def pytest_dense_sum_and_aggregate_to_senders_match_jax(dtype):
+    """Forward and ``jax.vjp`` of both (``aggregate_to_senders``'s backward
+    is a gather through ``nbr_idx``, masked); bf16 values on a 1/8 grid,
+    where every sum is exact, agree to the bit."""
+    lists, n = _lists(12)
+    t = {k: torch.from_numpy(v) for k, v in lists.items()}
+    j = {k: jnp.asarray(v) for k, v in lists.items()}
+    k_in = lists["nbr_idx"].shape[1]
+    rng = np.random.default_rng(13)
+    h = (rng.integers(-16, 17, (n, k_in, 3)) / 8.0).astype(np.float32)
+    g_sum, g_snd = ((rng.integers(-16, 17, (n, 3)) / 8.0).astype(np.float32) for _ in range(2))
+    tdt, jdt = (torch.bfloat16, jnp.bfloat16) if dtype == "bfloat16" else (torch.float32, jnp.float32)
+
+    def jfn(x):
+        return (jdense.dense_sum(x, j["nbr_mask"]),
+                jdense.aggregate_to_senders(x, j["nbr_idx"], j["nbr_mask"], j["rev_idx"],
+                                            j["rev_mask"]))
+
+    jouts, vjp = jax.vjp(jfn, jnp.asarray(h).astype(jdt))
+    (jgrad,) = vjp((jnp.asarray(g_sum).astype(jdt), jnp.asarray(g_snd).astype(jdt)))
+    x = torch.from_numpy(h).to(tdt).requires_grad_(True)
+    outs = (dense.dense_sum(x, t["nbr_mask"]),
+            dense.aggregate_to_senders(x, t["nbr_idx"], t["nbr_mask"], t["rev_idx"],
+                                       t["rev_mask"]))
+    assert type(outs[1].grad_fn).__name__ == "_AggregateToSendersBackward"
+    torch.autograd.backward(outs, [torch.from_numpy(g).to(tdt) for g in (g_sum, g_snd)])
+    for got, want in zip(outs + (x.grad,), jouts + (jgrad,)):
+        assert str(got.dtype).replace("torch.", "") == str(want.dtype)
+        np.testing.assert_allclose(got.detach().float().numpy(), np.asarray(want, np.float32),
+                                   rtol=OP_RTOL, atol=OP_ATOL)
+    # the sum at the senders equals index_add_ of every real slot at its sender
+    real = np.nonzero(lists["nbr_mask"])
+    want = torch.zeros((n, 3)).index_add_(
+        0, torch.from_numpy(lists["nbr_idx"][real]).long(), torch.from_numpy(h[real]))
+    torch.testing.assert_close(outs[1].detach().float(), want, rtol=OP_RTOL, atol=OP_ATOL)
+
+
 def pytest_dense_ops_are_exact_on_a_bf16_grid():
     """bf16 values on a 1/8 grid: every sum, square and mean the ops take
     is exact in f32, so the port and JAX agree to the bit, the outputs at
@@ -270,6 +314,57 @@ def pytest_pna_dense_matches_jax_dense_and_port_fused(edge_dim):
                                    atol=ATOL * max(1.0, np.abs(w).max()), err_msg=name)
         np.testing.assert_allclose(grads["dense"][name], grads["fused"][name], rtol=BRANCH_RTOL,
                                    atol=BRANCH_ATOL * max(1.0, np.abs(w).max()), err_msg=name)
+
+
+STACK_CASES = [
+    # model_type, equivariance, edge_dim
+    ("GIN", False, None),
+    ("SAGE", False, None),
+    ("SchNet", True, None),
+    ("SchNet", False, 1),
+    ("EGNN", True, 1),
+    ("EGNN", False, None),
+]
+
+
+@pytest.mark.parametrize("model_type,equivariance,edge_dim", STACK_CASES)
+def pytest_stack_dense_branch_matches_jax_dense_and_port_fused(model_type, equivariance,
+                                                               edge_dim):
+    cfg = family_arch(model_type, equivariance=equivariance, edge_dim=edge_dim)
+    graphs = samples(seed=4, with_edge_attr=edge_dim is not None)
+    jbatch, batch = _dense_pair(graphs, cfg)
+    jmodel = jax_create_model_config(cfg)
+    variables = family_variables(jmodel, jbatch)
+    stats = {"batch_stats": variables["batch_stats"]} if "batch_stats" in variables else {}
+
+    def jloss(params):
+        out = jmodel.apply({"params": params, **stats}, jbatch, train=False)
+        return _loss(out), out
+
+    (_, ref), jgrads = jax.value_and_grad(jloss, has_aux=True)(variables["params"])
+    outs, grads = {}, {}
+    for name, b in (("dense", batch), ("fused", dataclasses.replace(batch, extras={}))):
+        model = create_model_config(cfg, device="cpu", aggregation="fused")
+        load_flax_variables(model, variables)
+        out = model(b)
+        _loss(out).backward()
+        outs[name] = [o.detach().numpy() for o in out]
+        grads[name] = {k: p.grad.numpy() for k, p in model.named_parameters()}
+
+    masks = (batch.graph_mask.numpy(), batch.node_mask.numpy())
+    for m, got, fused, want in zip(masks, outs["dense"], outs["fused"], ref):
+        np.testing.assert_allclose(got[m], np.asarray(want)[m], rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(got[m], fused[m], rtol=BRANCH_RTOL, atol=BRANCH_ATOL)
+    want_model = create_model_config(cfg, device="cpu")
+    load_flax_variables(want_model, {"params": jax.tree_util.tree_map(np.asarray, jgrads),
+                                     **stats})
+    for name, w in want_model.named_parameters():
+        w = w.detach().numpy()
+        scale = max(1.0, np.abs(w).max())
+        np.testing.assert_allclose(grads["dense"][name], w, rtol=RTOL, atol=ATOL * scale,
+                                   err_msg=name)
+        np.testing.assert_allclose(grads["dense"][name], grads["fused"][name],
+                                   rtol=BRANCH_RTOL, atol=BRANCH_ATOL * scale, err_msg=name)
 
 
 def pytest_gather_backward_is_the_reverse_gather():
@@ -361,11 +456,18 @@ def pytest_the_lists_travel_in_the_one_staged_buffer():
 
 @pytest.mark.parametrize("model_type", ["GIN", "SAGE", "SchNet", "EGNN"])
 def pytest_stacks_without_a_dense_branch_refuse_the_lists(model_type):
-    """The JAX package's GIN, SAGE, SchNet and EGNN take their dense
-    branches for such a batch; the port has none yet, and ignoring the
-    lists would compute on a path the JAX package does not take."""
+    """Every ported stack now takes its dense branch for a batch that
+    carries the lists, as the JAX package's does; a stack without one
+    (``dense_branch`` False, as a stack ported later starts) refuses such a
+    batch, since ignoring the lists would compute on a path the JAX
+    package does not take."""
     batch = dense.attach_neighbor_lists(collate_graphs(samples(), *PADS))
     model = create_model_config(family_arch(model_type), device="cpu")
+    assert model.dense_branch
+    with torch.inference_mode():
+        model(batch)
+    without = type("NoDenseBranch", (type(model),), {"dense_branch": False})
+    model.__class__ = without
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model(batch)
     with torch.inference_mode():
