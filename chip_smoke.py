@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # on a machine with a CUDA card
     python3 chip_smoke.py --cpu-rehearsal  # tiny size, plain versions, CPU
+    python3 chip_smoke.py --step1-bucket   # the last four's step 1 on the smallest bucket
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -17,9 +18,12 @@ Phases, in order; any failure raises and exits non-zero:
    the result against the plain PyTorch version on the same inputs
    (tolerance ``1e-5 * (max |partial sum| + 1)``: atomics add in a
    run-dependent order; K7 ``1e-4 * (max |out| + 1)``: its two 256-term
-   dot products per edge also sum in another order). K1 runs at three
-   shapes: the pool, the segment mode's sum at the receivers, and that
-   sum at K6's 50 columns; K6 at its served 50 filters and at 256. Times,
+   dot products per edge also sum in another order). K1 runs at five
+   shapes: the pool, the segment mode's sum at the receivers, that sum at
+   K6's 50 columns, GAT's packed numerator and denominator ``[E+N, 6 *
+   257]`` (an odd width: K1's scalar path) and DimeNet's triplets ``[T,
+   64]`` onto their edges (the sorted ``trip_ji``, the padded tail at edge
+   0); K6 at its served 50 filters and at 256. Times,
    with CUDA events: ``ms``, the call (20 calls back to back, so the
    host's work per call can set the pace; the median of 5 such windows,
    taken in turns), for the kernel, its plain version and the one PyTorch
@@ -31,10 +35,10 @@ Phases, in order; any failure raises and exits non-zero:
    median and max of 5 repeats), for the kernel and the
    library call. Then samples the SM clock and power draw.
 4. Serve: bench.py's MXU-scale row for each of PNA, GIN, SAGE, SchNet and
-   EGNN (hidden 256, 3 conv layers, a graph head and a node head of
-   64-wide layers, ``benchmarks/model_bench.py:_arch``; random weights from
+   EGNN (and the last four stacks, below) (hidden 256, 3 conv layers, a
+   graph head and a node head of 64-wide layers, ``benchmarks/model_bench.py:_arch``; random weights from
    a seed, non-trivial BatchNorm statistics where the stack has any)
-   served by ``InferenceServer`` to 320 molecule-sized graphs (80-90
+   served by ``InferenceServer`` to 128 molecule-sized graphs (80-90
    atoms, 12 edges per atom) from four threads, once per aggregation mode.
    Launch counters are zeroed just before each run and read just after;
    every kernel of that family's and mode's path must have launched as
@@ -42,7 +46,8 @@ Phases, in order; any failure raises and exits non-zero:
    of the model (the plain versions) run on the graphs of its batch,
    packed into the same bucket. One full batch of each run is broken down
    on the device.
-5. Train: bench.py's MXU-scale PNA row (as in phase 4; seeded targets, a
+5. Train: bench.py's MXU-scale PNA row (as in phase 4, at 2 conv layers,
+   ``FIVE_TRAIN_LAYERS``; seeded targets, a
    graph target ``[1]`` and a node target ``[n, 1]`` per its
    ``output_dim``) trained through ``Trainer`` (``init_state`` ->
    ``put_batch`` -> ``train_step`` with AdamW at lr 1e-3 -> ``eval_step``)
@@ -70,7 +75,11 @@ Phases, in order; any failure raises and exits non-zero:
    witnesses'; ``factor`` ``F32_FACTOR`` or ``BF16_FACTOR``), and every
    updated
    parameter within the serve bound plus what AdamW's first step makes of
-   the gradient's error (:func:`hold_step_against_cpu`). The profiled
+   the gradient's error (:func:`hold_step_against_cpu`). An f32 step 1
+   that fails, and crossed at most ``KINK_FLIPS_MAX`` ReLU kinks within
+   float32's reach of the exact input (:func:`kink_flips`), is held again
+   against the exact step with those derivatives on the card's side
+   (``relu_kinks`` in its ``train_check`` line). The profiled
    step's device time is split into forward, backward and optimizer
    (:func:`split_trace`). One ``{"train": ...}`` line per run.
    Then the JAX package's headline, ``MXU_HEADLINE``, through the port's
@@ -80,6 +89,19 @@ Phases, in order; any failure raises and exits non-zero:
    limit. PNA is also served once more in phase 4 on a plan whose batches
    carry the dense lists (``plan_from_samples(need_neighbors=True)``);
    building the lists is host work, in ``pack_ms_host``.
+   The last four stacks (:data:`NEW_FAMILIES`) at their bench rows (GAT
+   and MFC hidden 256, CGCNN ``input_dim`` 256 on graphs with 256
+   features, DimeNet hidden 128): served on the segment plan (DimeNet's
+   with the triplet tables, ``need_triplets``), GAT, MFC and DimeNet also
+   on the dense plan (DimeNet's with the slot tables); trained in segment
+   f32, dense f32 and dense bf16 (1 + 8 steps; GAT with its attention
+   dropout at 0, so that step 1 can be held against the CPU), step 1 held
+   as above (with f32 witnesses in both graph orders) on the training
+   batch's first ``NEW_STEP1_GRAPHS`` graphs (``--step1-bucket``: on the
+   plan's smallest bucket), peak device memory printed; GAT's dropout held on the card
+   apart (:func:`phase_dropout`); their ``MXU_ROWS`` through
+   ``bench_model``. Every forward launches K1 once a layer (DimeNet twice)
+   besides the pool in segment mode, and only the pool on the lists.
 6. Prints one JSON line per kernel case, the card's name and power limit,
    the ``{"kernels": [...]}`` summary (per kernel, its main case's
    ``ms`` and median ``device_ms`` beside the bound, the plain version's
@@ -107,6 +129,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
@@ -117,8 +140,9 @@ from hydragnn_tpu_torch.benchmarks.model_bench import (
     bench_model,
     make_graphs,
 )
-from hydragnn_tpu_torch.graph import collate_graphs
+from hydragnn_tpu_torch.graph import collate_graphs, compute_triplets, pack_triplets, pad_sizes_for
 from hydragnn_tpu_torch.models import create_model_config
+from hydragnn_tpu_torch.models.gat import attention_dropout
 from hydragnn_tpu_torch.ops import (
     KERNELS,
     _build,
@@ -167,6 +191,32 @@ REPLACES = {
     "fused_egnn_edge_phase": "hydragnn_tpu/ops/fused_mp.py:322",
 }
 FAMILIES = ("PNA", "GIN", "SAGE", "SchNet", "EGNN")
+# the last four stacks: no fused kernel of their own (a gather, then K1)
+NEW_FAMILIES = ("GAT", "MFC", "CGCNN", "DimeNet")
+# their bench.py widths where not hidden 256: CGCNN's conv width is its
+# input_dim (hidden 64), DimeNet runs at hidden 128
+NEW_WIDTHS = {
+    "full": {"CGCNN": dict(hidden=64, input_dim=256), "DimeNet": dict(hidden=128)},
+    "tiny": {"CGCNN": dict(hidden=16, input_dim=8), "DimeNet": dict(hidden=16)},
+}
+GAT_DROPOUT = 0.25  # the JAX package's HydraBase.dropout
+# served responses held against a float64 CPU forward (the float32
+# recurrence of DimeNet's spherical Bessel functions; tests/test_torch_dimenet.py)
+SERVE_AGAINST_F64 = ("DimeNet",)
+# the last four stacks' bursts: their first graphs (two full buckets and
+# more), every response held against the CPU, whose forwards of these
+# stacks take most of the phase's time
+NEW_SERVE_REQUESTS = 64
+# the earlier five stacks' bursts, cut from 320 to keep the smoke's wall
+SERVE_REQUESTS = 128
+# the earlier five stacks train at this depth (their bench rows have 3),
+# for the same wall: their float64 CPU steps are most of their phase
+FIVE_TRAIN_LAYERS = 2
+# the last four stacks' step 1, held against the float64 CPU step, takes
+# this many graphs of the training batch (a padded shape of its own; with
+# --step1-bucket it takes the plan's smallest bucket instead, and the
+# wall passes 300 s: PERF.md)
+NEW_STEP1_GRAPHS = 16
 # each family's conv aggregation in "fused" mode (in "segment" mode PNA's
 # is K2 and the others' the gather in PyTorch, then K1)
 FUSED_KERNEL = {
@@ -192,13 +242,17 @@ def aggregation_of(mode):
 
 def launches_per_forward(cfg, mode):
     """``{kernel: launches}`` one forward of ``cfg``'s stack needs (mode
-    ``dense``: PNA's neighbour-list branch runs no kernel)."""
+    ``dense``: the neighbour-list branches run no kernel). GAT, MFC and
+    CGCNN sum through K1 once a layer, DimeNet twice (the triplets onto
+    the edges, the edges onto the nodes)."""
     family, layers = cfg["model_type"], cfg["num_conv_layers"]
     counts = {name: 0 for name in KERNELS}
     counts["segment_sum"] = 1  # global_mean_pool
     if mode == "dense":
         return counts
-    if mode == "fused":
+    if family in NEW_FAMILIES:
+        counts["segment_sum"] += layers * (2 if family == "DimeNet" else 1)
+    elif mode == "fused":
         counts[FUSED_KERNEL[family]] = layers
     elif family == "PNA":
         counts["segment_moments"] = layers
@@ -210,11 +264,15 @@ def launches_per_forward(cfg, mode):
 
 
 def arch(size, model_type="PNA"):
-    shared = max(32, size["hidden"] // 4)
+    """``benchmarks/model_bench.py:_arch`` at the run's size, the last four
+    stacks at their bench widths (:data:`NEW_WIDTHS`)."""
+    width = NEW_WIDTHS["full" if size is FULL else "tiny"].get(model_type, {})
+    hidden = width.get("hidden", size["hidden"])
+    shared = max(32, hidden // 4)
     return {
         "model_type": model_type,
-        "input_dim": 1,
-        "hidden_dim": size["hidden"],
+        "input_dim": width.get("input_dim", 1),
+        "hidden_dim": hidden,
         "output_dim": [1, 1],
         "output_type": ["graph", "node"],
         "output_heads": {
@@ -232,9 +290,18 @@ def arch(size, model_type="PNA"):
         "edge_dim": None,
         "pna_deg": [0, 0, 16, 32, 64, 32],
         "equivariance": model_type == "EGNN",
+        "max_neighbours": 50,
         "num_gaussians": SCHNET_FILTERS,
-        "num_filters": size["hidden"],
+        "num_filters": hidden,
         "radius": 5.0,
+        "basis_emb_size": 8,
+        "envelope_exponent": 5,
+        "int_emb_size": 64,
+        "out_emb_size": 128,
+        "num_after_skip": 2,
+        "num_before_skip": 1,
+        "num_radial": 6,
+        "num_spherical": 7,
     }
 
 
@@ -347,10 +414,10 @@ def bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def largest_take(plan, graphs):
-    """The graphs of the main path's largest batch: the last bucket filled
-    greedily with the graphs it admits."""
-    b = plan.num_buckets - 1
+def largest_take(plan, graphs, b=None):
+    """The graphs of the main path's largest batch: the last bucket (or
+    bucket ``b``) filled greedily with the graphs it admits."""
+    b = plan.num_buckets - 1 if b is None else b
     take, n, e = [], 0, 0
     for g in graphs:
         if plan.admit(g)[0] != b:
@@ -369,8 +436,10 @@ def largest_batch(plan, graphs):
     return plan.pack(take, b)[0]
 
 
-def phase_kernels(plan, graphs, hidden, device):
-    """Each kernel against its plain version at the main path's shapes."""
+def phase_kernels(plan, graphs, hidden, device, trip_plan=None):
+    """Each kernel against its plain version at the main path's shapes
+    (``trip_plan``: DimeNet's, whose largest batch gives K1's T-axis
+    case)."""
     batch = largest_batch(plan, graphs).to(device)
     n_pad, e_pad, g_pad = batch.num_nodes, batch.num_edges, batch.num_graphs
     rng = np.random.default_rng(1)
@@ -410,6 +479,35 @@ def phase_kernels(plan, graphs, hidden, device):
                 device,
             ),
             bound=bound(nbytes, rows * d),
+        ))
+
+    # K1 at the last four stacks' shapes: GAT's numerator and denominator
+    # in one sum, [E+N, heads * (hidden + 1)] at the receivers and the
+    # self-loops (an odd width: K1's scalar path), and DimeNet's triplets
+    # summed onto their edges, [T, int_emb] by the sorted trip_ji with the
+    # padded tail at edge 0
+    heads = 6
+    loops = torch.arange(n_pad, dtype=rcv.dtype, device=device)
+    gat_ids = torch.cat([rcv, loops])
+    gat_mask = torch.cat([edge_mask, batch.node_mask])[:, None]
+    k1_more = [(e_pad + n_pad, heads * (hidden + 1), gat_ids, n_pad, gat_mask, "GAT")]
+    if trip_plan is not None:
+        tbatch = largest_batch(trip_plan, graphs).to(device)
+        k1_more.append((tbatch.extras["trip_ji"].shape[0], 64, tbatch.extras["trip_ji"],
+                        tbatch.num_edges, tbatch.extras["trip_mask"][:, None], "DimeNet"))
+    for rows, d, ids, segs, mask, what in k1_more:
+        x = rand(rows, d, mask)
+        got, ref = seg_sum(x, ids, segs), seg_sum_plain(x, ids, segs)
+        cases.append(dict(
+            kernel="segment_sum", case=f"{what} [{rows},{d}] -> [{segs},{d}]", main=False,
+            stack=what, err=float((got - ref).abs().max()),
+            tol=atomic_tolerance(seg_sum_plain(x.abs(), ids, segs)),
+            **timings(
+                lambda: seg_sum(x, ids, segs), lambda: seg_sum_plain(x, ids, segs),
+                lambda: torch.zeros((segs, d), device=device).index_add_(0, ids, x),
+                device,
+            ),
+            bound=bound((rows * d + rows + segs * d) * 4, rows * d),
         ))
 
     # K2: the segment mode's moments of z at the receivers, D = 1 and hidden
@@ -704,6 +802,7 @@ def set_bn_stats(model, seed):
 
 
 def phase_serve(mode, cfg, plan, graphs, device, card, threads=4):
+    t_run = time.perf_counter()
     family = cfg["model_type"]
     model = create_model_config(cfg, device=device, aggregation=aggregation_of(mode), seed=0)
     set_bn_stats(model, seed=0)
@@ -745,25 +844,44 @@ def phase_serve(mode, cfg, plan, graphs, device, card, threads=4):
 
     # every response against a CPU copy of the model (the plain versions)
     # run on the graphs of its batch, packed into the same bucket; a graph's
-    # outputs do not depend on its row within the batch
+    # outputs do not depend on its row within the batch. DimeNet's float32
+    # recurrence amplifies an ulp of sin/cos on short edges, so its
+    # responses are held against a float64 CPU forward, with the float32
+    # CPU forward as the witness of that arithmetic (hold_serve_against_f64)
     ref_model = copy.deepcopy(model).cpu()
+    f64 = family in SERVE_AGAINST_F64
+    ref64 = copy.deepcopy(ref_model).double() if f64 else None
     by_batch = {}
     for i, f in enumerate(futures):
         by_batch.setdefault(f.batch_seq, []).append(i)
     worst = 0.0
+    rows = {ihead: ([], [], []) for ihead in range(len(cfg["output_type"]))}
     with torch.inference_mode():
         for idx in by_batch.values():
             bucket = plan.admit(graphs[idx[0]])[0]
             batch, coords = plan.pack([graphs[i] for i in idx], bucket)
             outs = [o.numpy() for o in ref_model(batch)]
+            if f64:
+                with float64_port():
+                    exact = [o.numpy() for o in ref64(as_float64(batch))]
             for i, (g, off, n) in zip(idx, coords):
                 for ihead, kind in enumerate(cfg["output_type"]):
-                    want = outs[ihead][g] if kind == "graph" else outs[ihead][off : off + n]
-                    got = answers[i][ihead]
+                    pick = (lambda o: o[g]) if kind == "graph" else (lambda o: o[off : off + n])
+                    want, got = pick(outs[ihead]), answers[i][ihead]
                     if got.shape != want.shape or not np.isfinite(got).all():
                         raise AssertionError(f"{family} {mode}: bad response {i} head {ihead}")
+                    if f64:
+                        for r, v in zip(rows[ihead], (got, want, pick(exact[ihead]))):
+                            r.append(np.asarray(v, np.float64).reshape(-1))
+                        continue
                     np.testing.assert_allclose(got, want, rtol=SERVE_RTOL, atol=SERVE_ATOL)
                     worst = max(worst, float(np.abs(got - want).max()))
+    f64_check = None
+    if f64:
+        f64_check = hold_serve_against_f64(rows)
+        if f64_check["violations"]:
+            raise AssertionError(f"{family} {mode}: responses against float64: {f64_check}")
+        worst = max(h["card_err"] for h in f64_check["heads"])
 
     lat = np.asarray([f.done_at - s for f, s in zip(futures, submitted)]) * 1e3
     wall = max(f.done_at for f in futures) - t0
@@ -778,13 +896,38 @@ def phase_serve(mode, cfg, plan, graphs, device, card, threads=4):
         "p99_ms": float(np.percentile(lat, 99)),
         "graphs_per_s": len(graphs) / wall,
         "max_abs_err_vs_cpu": worst,
+        "against_float64": f64_check,
         "padding_waste": server.metrics.padding_waste_ratio(),
         "card": card,
+        "run_s": time.perf_counter() - t_run,  # the check against the CPU included
     }
     emit({"serve": result})
     if device.type == "cuda":
         breakdown(family, mode, model, plan, graphs, device, card)
     return result
+
+
+def hold_serve_against_f64(rows):
+    """Responses held against a float64 CPU forward of the same weights, per
+    head (``rows[head] = (card, f32 CPU, f64 CPU)`` lists): with ``s`` the
+    head's largest float64 magnitude and ``level`` the float32 CPU
+    forward's worst error relative to it, every output within ``atol * s +
+    rtol * |exact| + F32_FACTOR * level * s`` (the serve phase's rtol and
+    atol; :func:`hold_step_against_cpu`'s form)."""
+    heads, bad = [], []
+    for ihead, (card, cpu, exact) in rows.items():
+        card, cpu, exact = (np.concatenate(r) for r in (card, cpu, exact))
+        s = float(np.abs(exact).max())
+        level = float(np.abs(cpu - exact).max()) / s
+        allowed = SERVE_ATOL * s + SERVE_RTOL * np.abs(exact) + F32_FACTOR * level * s
+        err = np.abs(card - exact)
+        row = {"head": ihead, "scale": s, "cpu_level": level, "card_err": float(err.max()),
+               "cpu_err": float(np.abs(cpu - exact).max()),
+               "worst_over_tol": float((err / allowed).max())}
+        heads.append(row)
+        if not bool((err <= allowed).all()):
+            bad.append(row)
+    return {"factor": F32_FACTOR, "heads": heads, "violations": bad}
 
 
 def breakdown(family, mode, model, plan, graphs, device, card, iters=5):
@@ -870,29 +1013,43 @@ def launches_per_train_step(cfg, mode):
 
 def set_targets(graphs, seed):
     """Seeded targets per ``arch``'s ``output_dim``: a graph target ``[1]``
-    and a node target ``[n, 1]``, functions of the inputs plus noise."""
+    and a node target ``[n, 1]``, functions of the first input feature
+    plus noise."""
     rng = np.random.default_rng(seed)
     for g in graphs:
         noise = 0.05 * rng.standard_normal(g.num_nodes + 1)
+        x = g.x[:, :1]
         g.targets = [
-            np.array([2.0 * g.x.mean() - 0.5 + noise[0]], np.float32),
-            (np.sin(3.0 * g.x) + noise[1:, None]).astype(np.float32),
+            np.array([2.0 * x.mean() - 0.5 + noise[0]], np.float32),
+            (np.sin(3.0 * x) + noise[1:, None]).astype(np.float32),
         ]
 
 
-def train_batch(plan, graphs, cfg, dense=False, reverse=False):
-    """The largest bucket's batch, with the heads' targets (and with
-    ``dense`` the neighbour lists, at the widths its edges need; with
-    ``reverse`` its graphs in the reverse order: the same step, summed in
-    another order)."""
-    take, b = largest_take(plan, graphs)
+def train_batch(plan, graphs, cfg, dense=False, reverse=False, limit=None, bucket=None):
+    """The largest bucket's batch (or bucket ``bucket``'s), with the heads'
+    targets (DimeNet's with its triplet tables; with ``dense`` the
+    neighbour lists, at the widths its edges need, and DimeNet's their
+    slot tables; with ``reverse`` its graphs in the reverse order: the same
+    step, summed in another order; with ``limit``, its first ``limit``
+    graphs only, padded for them)."""
+    take, b = largest_take(plan, graphs, bucket)
+    lay = plan.layouts[b]
+    pads = (lay.n_pad, lay.e_pad, lay.g_pad)
+    if limit is not None:
+        take = take[:limit]
+        pads = pad_sizes_for(max(g.num_nodes for g in take), max(g.num_edges for g in take),
+                             len(take))
     if reverse:
         take = take[::-1]
-    lay = plan.layouts[b]
     batch = collate_graphs(
-        take, lay.n_pad, lay.e_pad, lay.g_pad,
+        take, *pads,
         head_types=tuple(cfg["output_type"]), head_dims=tuple(cfg["output_dim"]),
     )
+    if cfg["model_type"] == "DimeNet":
+        trips = [compute_triplets(g.edge_index, g.num_nodes) + (g.num_nodes, g.num_edges)
+                 for g in take]
+        batch = batch.with_extras({k: torch.from_numpy(v)
+                                   for k, v in pack_triplets(trips, pads[0]).items()})
     return attach_neighbor_lists(batch) if dense else batch
 
 
@@ -963,28 +1120,151 @@ def as_float64(batch):
     })
 
 
-def cpu_references(model, host, bf16=False, reversed_host=None):
+class _KinkReLU(torch.autograd.Function):
+    """ReLU whose backward takes the other one-sided derivative at the
+    entries its ``state.flip`` marks: the exact step's other value at a
+    kink. The mask is read at backward time, so one forward serves several
+    backward passes."""
+
+    @staticmethod
+    def forward(ctx, x, state, site):
+        ctx.save_for_backward(x)
+        ctx.state, ctx.site = state, site
+        return torch.clamp(x, min=0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        flip = ctx.state.flip.get(ctx.site)
+        d = x > 0
+        if flip is not None:
+            d = d ^ flip
+        return g * d.to(g.dtype), None, None
+
+
+class KinkReLUs:
+    """Stands in for every ReLU ``act`` of a model (the stack's, its MLPs'
+    and node heads'), in call order: records each call's input
+    (``record``), or applies :class:`_KinkReLU` with the current flips."""
+
+    def __init__(self, record=True):
+        self.record = record
+        self.inputs, self.flip, self.calls = [], {}, 0
+
+    def __call__(self, x):
+        site = self.calls
+        self.calls += 1
+        if self.record:
+            self.inputs.append(x.detach().to("cpu", torch.float64, copy=True))
+            return F.relu(x)
+        return _KinkReLU.apply(x, self, site)
+
+    def install(self, model):
+        for m in model.modules():
+            if getattr(m, "act", None) is F.relu:
+                m.act = self
+        return model
+
+    def remove(self, model):
+        for m in model.modules():
+            if getattr(m, "act", None) is self:
+                m.act = F.relu
+        return model
+
+
+def _rows(t):
+    """``t`` as rows of its last axis (a 1-D input: one row)."""
+    return t.reshape(1, -1) if t.dim() < 2 else t.reshape(-1, t.shape[-1])
+
+
+def kink_flips(z32, z64, card):
+    """The ReLU entries where the card took the other side of the kink
+    than the exact step, within float32's reach of it: the card's input
+    and the float64 input differ in sign, and both the float64 input and
+    the card's distance from it lie within ``F32_FACTOR`` times the row's
+    reach, the largest error of the float32 witness's inputs over that
+    row (one node's features at that call: the rounding of the same
+    inputs). There the exact step's derivative is either one-sided value
+    (SAGE's node head has such an entry, PERF.md). ``z32``, ``z64`` and
+    ``card``: the inputs of each call, in call order.
+
+    Returns ``{"masks": {call: bool mask}, "count", "flipped", "beyond",
+    "nearest"}``: the masks, how many entries they flip, the first 16
+    (``[call, float64 input, its row's reach]``), the count of sign
+    differences beyond reach (left to the check), and the nonzero float64
+    input nearest a kink relative to its row's reach (``[call, input,
+    reach]``)."""
+    masks, flipped, count, beyond, nearest = {}, [], 0, 0, None
+    for site, (a, b, c) in enumerate(zip(z32, z64, card)):
+        b2, c2 = _rows(b), _rows(c)
+        reach = (_rows(a) - b2).abs().amax(dim=1, keepdim=True).expand_as(b2)
+        live = (b2 != 0) & (reach > 0)
+        if bool(live.any()):
+            rel = torch.where(live, b2.abs() / reach.clamp(min=1e-300), torch.inf)
+            at = int(rel.argmin())
+            if nearest is None or float(rel.reshape(-1)[at]) < abs(nearest[1]) / nearest[2]:
+                nearest = [site, float(b2.reshape(-1)[at]), float(reach.reshape(-1)[at])]
+        differ = (c2 > 0) != (b2 > 0)
+        if not bool(differ.any()):
+            continue
+        near = differ & (b2.abs() < F32_FACTOR * reach) & ((c2 - b2).abs() < F32_FACTOR * reach)
+        beyond += int((differ & ~near).sum())
+        if bool(near.any()):
+            masks[site] = near.reshape(b.shape)
+            count += int(near.sum())
+            flipped += [[site, float(v), float(r)] for v, r in zip(b2[near][:16], reach[near][:16])]
+    return {"masks": masks, "count": count, "flipped": flipped[:16], "beyond": beyond,
+            "nearest": nearest}
+
+
+def exact_with_flips(start, host, flips):
+    """The exact (float64) step 1 of ``start`` (a CPU copy of the model
+    before the step) with the ReLU derivatives at ``flips`` taken on the
+    card's side: ``(model, loss)``, as :func:`cpu_references` returns the
+    exact step."""
+    with float64_port():
+        m = copy.deepcopy(start).double()
+        acts = KinkReLUs(record=False)
+        acts.install(m)
+        acts.flip = flips
+        loss = cpu_step(m, as_float64(host))
+    return m, loss
+
+
+def cpu_references(model, host, bf16=False, reversed_host=None, kinks=None):
     """Step 1 of CPU copies of ``model`` (taken before any step) on ``host``:
     the witnesses, through the plain versions in float32 (with ``bf16``, in
     bf16 mixed precision: the card's own arithmetic; then also on
-    ``reversed_host``, the same graphs in the reverse order, whose sums
-    round in another order), and in float64, the exact step's stand-in
+    ``reversed_host`` where given, as it must be for bf16: the same graphs
+    in the reverse order, whose sums round in another order), and in
+    float64, the exact step's stand-in
     (:func:`float64_port`; a dispatch mode watches every operation of that
     step, backward and optimizer included, and it fails if any gives a
     float32 tensor). Returns ``([(witness model, loss), ...], (f64 model,
-    loss))``."""
+    loss))``. With ``kinks`` (a dict) and ``bf16`` False, every ReLU's input
+    is recorded in both steps: ``kinks`` gets them (``z32``, ``z64``) and a
+    copy of the model before the step (``start``), for
+    :func:`kink_flips` and :func:`exact_with_flips`."""
     if bf16 and reversed_host is None:
         raise ValueError("a bf16 step needs its second witness: pass reversed_host")
     witness = copy.deepcopy(model).cpu()
+    start = copy.deepcopy(witness)
     f64 = copy.deepcopy(witness).double()
-    second = copy.deepcopy(witness) if bf16 else None
+    second = None if reversed_host is None else copy.deepcopy(witness)
+    record = kinks is not None and not bf16
+    z32, z64 = KinkReLUs(), KinkReLUs()
+    if record:
+        z64.install(f64)
+        z32.install(witness)
     with float64_port(), Float32Watch() as watch:
         loss64 = cpu_step(f64, as_float64(host))
     if watch.seen:
         raise AssertionError(f"float32 in the float64 step: {sorted(watch.seen)}")
     witnesses = [(witness, cpu_step(witness, host, bf16))]
-    if bf16:
+    if second is not None:
         witnesses.append((second, cpu_step(second, reversed_host, bf16)))
+    if record:
+        kinks.update(z32=z32.inputs, z64=z64.inputs, start=start)
     return witnesses, (f64, loss64)
 
 
@@ -1003,7 +1283,19 @@ F32_FACTOR = 4.0
 # was 1.99, so 4 (PERF.md; with one witness two seeds needed 16.9 and 37.1,
 # where it had landed near the exact value by chance).
 BF16_FACTOR = 4.0
+# The last four stacks' f32 step 1 is held against f32 witnesses in both
+# graph orders too: GAT's attention-logit gradients (b_l, b_r, w_r, the
+# residue of a softmax's cancelling sum) lay 34x further from the exact
+# step on the card than on the one f32 witness, where summation order
+# alone moves them that far (PERF.md), so one witness can land near the
+# exact value by chance, as in bf16.
+TWO_ORDER_F32 = NEW_FAMILIES
 ZERO_GRAD = 1e-6  # a gradient below this share of the largest is zero exactly
+# A failing f32 step 1 is held again on the card's side of the ReLU kinks
+# it crossed within float32's reach (kink_flips) only if it crossed at most
+# this many: SAGE's failing steps crossed 1, the five earlier stacks at most
+# 4 (GIN) on the card (PERF.md); more is not rounding.
+KINK_FLIPS_MAX = 8
 
 
 def snapshot(model):
@@ -1092,6 +1384,7 @@ def hold_step_against_cpu(card, card_loss, cpu, exact, bf16=False):
             "kind": kind, "name": name, "scale": s,
             "err": float(err.max()),
             "cpu_err": max(float((w[key] - t).abs().max()) for w in witnesses),
+            "cpu_errs": [float((w[key] - t).abs().max()) for w in witnesses],
             "worst_over_tol": float((err / allowed).max()),
             # the least factor that passes, and the smallest fault
             # relative to the scale that the bound could miss
@@ -1105,6 +1398,27 @@ def hold_step_against_cpu(card, card_loss, cpu, exact, bf16=False):
         if not bool((err <= allowed).all()):
             bad.append(row)
     return rows, bad, level
+
+
+def hold_step_at_kinks(card, card_loss, cpu, exact, kinks, card_inputs, host):
+    """:func:`hold_step_against_cpu` for an f32 step 1 whose ReLU inputs
+    were recorded (``kinks`` from :func:`cpu_references`, ``card_inputs``
+    the card's): at a kink the exact step takes either one-sided value, so
+    a card step that fails against one, having crossed at most
+    ``KINK_FLIPS_MAX`` kinks within float32's reach (:func:`kink_flips`),
+    is held against the other (:func:`exact_with_flips`). Returns ``(rows,
+    bad, level, relu_kinks)``; ``relu_kinks`` reports the crossings and,
+    when the step was held again, its violations before."""
+    rows, bad, level = hold_step_against_cpu(card, card_loss, cpu, exact)
+    flips = kink_flips(kinks["z32"], kinks["z64"], card_inputs)
+    relu_kinks = {"flipped_count": flips["count"], "flipped": flips["flipped"],
+                  "sign_differences_beyond_reach": flips["beyond"],
+                  "nearest": flips["nearest"], "held_on_the_card_side": False}
+    if bad and 0 < flips["count"] <= KINK_FLIPS_MAX:
+        relu_kinks.update(held_on_the_card_side=True, violations_before=len(bad))
+        exact = exact_with_flips(kinks["start"], host, flips["masks"])
+        rows, bad, level = hold_step_against_cpu(card, card_loss, cpu, exact)
+    return rows, bad, level, relu_kinks
 
 
 def outside_serve_bound(rows):
@@ -1212,22 +1526,40 @@ def phase_bench(name, row, size, device, card):
     return counts
 
 
-def phase_train(mode, cfg, plan, graphs, device, card, bf16=False, windows=TRAIN_WINDOWS):
+def phase_train(mode, cfg, plan, graphs, device, card, bf16=False, windows=TRAIN_WINDOWS,
+                step1_graphs=None, step1_bucket=None):
     """Training of ``cfg``'s stack through the port's entry points:
     ``Trainer`` -> ``init_state`` -> ``put_batch`` -> 1 + ``windows`` x 4
     ``train_step`` (AdamW; with ``bf16``, bf16 mixed precision) -> one
     profiled step -> ``eval_step``, on the largest bucket's batch
-    (``dense``: with the neighbour lists). Returns the kernel launches of
+    (``dense``: with the neighbour lists). With ``step1_graphs``, step 1,
+    the one held against the CPU, takes the first ``step1_graphs`` graphs
+    of that batch only (the CPU's float64 step at the full batch is most
+    of the phase's time for the last four stacks); with ``step1_bucket``,
+    the batch of that bucket of ``plan``. Returns the kernel launches of
     the run."""
+    t_run = time.perf_counter()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     model = create_model_config(cfg, device=device, aggregation=aggregation_of(mode), seed=0)
+    # GAT: no attention dropout, so that step 1 can be held against the CPU
+    # (a card generator draws other masks than a CPU one); phase_dropout
+    # holds the dropout itself, and the bench rows train with it
+    model.set_dropout(0.0)
     host = train_batch(plan, graphs, cfg, dense=mode == "dense")
+    cut = dict(limit=step1_graphs, bucket=step1_bucket)
+    host1 = host if cut == dict(limit=None, bucket=None) else train_batch(
+        plan, graphs, cfg, dense=mode == "dense", **cut)
     precision = "bf16" if bf16 else "f32"
     factor = BF16_FACTOR if bf16 else F32_FACTOR
     # step 1 on CPU copies first, so that none of their host threads runs
     # while the card is timed
-    reversed_host = train_batch(plan, graphs, cfg, dense=mode == "dense", reverse=True) \
-        if bf16 else None
-    cpu, exact = cpu_references(model, host, bf16, reversed_host)
+    two_orders = bf16 or cfg["model_type"] in TWO_ORDER_F32
+    reversed_host = train_batch(plan, graphs, cfg, dense=mode == "dense", reverse=True,
+                                **cut) if two_orders else None
+    kinks = {}
+    cpu, exact = cpu_references(model, host1, bf16, reversed_host, kinks=kinks)
+    cpu_s = time.perf_counter() - t_run
     trainer = Trainer(model, train_config(bf16))
     if trainer.precision["mixed"] != bf16:
         raise AssertionError(f"the trainer resolved {trainer.precision}, not {precision}")
@@ -1239,12 +1571,12 @@ def phase_train(mode, cfg, plan, graphs, device, card, bf16=False, windows=TRAIN
     family = cfg["model_type"]
     what = f"{family} {mode} {precision}"
 
-    def steps(n):
+    def steps(n, on=None):
         nonlocal state
         reset_launch_counts()
         losses = []
         for _ in range(n):
-            state, met = trainer.train_step(state, batch)
+            state, met = trainer.train_step(state, batch if on is None else on)
             losses.append(met["loss"])
         counts = launch_counts()
         if on_card and counts != {k: n * v for k, v in per_step.items()}:
@@ -1254,7 +1586,14 @@ def phase_train(mode, cfg, plan, graphs, device, card, bf16=False, windows=TRAIN
             launches[k] += v
         return losses
 
-    first = steps(1)[0]
+    # step 1 records the card's ReLU inputs (for kink_flips), then the
+    # model's own ReLU is back for the timed steps
+    card_acts = None if bf16 else KinkReLUs()
+    if card_acts is not None:
+        card_acts.install(model)
+    first = steps(1, on=trainer.put_batch(host1))[0]
+    if card_acts is not None:
+        card_acts.remove(model)
     step1 = snapshot(model)
 
     # each window: CUDA events around 4 steps, and the host's clock around
@@ -1272,15 +1611,24 @@ def phase_train(mode, cfg, plan, graphs, device, card, bf16=False, windows=TRAIN
             host_ms.append((time.perf_counter() - t0) * 1e3 / TRAIN_WINDOW_STEPS)
             window_ms.append((start, end))
     losses = [float(v) for v in torch.stack(losses).cpu()]
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+    # the loss falls over the steps on the full batch (step 1 may take fewer graphs)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0 if host1 is host else 1]:
         raise AssertionError(f"{what} train: losses {losses}")
-    rows, bad, level = hold_step_against_cpu(step1, first, cpu, exact, bf16)
+    probe = matmul_probe(device)
+    if card_acts is None:
+        relu_kinks = None
+        rows, bad, level = hold_step_against_cpu(step1, first, cpu, exact, bf16)
+    else:
+        rows, bad, level, relu_kinks = hold_step_at_kinks(step1, first, cpu, exact, kinks,
+                                                          card_acts.inputs, host1)
     closest = sorted(rows, key=lambda r: -r["worst_over_tol"])[:8]
     emit({"train_check": {"family": family, "mode": mode, "precision": precision,
                           "tensors": len(rows),
+                          "relu_kinks": relu_kinks,
                           "cpu_level": level, "closest": closest, "violations": bad}})
     if bad:
-        raise AssertionError(f"{what} train step 1 against the exact step: {bad}")
+        raise AssertionError(f"{what} train step 1 against the exact step "
+                             f"(matmul probe {probe}): {bad}")
     # SchNet and EGNN (no encoder BatchNorm, mlp heads) have no statistics
     worst = {kind: max((r["err"] for r in rows if r["kind"] == kind), default=None)
              for kind in ("loss", "grad", "param", "stat")}
@@ -1293,13 +1641,16 @@ def phase_train(mode, cfg, plan, graphs, device, card, bf16=False, windows=TRAIN
         "batch": f"n_pad {batch.num_nodes} e_pad {batch.num_edges} g_pad {batch.num_graphs}",
         "graphs_per_step": graphs_per_step,
         "steps": len(losses),
+        "step1_graphs": int(host1.graph_mask.sum()),
+        "step1_batch": f"n_pad {host1.num_nodes} e_pad {host1.num_edges} g_pad {host1.num_graphs}",
         "first_loss": losses[0], "last_loss": losses[-1],
         "loss_err_vs_exact": worst["loss"],
         "max_grad_err_vs_exact": worst["grad"],
         "max_param_err_vs_exact": worst["param"],
         "max_stat_err_vs_exact": worst["stat"],
         "worst_err_over_tolerance": worst["over_tol"],
-        "cpu_witness": "bf16 CPU steps, the graphs in both orders" if bf16 else "f32 CPU step",
+        "cpu_witness": f"{precision} CPU step"
+                       + ("s, the graphs in both orders" if two_orders else ""),
         "cpu_level": level,
         "factor": factor,
         "factor_needed": need["factor_needed"],
@@ -1338,8 +1689,52 @@ def phase_train(mode, cfg, plan, graphs, device, card, bf16=False, windows=TRAIN
     if not np.isfinite(eval_loss) or shapes != [(batch.num_graphs, 1), (batch.num_nodes, 1)]:
         raise AssertionError(f"{what} eval: loss {eval_loss}, outputs {shapes}")
     result.update(eval_loss=eval_loss, launches=launches, card=card)
+    if on_card:
+        result["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    result.update(cpu_reference_s=cpu_s, run_s=time.perf_counter() - t_run,
+                  matmul_probe=matmul_probe(device))
     emit({"train": result})
     return launches
+
+
+def matmul_probe(device):
+    """A float32 product's worst error relative to its float64 value, with
+    the matmul flags in force: ~1e-7 in IEEE float32, ~5e-4 where TF32
+    rounds the inputs."""
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    a, b = (torch.randn(256, 256, generator=gen, dtype=torch.float64) for _ in range(2))
+    got = (a.to(device, torch.float32) @ b.to(device, torch.float32)).cpu().double()
+    want = a @ b
+    return {"rel_err": float((got - want).abs().max() / want.abs().max()),
+            "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "precision": torch.get_float32_matmul_precision()}
+
+
+def phase_dropout(plan, graphs, cfg, device, card):
+    """GAT's attention dropout on the card, at its segment shape ``[E+N,
+    heads]`` from a generator on the card (``Trainer``'s): the kept share
+    within 3 sigma of ``1 - rate``, every kept value ``x / (1 - rate)``
+    exactly; and a training step of GAT with it, whose loss is finite."""
+    batch = largest_batch(plan, graphs)
+    rows = batch.num_edges + batch.num_nodes
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.rand((rows, 6), generator=gen, device=device) + 0.5
+    y = attention_dropout(x, GAT_DROPOUT, gen)
+    kept = y != 0
+    share = float(kept.to(torch.float64).mean())
+    sigma = float(np.sqrt(GAT_DROPOUT * (1 - GAT_DROPOUT) / x.numel()))
+    exact = bool(torch.equal(y[kept], x[kept] / (1.0 - GAT_DROPOUT)))
+    model = create_model_config(cfg, device=device, aggregation="segment", seed=0)
+    host = train_batch(plan, graphs, cfg)
+    trainer = Trainer(model, train_config())
+    state, met = trainer.train_step(trainer.init_state(host), host)
+    loss = float(met["loss"])
+    emit({"dropout": {"family": "GAT", "rate": GAT_DROPOUT, "elements": x.numel(),
+                      "kept_share": share, "sigma": sigma, "scaled_exactly": exact,
+                      "train_step_loss": loss, "card": card}})
+    if abs(share - (1 - GAT_DROPOUT)) > 3 * sigma or not exact or not np.isfinite(loss):
+        raise AssertionError(f"GAT dropout: kept {share} (3 sigma {3 * sigma}), "
+                             f"scaled exactly {exact}, loss {loss}")
 
 
 # ---- main -------------------------------------------------------------------
@@ -1349,6 +1744,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="tiny size on the CPU through the plain versions; no success line")
+    ap.add_argument("--step1-bucket", action="store_true",
+                    help="hold the last four stacks' step 1 on the plan's smallest bucket, not "
+                         f"on the training batch's first {NEW_STEP1_GRAPHS} graphs (past the "
+                         "300 s wall)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -1369,9 +1768,38 @@ def main(argv=None):
     for lay in dense_plan.layouts:
         print(f"dense bucket: n_pad {lay.n_pad} e_pad {lay.e_pad} g_pad {lay.g_pad} "
               f"k_in {lay.k_in} k_out {lay.k_out}", flush=True)
+    # DimeNet's plans: the triplet tables (t_pad per bucket), and the lists
+    # with their slot tables
+    trip_plan = plan_from_samples(graphs, max_batch_graphs=size["batch"], num_buckets=3,
+                                  need_triplets=True)
+    trip_dense_plan = plan_from_samples(graphs, max_batch_graphs=size["batch"], num_buckets=3,
+                                        need_neighbors=True, need_triplets=True)
+    for lay in trip_plan.layouts:
+        print(f"triplet bucket: n_pad {lay.n_pad} e_pad {lay.e_pad} g_pad {lay.g_pad} "
+              f"t_pad {lay.t_pad}", flush=True)
+    # CGCNN's graphs carry input_dim features (its width)
+    cg_graphs = make_graphs(size["graphs"], size["nodes"], size["degree"], seed=0,
+                            input_dim=arch(size, "CGCNN")["input_dim"])
+    cg_plan = plan_from_samples(cg_graphs, max_batch_graphs=size["batch"], num_buckets=3)
+    # the plans each new stack is served on, and the one it trains on
+    new_plans = {
+        "GAT": (graphs, {"segment": plan, "dense": dense_plan}),
+        "MFC": (graphs, {"segment": plan, "dense": dense_plan}),
+        "CGCNN": (cg_graphs, {"segment": cg_plan}),
+        "DimeNet": (graphs, {"segment": trip_plan, "dense": trip_dense_plan}),
+    }
 
-    cases = phase_kernels(plan, graphs, size["hidden"], device)
+    t_phase = time.perf_counter()
+
+    def lap(what):
+        nonlocal t_phase
+        now = time.perf_counter()
+        print(f"phase {what}: {now - t_phase:.1f} s", flush=True)
+        t_phase = now
+
+    cases = phase_kernels(plan, graphs, size["hidden"], device, trip_plan=trip_plan)
     launches = {name: 0 for name in KERNELS}
+    lap("kernels")
 
     def add(counts):
         for name, n in counts.items():
@@ -1380,24 +1808,50 @@ def main(argv=None):
     for family in FAMILIES:
         cfg = arch(size, family)
         for mode in ("fused", "segment"):
-            add(phase_serve(mode, cfg, plan, graphs, device, card)["launches"])
+            add(phase_serve(mode, cfg, plan, graphs[:SERVE_REQUESTS], device, card)["launches"])
     # the dense plan: PNA, and GIN and SAGE, which the JAX package's static
     # policy serves on the lists at this width
     for family in ("PNA", "GIN", "SAGE"):
-        add(phase_serve("dense", arch(size, family), dense_plan, graphs, device, card)["launches"])
+        add(phase_serve("dense", arch(size, family), dense_plan, graphs[:SERVE_REQUESTS], device,
+                        card)["launches"])
+    lap("serve (five stacks)")
+    # the last four on the segment plan, and GAT, MFC and DimeNet also on
+    # the dense one (the JAX package's static policy at these widths)
+    for family in NEW_FAMILIES:
+        fam_graphs, plans = new_plans[family]
+        for mode, fam_plan in plans.items():
+            add(phase_serve(mode, arch(size, family), fam_plan, fam_graphs[:NEW_SERVE_REQUESTS],
+                            device, card)["launches"])
+    lap("serve (GAT, MFC, CGCNN, DimeNet)")
 
     set_targets(graphs, seed=1)
+    set_targets(cg_graphs, seed=1)
     for family in FAMILIES:
-        # SchNet with its equivariant update here (the bench rows have none)
-        cfg = dict(arch(size, family), equivariance=family in ("SchNet", "EGNN"))
+        # SchNet with its equivariant update here (the bench rows have none);
+        # at FIVE_TRAIN_LAYERS (the wall's depth cut)
+        cfg = dict(arch(size, family), equivariance=family in ("SchNet", "EGNN"),
+                   num_conv_layers=min(size["layers"], FIVE_TRAIN_LAYERS))
         windows = TRAIN_WINDOWS if family == "PNA" else STACK_TRAIN_WINDOWS
         for mode, bf16 in (("fused", False), ("segment", False), ("dense", False),
                            ("dense", True)):
             add(phase_train(mode, cfg, plan, graphs, device, card, bf16=bf16, windows=windows))
+    lap("train (five stacks)")
+    step1 = (dict(step1_bucket=0) if args.step1_bucket else
+             dict(step1_graphs=NEW_STEP1_GRAPHS if size is FULL else 2))
+    for family in NEW_FAMILIES:
+        fam_graphs, plans = new_plans[family]
+        cfg = arch(size, family)
+        for mode, bf16 in (("segment", False), ("dense", False), ("dense", True)):
+            add(phase_train(mode, cfg, plans["segment"], fam_graphs, device, card, bf16=bf16,
+                            windows=STACK_TRAIN_WINDOWS,
+                            **step1))
+    phase_dropout(plan, graphs, arch(size, "GAT"), device, card)
+    lap("train (GAT, MFC, CGCNN, DimeNet)")
     add(phase_bench("MXU_HEADLINE", MXU_HEADLINE, size, device, card))
     for row in MXU_ROWS:
         name = f"MXU_{row['model_type']}_{'dense_bf16' if row.get('dense') else 'segment_f32'}"
         add(phase_bench(name, row, size, device, card))
+    lap("bench_model")
 
     # K2 and K6 beside K1 at the same receivers shape: the same [E, D] bytes
     # streamed, a sum where K2 also keeps squares and a count and K6
@@ -1415,6 +1869,7 @@ def main(argv=None):
     for name in KERNELS:
         mine = [c for c in cases if c["kernel"] == name and not c.get("rule")]
         main_case = next(c for c in mine if c["main"])
+        stacks = [c for c in mine if c.get("stack")]
         rule = next((c for c in cases if c["kernel"] == name and c.get("rule") and c["main"]),
                     None)
         summary.append({
@@ -1435,6 +1890,14 @@ def main(argv=None):
             "reference": reference.get(name, (None, None))[0],
             "reference_device_ms": reference.get(name, (None, None))[1],
         })
+        if stacks:  # K1 at the last four stacks' shapes
+            summary[-1]["stack_cases"] = [{
+                "case": c["case"], "max_abs_err": c["err"], "ms": c["ms"],
+                "device_ms": median(c["device_ms"]), "plain_ms": c["plain_ms"],
+                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                "library_ms": c["library_ms"],
+                "library_device_ms": median(c["library_device_ms"]),
+            } for c in stacks]
         if rule is not None:  # its backward rule, at the main path's shapes
             summary[-1]["backward_rule"] = {
                 "case": rule["case"],

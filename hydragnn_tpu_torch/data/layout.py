@@ -5,8 +5,11 @@ packs samples into it. Node-count bucket boundaries come from an exact DP
 over the distinct node counts (:func:`_partition_node_bounds`). A layout
 with ``need_neighbors`` also carries the dense neighbour lists
 (``ops/dense_agg.py``) at its widths ``k_in``/``k_out``;
-:func:`needs_dense_neighbors` decides whether a stack's layouts do. DimeNet's
-triplet tables are not ported (see ``ROADMAP.md``).
+:func:`needs_dense_neighbors` decides whether a stack's layouts do. A
+layout with ``need_triplets`` (DimeNet) packs the triplet tables
+(``graph.batch.pack_triplets``, ``[t_pad]``) unless it has the lists, in
+which case the lists carry the slot tables instead (the dense branch
+derives every triplet from them).
 """
 
 import math
@@ -16,7 +19,13 @@ from typing import List
 import numpy as np
 import torch
 
-from hydragnn_tpu_torch.graph.batch import GraphBatch, collate_graphs, pad_sizes_for
+from hydragnn_tpu_torch.graph.batch import (
+    GraphBatch,
+    collate_graphs,
+    compute_triplets,
+    pack_triplets,
+    pad_sizes_for,
+)
 from hydragnn_tpu_torch.ops import autotune
 from hydragnn_tpu_torch.ops.dense_agg import build_neighbor_lists
 
@@ -30,6 +39,23 @@ class BatchLayout:
     need_neighbors: bool = False
     k_in: int = 0
     k_out: int = 0
+    # DimeNet's triplets: packed tables of t_pad rows, or the slot tables
+    need_triplets: bool = False
+    t_pad: int = 0
+
+    @property
+    def packs_triplets(self) -> bool:
+        """Whether collation packs the T-axis triplet tables (a dense
+        layout never does)."""
+        return self.need_triplets and not self.need_neighbors
+
+
+def sample_triplets(sample):
+    """The triplets of one ``GraphData`` (:func:`compute_triplets`), cached
+    in its ``extras`` (the JAX package's ``_sample_triplets``)."""
+    if "triplets" not in sample.extras:
+        sample.extras["triplets"] = compute_triplets(sample.edge_index, sample.num_nodes)
+    return sample.extras["triplets"]
 
 
 def _lcm(a: int, b: int) -> int:
@@ -84,7 +110,8 @@ def needs_dense_neighbors(arch_config: dict) -> bool:
 
 def _layout_from_maxima(max_nodes: int, max_edges: int, batch_size: int,
                         mult: int, device_multiple: int, need_neighbors: bool = False,
-                        k_in: int = 1, k_out: int = 1) -> BatchLayout:
+                        k_in: int = 1, k_out: int = 1, need_triplets: bool = False,
+                        max_trip: int = 0) -> BatchLayout:
     n_pad, e_pad, g_pad = pad_sizes_for(
         max_nodes,
         max_edges,
@@ -93,19 +120,29 @@ def _layout_from_maxima(max_nodes: int, max_edges: int, batch_size: int,
         edge_multiple=mult,
         graph_multiple=max(device_multiple, 1),
     )
+    t_pad = 0
+    if need_triplets and not need_neighbors:
+        t_pad = int(-(-(batch_size * max(max_trip, 1)) // mult) * mult)
     return BatchLayout(n_pad, e_pad, g_pad, need_neighbors=need_neighbors,
-                       k_in=max(int(k_in), 1), k_out=max(int(k_out), 1))
+                       k_in=max(int(k_in), 1), k_out=max(int(k_out), 1),
+                       need_triplets=need_triplets, t_pad=t_pad)
 
 
 def collate_for_layout(samples, layout: BatchLayout) -> GraphBatch:
     """Collate ``samples`` into the static shapes of ``layout`` (inputs
     only, on the host; move the batch with ``GraphBatch.to``), with the
-    dense neighbour lists in ``extras`` when the layout asks for them."""
+    triplet tables and the dense neighbour lists (and their slot tables)
+    in ``extras`` when the layout asks for them."""
     batch = collate_graphs(samples, layout.n_pad, layout.e_pad, layout.g_pad)
-    if not layout.need_neighbors:
+    extras = {}
+    if layout.packs_triplets:
+        trips = [sample_triplets(s) + (s.num_nodes, s.num_edges) for s in samples]
+        extras.update(pack_triplets(trips, layout.n_pad, layout.t_pad))
+    if layout.need_neighbors:
+        extras.update(build_neighbor_lists(
+            batch.senders.numpy(), batch.receivers.numpy(), batch.edge_mask.numpy(),
+            layout.n_pad, layout.k_in, layout.k_out, with_slot_tables=layout.need_triplets,
+        ))
+    if not extras:
         return batch
-    lists = build_neighbor_lists(
-        batch.senders.numpy(), batch.receivers.numpy(), batch.edge_mask.numpy(),
-        layout.n_pad, layout.k_in, layout.k_out,
-    )
-    return batch.with_extras({k: torch.from_numpy(v) for k, v in lists.items()})
+    return batch.with_extras({k: torch.from_numpy(v) for k, v in extras.items()})

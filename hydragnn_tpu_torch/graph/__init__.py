@@ -1,17 +1,29 @@
-from hydragnn_tpu_torch.graph.batch import GraphBatch, collate_graphs, pad_sizes_for
+from hydragnn_tpu_torch.graph.batch import (
+    GraphBatch,
+    collate_graphs,
+    compute_triplets,
+    pack_triplets,
+    pad_sizes_for,
+)
 from hydragnn_tpu_torch.graph.segment import (
     segment_count,
     segment_minmax_fused,
     segment_moments_fused,
+    segment_softmax,
+    segment_softmax_unnorm,
     segment_sum,
 )
 
 __all__ = [
     "GraphBatch",
     "collate_graphs",
+    "compute_triplets",
+    "pack_triplets",
     "pad_sizes_for",
     "segment_count",
     "segment_minmax_fused",
     "segment_moments_fused",
+    "segment_softmax",
+    "segment_softmax_unnorm",
     "segment_sum",
 ]

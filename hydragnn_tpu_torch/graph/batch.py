@@ -242,3 +242,80 @@ def collate_graphs(
         graph_mask=t(graph_mask),
         targets=tuple(t(a) for a in targets),
     )
+
+
+def compute_triplets(edge_index: np.ndarray, num_nodes: int):
+    """DimeNet's triplets of one graph, on the host (numpy; a copy of the
+    JAX package's ``models/dimenet.py::compute_triplets``): for every edge
+    ``j->i`` and every edge ``k->j`` with ``k != i``, ``(idx_i, idx_j,
+    idx_k, idx_kj, idx_ji)``, int32, grouped by the edge ``j->i`` in edge
+    order (so ``idx_ji`` is sorted), its ``k->j`` edges in edge order."""
+    row, col = np.asarray(edge_index[0]), np.asarray(edge_index[1])  # j -> i
+    num_edges = row.shape[0]
+    if num_edges == 0:
+        z = np.zeros(0, np.int32)
+        return z, z, z, z, z
+    # the (k->j, j->i) join: edges grouped by receiver, then every edge j->i
+    # expanded over the in-edges of its sender j
+    order = np.argsort(col, kind="stable")
+    deg = np.bincount(col, minlength=num_nodes)
+    starts = np.concatenate([[0], np.cumsum(deg)[:-1]])
+    c1 = deg[row]  # k->j candidates per edge j->i
+    total = int(c1.sum())
+    tji = np.repeat(np.arange(num_edges), c1)
+    within = np.arange(total) - np.repeat(np.cumsum(c1) - c1, c1)
+    tkj = order[starts[row[tji]] + within]
+    ti = col[tji]
+    tj = row[tji]
+    tk = row[tkj]
+    keep = tk != ti  # no backtracking triplet (k == i)
+    return (
+        ti[keep].astype(np.int32),
+        tj[keep].astype(np.int32),
+        tk[keep].astype(np.int32),
+        tkj[keep].astype(np.int32),
+        tji[keep].astype(np.int32),
+    )
+
+
+def pack_triplets(triplets, n_pad: int, t_pad: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """Pack per-sample triplet tables into one padded set of ``extras``
+    (numpy): ``trip_i``, ``trip_j``, ``trip_k``, ``trip_kj``, ``trip_ji``
+    (int32) and ``trip_mask`` (bool), ``[t_pad]`` each.
+
+    ``triplets``: per sample in batch order, ``(t_i, t_j, t_k, t_kj, t_ji,
+    n_nodes, n_edges)``; the node and edge offsets accumulate as
+    :func:`collate_graphs` lays the samples out. A padded slot points at
+    the padding node ``n_pad - 1`` and at edge 0, with mask False.
+    ``t_pad`` defaults to the total rounded up to 8."""
+    total = sum(t[0].shape[0] for t in triplets)
+    if t_pad is None:
+        t_pad = _round_up(max(total, 1), 8)
+    if total > t_pad:
+        raise ValueError(f"{total} triplets exceed t_pad={t_pad}")
+    ti = np.full((t_pad,), n_pad - 1, np.int32)
+    tj = np.full((t_pad,), n_pad - 1, np.int32)
+    tk = np.full((t_pad,), n_pad - 1, np.int32)
+    tkj = np.zeros((t_pad,), np.int32)
+    tji = np.zeros((t_pad,), np.int32)
+    tmask = np.zeros((t_pad,), bool)
+    off_n = off_e = off_t = 0
+    for a, b, c, kj, ji, n_nodes, n_edges in triplets:
+        t = a.shape[0]
+        ti[off_t : off_t + t] = a + off_n
+        tj[off_t : off_t + t] = b + off_n
+        tk[off_t : off_t + t] = c + off_n
+        tkj[off_t : off_t + t] = kj + off_e
+        tji[off_t : off_t + t] = ji + off_e
+        tmask[off_t : off_t + t] = True
+        off_t += t
+        off_n += int(n_nodes)
+        off_e += int(n_edges)
+    return {
+        "trip_i": ti,
+        "trip_j": tj,
+        "trip_k": tk,
+        "trip_kj": tkj,
+        "trip_ji": tji,
+        "trip_mask": tmask,
+    }

@@ -4,6 +4,8 @@
 All ops take the segment count explicitly and are safe under padding:
 padded edges carry zeroed data or are masked by the caller; padded
 segments give the reduction's identity (0 for sums, ``fill`` for min/max).
+The masked softmax (GAT's attention) shifts by a per-segment max taken with
+``scatter_reduce`` (amax), as :func:`segment_minmax_fused` does.
 """
 
 import torch
@@ -89,3 +91,47 @@ def segment_moments_fused(data: torch.Tensor, segment_ids: torch.Tensor,
     packed = torch.cat([data, data * data, w[:, None].to(data.dtype)], dim=1)
     s = segment_sum(packed, segment_ids, num_segments)
     return s[:, :d], s[:, -1:], s[:, d : 2 * d]
+
+
+_BIG = 1e9  # the masked logit: float32- and bf16-safe
+
+
+def _segment_max(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int):
+    """Max per segment over the leading axis (``-inf`` where empty); ids
+    outside ``[0, S)`` add nothing. Its gradient is split evenly among
+    tied entries, as JAX's segment max splits it."""
+    valid = (segment_ids >= 0) & (segment_ids < num_segments)
+    shape = (-1,) + (1,) * (data.ndim - 1)
+    data = torch.where(valid.reshape(shape), data, float("-inf"))
+    index = torch.where(valid, segment_ids, 0).to(torch.int64).reshape(shape).expand_as(data)
+    out = torch.full((num_segments,) + tuple(data.shape[1:]), float("-inf"),
+                     dtype=data.dtype, device=data.device)
+    return out.scatter_reduce_(0, index, data, "amax")
+
+
+def segment_softmax_unnorm(logits: torch.Tensor, segment_ids: torch.Tensor,
+                           num_segments: int, mask: torch.Tensor = None) -> torch.Tensor:
+    """``exp(logits - segment max)``, exactly zero on masked elements: the
+    stable softmax's numerator terms, whose :func:`segment_sum` is the
+    denominator (GAT folds that sum into its aggregation). ``mask``: bool
+    over the leading axis; masked logits take part in neither the max nor
+    the sum. The max keeps its gradient, as in the JAX package."""
+    m = None
+    if mask is not None:
+        m = mask.reshape(tuple(mask.shape) + (1,) * (logits.ndim - 1))
+        logits = torch.where(m, logits, -_BIG)
+    seg_max = _segment_max(logits, segment_ids, num_segments)
+    seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
+    ids = torch.clamp(segment_ids, 0, max(num_segments - 1, 0))
+    unnorm = torch.exp(logits - seg_max.index_select(0, ids))
+    return unnorm if m is None else torch.where(m, unnorm, 0.0)
+
+
+def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                    mask: torch.Tensor = None) -> torch.Tensor:
+    """Softmax within segments; masked elements get 0 and add nothing to
+    the normaliser (floored at 1e-16)."""
+    unnorm = segment_softmax_unnorm(logits, segment_ids, num_segments, mask)
+    denom = torch.clamp(segment_sum(unnorm, segment_ids, num_segments), min=1e-16)
+    ids = torch.clamp(segment_ids, 0, max(num_segments - 1, 0))
+    return unnorm / denom.index_select(0, ids)

@@ -8,20 +8,32 @@ from hydragnn_tpu_torch.models.common import (
     get_activation,
     global_mean_pool,
 )
+from hydragnn_tpu_torch.models.cgcnn import CGCNNStack, CGConv
 from hydragnn_tpu_torch.models.create import MODEL_TYPES, create_model_config
+from hydragnn_tpu_torch.models.dimenet import DIMEStack, DimeNetConv
 from hydragnn_tpu_torch.models.egnn import E_GCL, EGCLStack
+from hydragnn_tpu_torch.models.gat import GATStack, GATv2Conv
 from hydragnn_tpu_torch.models.gin import GINConv, GINStack
+from hydragnn_tpu_torch.models.mfc import MFConv, MFCStack
 from hydragnn_tpu_torch.models.pna import PNAConv, PNAStack, pna_degree_averages
 from hydragnn_tpu_torch.models.sage import SAGEConv, SAGEStack
 from hydragnn_tpu_torch.models.schnet import CFConv, SCFStack
 
 __all__ = [
     "CFConv",
+    "CGCNNStack",
+    "CGConv",
+    "DIMEStack",
+    "DimeNetConv",
     "EGCLStack",
     "E_GCL",
+    "GATStack",
+    "GATv2Conv",
     "GINConv",
     "GINStack",
     "HydraBase",
+    "MFCStack",
+    "MFConv",
     "MLP",
     "MLPNode",
     "MODEL_TYPES",

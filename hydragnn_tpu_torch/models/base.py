@@ -10,6 +10,13 @@ stacks (``conv``). Submodules carry the JAX package's parameter names
 ``head_{h}_bn_{l}``), which is what lets ``models/bridge.py`` map one onto
 the other by path.
 
+The layer widths come from two hooks, as in the JAX package:
+:meth:`HydraBase.conv_layer_specs` (the encoder) and
+:meth:`HydraBase.node_conv_specs` (a ``conv`` node head) give ``(in, out,
+BatchNorm width, conv keywords)`` per layer; GAT's head concatenation
+overrides both. :meth:`HydraBase.prepare_batch` runs once per forward
+before the first conv (DimeNet hoists its geometry there).
+
 ``forward`` runs the BatchNorm training branch in ``train()`` mode, and
 :meth:`HydraBase.loss` is the weighted multi-task loss (or, with
 ``loss_nll``, the Gaussian NLL on one extra log-variance channel per head).
@@ -18,7 +25,9 @@ with bf16 parameters and inputs (``train/steps.py``'s mixed precision) the
 products run in bf16, BatchNorm statistics and losses in float32, and the
 kernels on float32 upcasts. A batch with dense neighbour lists takes the
 convs' dense branch, which every ported stack has; a stack without one
-(``dense_branch`` False) raises on it.
+(``dense_branch`` False) raises on it. A conv with a stochastic layer
+(GAT's attention dropout, ``stochastic``) draws it in ``train()`` mode
+from the ``generator`` passed to ``forward``; eval is deterministic.
 """
 
 import math
@@ -103,6 +112,8 @@ class HydraBase(nn.Module):
     # whether the convs take the dense neighbour-list branch for a batch
     # that carries the lists
     dense_branch = False
+    # the JAX package's HydraBase.dropout: GAT's attention dropout rate
+    dropout = 0.25
 
     def __init__(
         self,
@@ -150,23 +161,46 @@ class HydraBase(nn.Module):
         return len(self.output_dim)
 
     def make_conv(self, in_dim: int, out_dim: int, last_layer: bool = False,
-                  device=None) -> nn.Module:
+                  device=None, **kw) -> nn.Module:
         """The conv of one layer; ``last_layer`` is True for the encoder's
         last conv and each conv head's output conv (EGNN and SchNet turn
-        their coordinate update off there)."""
+        their coordinate update off there); ``kw``: the rest of the layer
+        spec's keywords (GAT's ``concat``)."""
         raise NotImplementedError
+
+    def conv_layer_specs(self):
+        """``(in_dim, out_dim, bn_dim, conv keywords)`` per encoder layer
+        (the JAX package's ``_conv_layer_specs``)."""
+        return [
+            (self.input_dim if i == 0 else self.hidden_dim, self.hidden_dim, self.hidden_dim,
+             {"last_layer": i == self.num_conv_layers - 1})
+            for i in range(self.num_conv_layers)
+        ]
+
+    def node_conv_specs(self, node_cfg, head_dim: int):
+        """The layer specs of a ``conv`` node head: ``num_headlayers``
+        hidden convs, then the output conv (``_node_conv_specs``)."""
+        dims = node_cfg["dim_headlayers"]
+        specs, prev = [], self.hidden_dim
+        for il in range(node_cfg["num_headlayers"]):
+            specs.append((prev, dims[il], dims[il], {"last_layer": False}))
+            prev = dims[il]
+        specs.append((prev, head_dim, head_dim, {"last_layer": True}))
+        return specs
+
+    def prepare_batch(self, batch: GraphBatch) -> GraphBatch:
+        """Once per forward, before the first conv: values every conv
+        would otherwise recompute alike (the JAX package's
+        ``_prepare_batch``). Default: the batch as it is."""
+        return batch
 
     def build(self, device=None):
         """Create the encoder and the heads (called by the subclass once
         its own conv settings are in place)."""
-        for i in range(self.num_conv_layers):
-            in_dim = self.input_dim if i == 0 else self.hidden_dim
-            last = i == self.num_conv_layers - 1
-            self.add_module(f"encoder_conv_{i}", self.make_conv(
-                in_dim, self.hidden_dim, last_layer=last, device=device,
-            ))
+        for i, (in_dim, out_dim, bn_dim, kw) in enumerate(self.conv_layer_specs()):
+            self.add_module(f"encoder_conv_{i}", self.make_conv(in_dim, out_dim, device=device, **kw))
             if self.conv_use_batchnorm:
-                self.add_module(f"encoder_bn_{i}", MaskedBatchNorm(self.hidden_dim, device=device))
+                self.add_module(f"encoder_bn_{i}", MaskedBatchNorm(bn_dim, device=device))
         heads = self.config_heads
         if "graph" in heads:
             g = heads["graph"]
@@ -200,15 +234,12 @@ class HydraBase(nn.Module):
                         activation=self.activation, device=device,
                     ))
                 elif node_type == "conv":
-                    dims = list(hidden_dims[: node_cfg["num_headlayers"]]) + [head_dim]
-                    prev = self.hidden_dim
-                    for il, od in enumerate(dims):
-                        self.add_module(f"head_{ihead}_conv_{il}", self.make_conv(
-                            prev, od, last_layer=il == len(dims) - 1, device=device,
-                        ))
-                        self.add_module(f"head_{ihead}_bn_{il}", MaskedBatchNorm(od, device=device))
-                        prev = od
-                    self.node_conv_layers[ihead] = len(dims)
+                    specs = self.node_conv_specs(node_cfg, head_dim)
+                    for il, (in_dim, od, bn_dim, kw) in enumerate(specs):
+                        self.add_module(f"head_{ihead}_conv_{il}",
+                                        self.make_conv(in_dim, od, device=device, **kw))
+                        self.add_module(f"head_{ihead}_bn_{il}", MaskedBatchNorm(bn_dim, device=device))
+                    self.node_conv_layers[ihead] = len(specs)
                 else:
                     raise ValueError(
                         f"Unknown head NN structure for node features: {node_type};"
@@ -224,10 +255,27 @@ class HydraBase(nn.Module):
         idx = torch.arange(batch.num_nodes, dtype=torch.int64, device=batch.device)
         return idx - starts[batch.node_graph.to(torch.int64)]
 
-    def forward(self, batch: GraphBatch):
+    def set_dropout(self, rate: float):
+        """Set the dropout rate of the stack and of every conv that has one
+        (the JAX package's ``HydraBase.dropout`` field)."""
+        self.dropout = float(rate)
+        for m in self.modules():
+            if getattr(m, "stochastic", False):
+                m.dropout = float(rate)
+        return self
+
+    @staticmethod
+    def _conv(conv, x, pos, batch, generator):
+        if getattr(conv, "stochastic", False):
+            return conv(x, pos, batch, generator=generator)
+        return conv(x, pos, batch)
+
+    def forward(self, batch: GraphBatch, generator: Optional[torch.Generator] = None):
         """Per-head outputs: graph heads ``[G, dim]``, node heads
         ``[N, dim]`` (padding rows zero for ``mlp`` heads); ``dim`` has one
-        more column, the log-variance, under ``loss_nll``."""
+        more column, the log-variance, under ``loss_nll``. ``generator``:
+        the draws of a stochastic conv in ``train()`` mode (on the model's
+        device)."""
         batch = batch.to(next(self.parameters()).device)
         if "nbr_idx" in batch.extras and not self.dense_branch:
             raise NotImplementedError(
@@ -235,9 +283,10 @@ class HydraBase(nn.Module):
                 "port yet (the JAX package's takes one for such a batch): see "
                 "ROADMAP.md, queue 1"
             )
+        batch = self.prepare_batch(batch)
         x, pos = batch.x, batch.pos
         for i in range(self.num_conv_layers):
-            c, pos = getattr(self, f"encoder_conv_{i}")(x, pos, batch)
+            c, pos = self._conv(getattr(self, f"encoder_conv_{i}"), x, pos, batch, generator)
             if self.conv_use_batchnorm:
                 c = getattr(self, f"encoder_bn_{i}")(c, batch.node_mask)
             x = self.act(c)
@@ -252,7 +301,8 @@ class HydraBase(nn.Module):
             elif ihead in self.node_conv_layers:
                 h, p = x, pos
                 for il in range(self.node_conv_layers[ihead]):
-                    c, p = getattr(self, f"head_{ihead}_conv_{il}")(h, p, batch)
+                    c, p = self._conv(getattr(self, f"head_{ihead}_conv_{il}"), h, p, batch,
+                                      generator)
                     c = getattr(self, f"head_{ihead}_bn_{il}")(c, batch.node_mask)
                     h = self.act(c)
                 outputs.append(h)

@@ -15,10 +15,12 @@ JAX package's names, so a variable's path is its module's path:
 | ``.../kernel_{k}``, ``.../bias_{k}`` of an MLPNode bank | the same, as they are |
 | ``.../scale`` of a BatchNorm | ``.../weight`` |
 | ``batch_stats/.../mean``, ``.../var`` | ``.../running_mean``, ``.../running_var`` |
-| raw ``self.param`` arrays: GIN's ``eps`` (0-d), SchNet's ``lin1``, ``lin2``, ``bias2``, ``coord_mlp_1`` of SchNet and EGNN | the same name, as they are (the port keeps them in the ``x @ W`` layout) |
+| raw ``self.param`` arrays: GIN's ``eps`` (0-d), SchNet's ``lin1``, ``lin2``, ``bias2``, ``coord_mlp_1`` of SchNet and EGNN; MFC's banks ``w_l``, ``b_l``, ``w_r``; GAT's ``w_l``, ``b_l``, ``w_r``, ``b_r``, ``att``, ``bias``; DimeNet's ``rbf/freq`` | the same name, as they are (the port keeps them in the ``x @ W`` layout) |
 
-A stack without encoder BatchNorm (SchNet, EGNN) has no ``encoder_bn_*``
-on either side. Every parameter and persistent buffer of the port must be
+DimeNet's ``TorchLinear``s (with and without a bias) and its residual
+layers (``before_skip_*/lin1``, ``after_skip_*/lin2``, ...) are the Dense
+rows above. A stack without encoder BatchNorm (SchNet, EGNN, DimeNet) has
+no ``encoder_bn_*`` on either side. Every parameter and persistent buffer of the port must be
 filled, and every variable must land, or the load raises.
 
 :func:`load_optax_adam_state` carries optax's Adam/AdamW state (``mu``,

@@ -1,11 +1,13 @@
 """Model factory (port of ``models/create.py``).
 
 ``create_model_config(config["NeuralNetwork"]["Architecture"], ...)``
-builds the stack named by ``model_type`` on the device, with its weights
-drawn from a seeded ``torch.Generator``, in eval mode. PNA, GIN, SAGE,
-SchNet and EGNN are ported; GAT, MFC, CGCNN and DimeNet raise
-``NotImplementedError`` (see ``ROADMAP.md``). :func:`resolve_precision` is
-the JAX package's compute-precision decision, which the trainer reads.
+builds the stack named by ``model_type`` (all nine of the JAX package's)
+on the device, with its weights drawn from a seeded ``torch.Generator``,
+in eval mode. GAT, MFC, CGCNN and DimeNet run no fused kernel of their
+own: their ``aggregation`` modes are one path (a gather in PyTorch, then
+K1), as the JAX package's ``HYDRAGNN_AGG=fused`` leaves them on
+``segment_sum``. :func:`resolve_precision` is the JAX package's
+compute-precision decision, which the trainer reads.
 """
 
 import os
@@ -15,14 +17,20 @@ import torch
 
 from hydragnn_tpu_torch.models.base import HydraBase
 from hydragnn_tpu_torch.models.bridge import init_params
+from hydragnn_tpu_torch.models.cgcnn import CGCNNStack
+from hydragnn_tpu_torch.models.dimenet import DIMEStack
 from hydragnn_tpu_torch.models.egnn import EGCLStack
+from hydragnn_tpu_torch.models.gat import GATStack
 from hydragnn_tpu_torch.models.gin import GINStack
+from hydragnn_tpu_torch.models.mfc import MFCStack
 from hydragnn_tpu_torch.models.pna import PNAStack
 from hydragnn_tpu_torch.models.sage import SAGEStack
 from hydragnn_tpu_torch.models.schnet import SCFStack
 from hydragnn_tpu_torch.utils.device import resolve_device
 
 MODEL_TYPES = ["GIN", "PNA", "GAT", "MFC", "CGCNN", "SAGE", "SchNet", "DimeNet", "EGNN"]
+DIMENET_KEYS = ("basis_emb_size", "envelope_exponent", "int_emb_size", "out_emb_size",
+                "num_after_skip", "num_before_skip", "num_radial", "num_spherical", "radius")
 
 
 def _normalize_weights(task_weights, num_heads):
@@ -49,14 +57,13 @@ def create_model_config(config: dict, device=None, aggregation: str = "fused",
     ``device``: ``None`` means the card (raises without one); ``"cpu"``
     runs the plain PyTorch versions. ``aggregation``: ``"fused"`` (the
     fused message-passing kernels, K3-K7) or ``"segment"`` (a gather in
-    PyTorch, then K2 for PNA and K1 for the rest). ``seed`` seeds the
+    PyTorch, then K2 for PNA and K1 for the rest; GAT, MFC, CGCNN and
+    DimeNet take this path in both modes). ``seed`` seeds the
     ``torch.Generator`` the weights are drawn from."""
     dev = resolve_device(device)
     model_type = config["model_type"]
     if model_type not in MODEL_TYPES:
         raise ValueError(f"Unknown model_type: {model_type}")
-    if model_type not in ("PNA", "GIN", "SAGE", "SchNet", "EGNN"):
-        raise _not_ported(f"the {model_type} stack")
     if config.get("partition_axis") is not None:
         raise _not_ported("partition_axis (graph-partition parallelism)")
     if config.get("conv_checkpointing", False):
@@ -101,6 +108,27 @@ def create_model_config(config: dict, device=None, aggregation: str = "fused",
             radius=config["radius"],
             **common,
         )
+    elif model_type == "GAT":
+        # the reference hard-codes 6 heads and slope 0.05
+        model = GATStack(heads=6, negative_slope=0.05, **common)
+    elif model_type == "MFC":
+        if config.get("max_neighbours") is None:
+            raise ValueError("MFC requires max_neighbours input.")
+        model = MFCStack(max_degree=config["max_neighbours"],
+                         degree_bound=config.get("mfc_degree_bound"), **common)
+    elif model_type == "CGCNN":
+        # constant width (hidden = input_dim); no conv node head
+        heads = config["output_heads"]
+        if ("node" in heads and heads["node"].get("type") == "conv"
+                and "node" in common["output_type"]):
+            raise ValueError('"conv" for node features decoder part in CGCNN is not ready yet.')
+        model = CGCNNStack(**{**common, "hidden_dim": config["input_dim"],
+                              "edge_dim": config.get("edge_dim") or 0})
+    elif model_type == "DimeNet":
+        for key in DIMENET_KEYS:
+            if config.get(key) is None:
+                raise ValueError(f"DimeNet requires {key} input.")
+        model = DIMEStack(**{key: config[key] for key in DIMENET_KEYS}, **common)
     else:
         model = EGCLStack(**{**common, "edge_dim": config.get("edge_dim") or 0})
     init_params(model, torch.Generator().manual_seed(int(seed)))
@@ -118,6 +146,10 @@ _STACK_KEYS = {
     "SAGEStack": "SAGE",
     "SCFStack": "SchNet",
     "EGCLStack": "EGNN",
+    "GATStack": "GAT",
+    "MFCStack": "MFC",
+    "CGCNNStack": "CGCNN",
+    "DIMEStack": "DimeNet",
 }
 
 # the JAX package's width table: under ``mixed_precision: "auto"`` a stack

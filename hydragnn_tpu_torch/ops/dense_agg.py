@@ -1,6 +1,5 @@
 """Dense neighbour-list aggregation: message passing without a scatter
-(port of the part of ``hydragnn_tpu/ops/dense_agg.py`` that the dense
-branches of PNA, GIN, SAGE, SchNet and EGNN run).
+(port of ``hydragnn_tpu/ops/dense_agg.py``).
 
 The host turns a batch's edge list into fixed-width lists per node (numpy):
 ``nbr_idx [N, K_in]``, the sender of each incoming-edge slot, with
@@ -15,14 +14,15 @@ through the forward list.
 
 :func:`gather_neighbors` and :func:`aggregate_to_senders` are
 ``torch.autograd.Function``s with those rules (the JAX package's
-``custom_vjp``s). The sums and statistics accumulate in ``torch.float32``
+``custom_vjp``s). DimeNet's dense branch adds the slot tables
+(``with_slot_tables``: ``out_edge``, ``edge_slot``, ``out_slot``) and three
+more such Functions for one-owner groupings: :func:`group_sum`,
+:func:`gather_rows_to_slots` and :func:`slots_to_rows`, each a gather
+forward and a gather back. The sums and statistics accumulate in ``torch.float32``
 whatever the message dtype and come back at it, as the JAX package's do.
 No kernel of the card runs here: the JAX package's dense branch is XLA
 gathers and reductions (its Pallas variant lost to XLA's fusion and was
 deleted), so the port's is PyTorch ops.
-
-Not ported: ``group_sum``, ``gather_rows_to_slots`` and ``slots_to_rows``
-and the slot tables (DimeNet's triplet path); see ``ROADMAP.md``.
 """
 
 from typing import Optional, Tuple
@@ -78,12 +78,13 @@ def build_neighbor_lists(senders: np.ndarray, receivers: np.ndarray,
     ``False`` row of ``edge_mask`` is padding): ``nbr_idx``, ``nbr_edge``,
     ``nbr_mask`` ``[N, K_in]`` and ``rev_idx``, ``rev_mask`` ``[N,
     K_out]``. A padded slot holds index 0, always in range; its consumer
-    masks it."""
-    if with_slot_tables:
-        raise NotImplementedError(
-            "the slot tables (DimeNet's triplet path) are not ported yet: see "
-            "ROADMAP.md, queue 1"
-        )
+    masks it.
+
+    ``with_slot_tables`` (DimeNet's dense branch) adds ``out_edge [N,
+    K_out]``, the edge row of each outgoing slot (valid where
+    ``rev_mask``), ``edge_slot [E]``, the flat ``receiver * K_in + slot``
+    of each edge, and ``out_slot [E]``, the flat ``sender * K_out + slot``
+    of each edge (0 for a padded edge)."""
     senders = np.asarray(senders, np.int64)
     nbr_edge, nbr_mask = build_group_lists(receivers, edge_mask, num_nodes, k_in, label="k_in")
     nbr_idx = np.where(nbr_mask, senders[nbr_edge], 0).astype(np.int32)
@@ -92,22 +93,35 @@ def build_neighbor_lists(senders: np.ndarray, receivers: np.ndarray,
     flat_of_edge[nbr_edge[rr, ss]] = rr * k_in + ss
     out_edge, rev_mask = build_group_lists(senders, edge_mask, num_nodes, k_out, label="k_out")
     rev_idx = np.where(rev_mask, flat_of_edge[out_edge], 0).astype(np.int32)
-    return {
+    out = {
         "nbr_idx": nbr_idx,
         "nbr_edge": nbr_edge,
         "nbr_mask": nbr_mask,
         "rev_idx": rev_idx,
         "rev_mask": rev_mask,
     }
+    if with_slot_tables:
+        # out_edge's inverse permutation: routes per-(sender, out-slot)
+        # values back onto the edge rows
+        out_slot = np.zeros(senders.shape[0], np.int64)
+        rr, ss = np.nonzero(rev_mask)
+        out_slot[out_edge[rr, ss]] = rr * k_out + ss
+        out.update(
+            out_edge=out_edge,
+            edge_slot=flat_of_edge.astype(np.int32),
+            out_slot=out_slot.astype(np.int32),
+        )
+    return out
 
 
 def attach_neighbor_lists(batch):
     """``batch`` (on the host) with the lists in its ``extras``, at the
-    widths its own real edges need."""
+    widths its own real edges need; with the slot tables too when the batch
+    carries DimeNet's triplets (``trip_ji``)."""
     k_in, k_out = max_degree(batch.senders, batch.receivers, batch.edge_mask)
     lists = build_neighbor_lists(
         batch.senders.numpy(), batch.receivers.numpy(), batch.edge_mask.numpy(),
-        batch.num_nodes, k_in, k_out,
+        batch.num_nodes, k_in, k_out, with_slot_tables="trip_ji" in batch.extras,
     )
     return batch.with_extras({k: torch.from_numpy(v) for k, v in lists.items()})
 
@@ -205,3 +219,92 @@ def dense_sum(h: torch.Tensor, nbr_mask: torch.Tensor) -> torch.Tensor:
     """The masked sum over the K axis of ``h [N, K, D]``, in
     ``torch.float32``, returned at ``h``'s dtype."""
     return torch.where(nbr_mask[..., None], h, 0.0).to(torch.float32).sum(dim=1).to(h.dtype)
+
+
+class _GroupSum(torch.autograd.Function):
+    """``group_sum`` (``dense_agg.py:143-182``): the member rows
+    ``values[lists]`` masked and summed over K in ``torch.float32``, back at
+    ``values``' dtype; the backward gathers ``g[owner_ids]``, zero where a
+    row is not ``valid``."""
+
+    @staticmethod
+    def forward(ctx, values, lists, lists_mask, owner_ids, valid):
+        ctx.save_for_backward(owner_ids, valid)
+        g_rows, k = lists.shape
+        member = values.index_select(0, lists.reshape(-1)).reshape(g_rows, k, values.shape[1])
+        hm = torch.where(lists_mask[..., None], member, 0.0).to(torch.float32)
+        return hm.sum(dim=1).to(values.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        owner_ids, valid = ctx.saved_tensors
+        gv = torch.where(valid[:, None], g.index_select(0, owner_ids), 0.0)
+        return gv, None, None, None, None
+
+
+def group_sum(values: torch.Tensor, lists: torch.Tensor, lists_mask: torch.Tensor,
+              owner_ids: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Segment sum of ``values [T, D]`` for a grouping in which every valid
+    row has one owner (``owner_ids [T]``, ``valid [T]``), given the groups'
+    member lists ``lists [G, K]`` and ``lists_mask``: ``[G, D]``,
+    scatter-free both ways (DimeNet's edge -> node sum)."""
+    return _GroupSum.apply(values, lists, lists_mask, owner_ids, valid)
+
+
+class _GatherRowsToSlots(torch.autograd.Function):
+    """``gather_rows_to_slots`` (``dense_agg.py:185-204``): ``table[lists]``
+    masked by ``lists_mask``; the backward reads the cotangent's slot of
+    each row, ``g.reshape(G*K, D)[slot_of_row]``, zero where a row is not
+    ``row_valid``."""
+
+    @staticmethod
+    def forward(ctx, table, lists, lists_mask, slot_of_row, row_valid):
+        ctx.save_for_backward(slot_of_row, row_valid)
+        g_rows, k = lists.shape
+        rows = table.index_select(0, lists.reshape(-1)).reshape(g_rows, k, table.shape[1])
+        return torch.where(lists_mask[..., None], rows, 0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        slot_of_row, row_valid = ctx.saved_tensors
+        g_rows, k, d = g.shape
+        gt = g.reshape(g_rows * k, d).index_select(0, slot_of_row)
+        return torch.where(row_valid[:, None], gt, 0.0), None, None, None, None
+
+
+def gather_rows_to_slots(table: torch.Tensor, lists: torch.Tensor, lists_mask: torch.Tensor,
+                         slot_of_row: torch.Tensor, row_valid: torch.Tensor) -> torch.Tensor:
+    """``table[lists]`` (``[R, D] -> [G, K, D]``, zero in masked slots) for a
+    one-owner grouping (every valid row sits in one slot, at
+    ``slot_of_row``); the backward is that inverse permutation, a
+    gather."""
+    return _GatherRowsToSlots.apply(table, lists, lists_mask, slot_of_row, row_valid)
+
+
+class _SlotsToRows(torch.autograd.Function):
+    """``slots_to_rows`` (``dense_agg.py:207-225``): the slot of each row,
+    ``slots.reshape(G*K, D)[slot_of_row]``, zero where a row is not
+    ``row_valid``; the backward gathers ``g[lists]`` masked by
+    ``lists_mask``."""
+
+    @staticmethod
+    def forward(ctx, slots, slot_of_row, row_valid, lists, lists_mask):
+        ctx.save_for_backward(lists, lists_mask)
+        g_rows, k, d = slots.shape
+        out = slots.reshape(g_rows * k, d).index_select(0, slot_of_row)
+        return torch.where(row_valid[:, None], out, 0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        lists, lists_mask = ctx.saved_tensors
+        g_rows, k = lists.shape
+        gs = g.index_select(0, lists.reshape(-1)).reshape(g_rows, k, g.shape[1])
+        return torch.where(lists_mask[..., None], gs, 0.0), None, None, None, None
+
+
+def slots_to_rows(slots: torch.Tensor, slot_of_row: torch.Tensor, row_valid: torch.Tensor,
+                  lists: torch.Tensor, lists_mask: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`gather_rows_to_slots`: per-slot values ``slots
+    [G, K, D]`` routed back onto their rows -> ``[R, D]``; the backward
+    gathers through ``lists``."""
+    return _SlotsToRows.apply(slots, slot_of_row, row_valid, lists, lists_mask)

@@ -9,9 +9,11 @@ requests accumulate until the next one would overflow the bucket's pads,
 so every packed batch fits its layout by construction.
 
 A plan built with ``need_neighbors`` packs the dense neighbour lists into
-every batch, at widths taken per bucket from its samples' degrees. Triplet
-packing is not ported, and the port serves from one card, so graph pads
-need no device multiple.
+every batch, at widths taken per bucket from its samples' degrees. A plan
+built with ``need_triplets`` (DimeNet) packs the triplet tables, and a
+request must also fit its bucket's triplet capacity; with the lists too,
+it packs their slot tables instead. The port serves from one card, so
+graph pads need no device multiple.
 """
 
 from dataclasses import dataclass
@@ -26,6 +28,7 @@ from hydragnn_tpu_torch.data.layout import (
     _lcm,
     _partition_node_bounds,
     collate_for_layout,
+    sample_triplets,
 )
 from hydragnn_tpu_torch.ops.dense_agg import max_degree
 
@@ -41,9 +44,14 @@ class BucketCapacity:
 
     max_nodes: int
     max_edges: int
+    max_triplets: int = 0  # 0: the bucket packs no triplets
 
-    def admits(self, num_nodes: int, num_edges: int) -> bool:
-        return num_nodes <= self.max_nodes and num_edges <= self.max_edges
+    def admits(self, num_nodes: int, num_edges: int, num_triplets: int = 0) -> bool:
+        return (
+            num_nodes <= self.max_nodes
+            and num_edges <= self.max_edges
+            and (self.max_triplets == 0 or num_triplets <= self.max_triplets)
+        )
 
 
 @dataclass
@@ -67,18 +75,21 @@ class ServingBucketPlan:
     def num_buckets(self) -> int:
         return len(self.layouts)
 
-    @staticmethod
-    def request_sizes(graph: GraphData) -> Tuple[int, int]:
-        """(nodes, edges) of one request."""
-        return int(graph.num_nodes), int(graph.num_edges)
+    def request_sizes(self, graph: GraphData) -> Tuple[int, int, int]:
+        """(nodes, edges, triplets) of one request; the triplets are counted
+        (and cached on the sample) only where the plan packs them."""
+        t = 0
+        if self.layouts[0].packs_triplets:
+            t = int(sample_triplets(graph)[0].shape[0])
+        return int(graph.num_nodes), int(graph.num_edges), t
 
-    def admit(self, graph: GraphData) -> Tuple[int, Tuple[int, int]]:
-        """``(bucket, (nodes, edges))`` for one request. Raises
+    def admit(self, graph: GraphData) -> Tuple[int, Tuple[int, int, int]]:
+        """``(bucket, (nodes, edges, triplets))`` for one request. Raises
         :class:`GraphTooLarge` when no bucket admits the graph."""
         sizes = self.request_sizes(graph)
-        n, e = sizes
+        n, e, t = sizes
         for b, cap in enumerate(self.capacities):
-            if cap.admits(n, e):
+            if cap.admits(n, e, t):
                 return b, sizes
         raise GraphTooLarge(
             f"graph with {n} nodes / {e} edges exceeds the largest serving "
@@ -108,14 +119,17 @@ class ServingBucketPlan:
         return batch, coords
 
     def fits_batch(self, bucket: int, acc_nodes: int, acc_edges: int,
-                   acc_graphs: int, sizes: Tuple[int, int]) -> bool:
-        """Would adding a request of ``sizes`` keep the accumulating batch
-        inside bucket ``bucket``'s pads?"""
+                   acc_graphs: int, sizes: Tuple[int, ...], acc_trips: int = 0) -> bool:
+        """Would adding a request of ``sizes`` (``(nodes, edges[,
+        triplets])``) keep the accumulating batch inside bucket
+        ``bucket``'s pads?"""
         lay = self.layouts[bucket]
-        n, e = sizes
+        n, e = sizes[0], sizes[1]
+        t = sizes[2] if len(sizes) > 2 else 0
         return (
             acc_nodes + n <= lay.n_pad - 1
             and acc_edges + e <= lay.e_pad
+            and (not lay.packs_triplets or acc_trips + t <= lay.t_pad)
             and acc_graphs + 1 <= lay.g_pad - 1
         )
 
@@ -126,6 +140,7 @@ def plan_from_samples(
     num_buckets: int = 3,
     need_neighbors: bool = False,
     headroom: float = 1.0,
+    need_triplets: bool = False,
 ) -> ServingBucketPlan:
     """Derive a serving plan from representative graphs.
 
@@ -133,7 +148,10 @@ def plan_from_samples(
     bucket's observed maxima always fit. ``headroom`` multiplies the
     observed per-bucket maxima so slightly larger production graphs still
     admit. ``need_neighbors``: the batches carry the dense neighbour lists,
-    each bucket at the largest in- and out-degree of its samples."""
+    each bucket at the largest in- and out-degree of its samples.
+    ``need_triplets``: DimeNet's triplet tables (or, with the lists, their
+    slot tables), each bucket sized at its samples' largest triplet
+    count."""
     if not samples:
         raise ValueError("plan_from_samples needs at least one sample")
     if headroom < 1.0:
@@ -141,6 +159,9 @@ def plan_from_samples(
     nodes = np.asarray([s.num_nodes for s in samples])
     edges = np.asarray([s.num_edges for s in samples])
     kis = kos = np.ones(len(samples), np.int64)
+    trips = np.zeros(len(samples), np.int64)
+    if need_triplets and not need_neighbors:
+        trips = np.asarray([sample_triplets(s)[0].shape[0] for s in samples])
     if need_neighbors:
         deg = [
             max_degree(s.edge_index[0], s.edge_index[1]) if s.num_edges else (1, 1)
@@ -159,13 +180,18 @@ def plan_from_samples(
             continue
         cap_nodes = int(np.ceil(hi * headroom))
         cap_edges = max(int(np.ceil(int(edges[mask].max()) * headroom)), 1)
+        cap_trips = int(np.ceil(int(trips[mask].max()) * headroom))
         layouts.append(
             _layout_from_maxima(
                 cap_nodes, cap_edges, max_batch_graphs, mult, device_multiple,
                 need_neighbors, int(kis[mask].max()), int(kos[mask].max()),
+                need_triplets, cap_trips,
             )
         )
-        capacities.append(BucketCapacity(max_nodes=cap_nodes, max_edges=cap_edges))
+        capacities.append(BucketCapacity(
+            max_nodes=cap_nodes, max_edges=cap_edges,
+            max_triplets=cap_trips if need_triplets else 0,
+        ))
         lo = hi
     smallest = samples[int(np.argmin(nodes))]
     return ServingBucketPlan(

@@ -105,7 +105,7 @@ class _Request:
         self.graph = graph
         self.entry = entry
         self.bucket = bucket
-        self.sizes = sizes  # (nodes, edges)
+        self.sizes = sizes  # (nodes, edges, triplets)
         self.future = ServeFuture()
         self.enqueued_at = time.monotonic()
         self.deadline = deadline  # absolute monotonic time or None
@@ -332,7 +332,8 @@ class InferenceServer:
         bucket (exact for same-size streams; at worst one early flush)."""
         n = sum(r.sizes[0] for r in group)
         e = sum(r.sizes[1] for r in group)
-        return not self.plan.fits_batch(key[2], n, e, len(group), group[-1].sizes)
+        t = sum(r.sizes[2] for r in group)
+        return not self.plan.fits_batch(key[2], n, e, len(group), group[-1].sizes, acc_trips=t)
 
     def _flush_group(self, key) -> int:
         """Dispatch one pending group as one or more full batches; returns
@@ -358,13 +359,15 @@ class InferenceServer:
         served = len(live)
         while live:
             take: List[_Request] = []
-            n = e = 0
+            n = e = t = 0
             for req in live:
-                if take and not self.plan.fits_batch(bucket, n, e, len(take), req.sizes):
+                if take and not self.plan.fits_batch(bucket, n, e, len(take), req.sizes,
+                                                     acc_trips=t):
                     break
                 take.append(req)
                 n += req.sizes[0]
                 e += req.sizes[1]
+                t += req.sizes[2]
             live = live[len(take):]
             self._dispatch_batch(take, bucket, real_nodes=n)
         return served

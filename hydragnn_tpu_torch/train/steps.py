@@ -9,7 +9,9 @@ the weighted multi-task loss, backward through the kernels' backward rules
 ``finite`` flag (the loss and every gradient finite). The three phases run
 inside ``torch.profiler.record_function`` ranges named
 ``train_step.forward``, ``train_step.backward`` and
-``train_step.optimizer``, so that a profile can split the step.
+``train_step.optimizer``, so that a profile can split the step. A
+stochastic layer (GAT's attention dropout) draws from the step's
+``generator``, as the JAX step draws from its ``rng``.
 
 With ``mixed`` (bf16 mixed precision, ``steps.py:131-170`` of the JAX
 package) the batch's ``x`` and ``edge_attr`` go to bf16 (``pos`` stays
@@ -30,7 +32,7 @@ from hydragnn_tpu_torch.graph.batch import GraphBatch
 from hydragnn_tpu_torch.train.common import TrainState
 
 
-def forward_bf16(model, batch: GraphBatch):
+def forward_bf16(model, batch: GraphBatch, generator=None):
     """The model's forward in bf16 mixed precision: ``x`` and
     ``edge_attr`` in bf16, every float32 parameter cast to bf16 (a cast
     autograd records, so gradients reach the float32 parameter), the
@@ -44,19 +46,20 @@ def forward_bf16(model, batch: GraphBatch):
         name: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
         for name, p in model.named_parameters()
     }
-    return torch.func.functional_call(model, params, (batch,))
+    return torch.func.functional_call(model, params, (batch,), {"generator": generator})
 
 
 def train_step(state: TrainState, batch: GraphBatch, guarded: bool = False,
-               mixed: bool = False):
+               mixed: bool = False, generator=None):
     """One optimizer step on ``batch`` (already on the model's device), in
-    bf16 mixed precision with ``mixed``. Returns ``(state, metrics)``; the
+    bf16 mixed precision with ``mixed``; ``generator`` (on the model's
+    device) feeds a stochastic layer. Returns ``(state, metrics)``; the
     state is updated in place."""
     model, optimizer = state.model, state.optimizer
     model.train()
     optimizer.zero_grad(set_to_none=True)
     with record_function("train_step.forward"):
-        outputs = forward_bf16(model, batch) if mixed else model(batch)
+        outputs = forward_bf16(model, batch, generator) if mixed else model(batch, generator)
         loss, tasks = model.loss(outputs, batch)
     with record_function("train_step.backward"):
         loss.backward()

@@ -5,11 +5,16 @@ needs): ``__init__``, ``init_state``, ``put_batch``, ``train_step`` and
 The compute precision is the JAX package's decision
 (``models.create.resolve_precision``), kept in ``precision``; where it
 resolves to bf16 the training step runs in bf16 mixed precision
-(``steps.train_step(mixed=True)``), and evaluation stays float32. Not
+(``steps.train_step(mixed=True)``), and evaluation stays float32. The
+trainer owns the ``torch.Generator`` (on the model's device, seeded 0)
+that each training step's stochastic layers draw from (GAT's attention
+dropout), as the JAX trainer threads its ``rng``. Not
 ported yet (``ROADMAP.md``, queue 1): epochs and ``train_validate_test``,
 staging and scan paths, prefetch, the divergence guard's host side,
 checkpoints, ``freeze_conv`` and meshes.
 """
+
+import torch
 
 from hydragnn_tpu_torch.graph.batch import GraphBatch
 from hydragnn_tpu_torch.models.create import resolve_precision
@@ -30,6 +35,7 @@ class Trainer:
         self.precision = resolve_precision(model, training_config)
         self.guarded = guard_enabled(training_config)
         self.device = next(model.parameters()).device
+        self.generator = torch.Generator(device=self.device).manual_seed(0)
 
     def init_state(self, example_batch: GraphBatch) -> TrainState:
         """The state to train from: the model as built (its weights drawn
@@ -51,7 +57,7 @@ class Trainer:
 
     def train_step(self, state: TrainState, batch: GraphBatch):
         return steps.train_step(state, self.put_batch(batch), guarded=self.guarded,
-                                mixed=self.precision["mixed"])
+                                mixed=self.precision["mixed"], generator=self.generator)
 
     def eval_step(self, state: TrainState, batch: GraphBatch):
         return steps.eval_step(state, self.put_batch(batch))

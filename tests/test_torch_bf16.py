@@ -122,11 +122,9 @@ def _jax_bf16_batch(jbatch):
     )
 
 
-def _jax_dtypes(jmodel, variables, jbatch):
-    """``(outputs, {module path: (input dtype, output dtype)})`` of one
-    JAX forward."""
-    seen = {}
-
+def _recorder(seen):
+    """A flax method interceptor that records ``{module path: (input
+    dtype, output dtype)}`` of every module call into ``seen``."""
     def record(next_fun, args, kwargs, context):
         out = next_fun(*args, **kwargs)
         if context.method_name == "__call__" and args and hasattr(args[0], "dtype"):
@@ -134,7 +132,14 @@ def _jax_dtypes(jmodel, variables, jbatch):
             seen[".".join(context.module.path)] = (str(args[0].dtype), str(first.dtype))
         return out
 
-    with nn.intercept_methods(record):
+    return record
+
+
+def _jax_dtypes(jmodel, variables, jbatch):
+    """``(outputs, {module path: (input dtype, output dtype)})`` of one
+    JAX forward."""
+    seen = {}
+    with nn.intercept_methods(_recorder(seen)):
         outs = jmodel.apply(variables, jbatch, train=False)
     return [np.asarray(o.astype(jnp.float32)) for o in outs], [str(o.dtype) for o in outs], seen
 

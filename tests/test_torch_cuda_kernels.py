@@ -56,6 +56,16 @@ against the same Function on the CPU at the headline's ``[5768, 22, 256]``
 in f32 and bf16, and one PNA dense bf16 training step against the exact
 step within ``chip_smoke.BF16_FACTOR``'s bound.
 
+K1 is also held at the last four stacks' shapes on the main path's
+largest batch (``benchmarks/model_bench.make_graphs``, 64 graphs of 80-90
+atoms, degree 12): GAT's packed numerator and denominator ``[E+N, 6 *
+257]`` at the receivers and the self-loops (an odd width: the scalar
+path), and DimeNet's triplets ``[T, 64]`` summed onto their edges by the
+sorted ``trip_ji`` with the padded tail at edge 0; and GAT's attention
+dropout draws on the card (kept share within 3 sigma of 0.75, kept values
+scaled by exactly ``1/0.75``), with one GAT and one DimeNet training step
+on the card in each branch.
+
 Marked ``cuda``; each test skips inside itself when no card is present.
 On the H100 run ``python -m pytest tests/test_torch_cuda_kernels.py -q
 -p no:randomly --noconftest``: this file imports only the port, while the
@@ -955,3 +965,60 @@ def pytest_egnn_rule_on_the_card(card, h, coord):
         assert bool(torch.isfinite(got).all()), name
         assert float((got.cpu() - want).abs().max()) <= egnn_tolerance(want), name
     assert float(ref_grads[2].abs().max()) > 0  # pos gets its gradient
+
+
+def _oc20_batch(num_graphs=64):
+    """The main path's largest batch shape: ``make_graphs(64, 90, 12)``,
+    with DimeNet's triplet tables."""
+    from hydragnn_tpu_torch.benchmarks.model_bench import _collate, make_graphs
+
+    samples = make_graphs(num_graphs, 90, 12, seed=0)
+    return _collate(samples, num_graphs, 90, 12, with_triplets=True)
+
+
+@pytest.mark.parametrize("stack", ["GAT", "DimeNet"])
+def pytest_segment_sum_kernel_at_the_new_stacks_shapes(card, stack):
+    batch = _oc20_batch().to(card)
+    n, e = batch.num_nodes, batch.num_edges
+    rng = np.random.default_rng(7)
+    if stack == "GAT":
+        ids = torch.cat([batch.receivers, torch.arange(n, dtype=torch.int32, device=card)])
+        mask = torch.cat([batch.edge_mask, batch.node_mask])
+        d, s = 6 * 257, n
+    else:
+        ids, mask = batch.extras["trip_ji"], batch.extras["trip_mask"]
+        d, s = 64, e
+    data = torch.from_numpy(rng.standard_normal((ids.shape[0], d)).astype(np.float32)).to(card)
+    data = torch.where(mask[:, None], data, 0.0)
+    before = segment_sum.launches
+    got = segment_sum(data, ids, s)
+    torch.cuda.synchronize()
+    assert segment_sum.launches == before + 1
+    ref = segment_sum_plain(data, ids, s)
+    assert float((got - ref).abs().max()) <= atomic_tolerance(segment_sum_plain(data.abs(), ids, s))
+
+
+def pytest_gat_dropout_and_new_stack_steps_on_the_card(card):
+    from hydragnn_tpu_torch.benchmarks.model_bench import _arch
+    from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.models.gat import attention_dropout
+    from hydragnn_tpu_torch.ops.dense_agg import attach_neighbor_lists
+    from hydragnn_tpu_torch.train import Trainer
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    x = torch.rand((200000, 6), generator=gen, device=card) + 0.5
+    y = attention_dropout(x, 0.25, gen)
+    kept = y != 0
+    share = float(kept.to(torch.float64).mean())
+    assert abs(share - 0.75) <= 3 * np.sqrt(0.75 * 0.25 / x.numel())
+    assert torch.equal(y[kept], x[kept] / 0.75)
+    host = _oc20_batch(num_graphs=8)
+    for model_type in ("GAT", "DimeNet"):
+        for dense in (False, True):
+            batch = attach_neighbor_lists(host) if dense else host
+            model = create_model_config(_arch(model_type, 32, 2, 90), aggregation="segment")
+            trainer = Trainer(model, {"Optimizer": {"type": "AdamW", "learning_rate": 1e-3}})
+            state = trainer.init_state(batch)
+            for _ in range(2):
+                state, met = trainer.train_step(state, batch)
+            assert bool(torch.isfinite(met["loss"])), (model_type, dense)

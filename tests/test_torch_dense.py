@@ -111,8 +111,13 @@ def pytest_group_lists_equal_jax_and_overflow_raises():
     k_in, k_out = dense.max_degree(senders, receivers, mask)
     with pytest.raises(ValueError, match=f"k_out={k_out - 1}"):
         dense.build_neighbor_lists(senders, receivers, mask, n, k_in, k_out - 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dense.build_neighbor_lists(senders, receivers, mask, n, k_in, k_out, with_slot_tables=True)
+    # the slot tables (DimeNet's dense branch) are ported: the JAX arrays
+    got = dense.build_neighbor_lists(senders, receivers, mask, n, k_in, k_out, with_slot_tables=True)
+    want = jdense.build_neighbor_lists(senders, receivers, mask, n, k_in, k_out, with_slot_tables=True)
+    assert set(got) == set(want)
+    for key in want:
+        assert got[key].dtype == want[key].dtype, key
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
 
 
 def _lists(seed, padded=True):
