@@ -44,8 +44,9 @@ Phases, in order; any failure raises and exits non-zero:
    every kernel of that family's and mode's path must have launched as
    often as its forwards need. Every response is held against a CPU copy
    of the model (the plain versions) run on the graphs of its batch,
-   packed into the same bucket. One full batch of each run is broken down
-   on the device.
+   packed at the smallest pads that hold them (:func:`tight_pack`; the
+   bucket's list widths). One full batch of the largest bucket,
+   from all the graphs, is broken down on the device.
 5. Train: bench.py's MXU-scale PNA row (as in phase 4, at 2 conv layers,
    ``FIVE_TRAIN_LAYERS``; seeded targets, a
    graph target ``[1]`` and a node target ``[n, 1]`` per its
@@ -102,17 +103,40 @@ Phases, in order; any failure raises and exits non-zero:
    apart (:func:`phase_dropout`); their ``MXU_ROWS`` through
    ``bench_model``. Every forward launches K1 once a layer (DimeNet twice)
    besides the pool in segment mode, and only the pool on the lists.
-6. Prints one JSON line per kernel case, the card's name and power limit,
+6. run_training: the port's public entry points, ``run_training`` then
+   ``run_prediction``, on ``unit_test`` data written by
+   :func:`write_unit_test_data` (``tests/synthetic.py``'s generator
+   without scikit-learn). First ``tests/inputs/ci.json`` as
+   ``tests/test_graphs.py`` drives it: PNA, hidden 8, 500 configurations
+   (350/75/75), up to 100 epochs with early stopping, on the ``segment``
+   branch (K2 per layer and K1 for the pool, forward and step); its head
+   errors and sample MAE held to PNA's ceilings (0.20). Then
+   ``ci_multihead.json`` at MXU_HEADLINE's width (hidden 256, 3 layers,
+   64-wide heads; 640 configurations of 54-128 atoms, radius 1.2, the
+   ``total`` path with the plain split, batch 64, 2 epochs), once on the
+   default branch (the dense lists by the static policy: K1 only) and
+   once under ``HYDRAGNN_AGG=fused`` (K3 and K1); after each,
+   ``ModelRegistry.load_checkpoint`` serves the test split through
+   ``InferenceServer`` and every response is held against
+   ``run_prediction``'s row (rtol 1e-3, atol 1e-4), and one more epoch
+   runs under the profiler for the device's busy share. The launches of
+   each run equal its training steps times :func:`launches_per_train_step`
+   plus its evaluation and prediction forwards times
+   :func:`launches_per_forward`. One ``{"run_training": ...}`` line per run:
+   epochs, each epoch's losses and wall, graphs/s, ms per step, the host
+   collation's share of the training wall, launches, the checkpoint's
+   bytes and save time.
+7. Prints one JSON line per kernel case, the card's name and power limit,
    the ``{"kernels": [...]}`` summary (per kernel, its main case's
    ``ms`` and median ``device_ms`` beside the bound, the plain version's
    ``plain_ms`` and the library call's ``library_ms`` and
    ``library_device_ms``; for K2 and K6, which no one PyTorch call
    computes, ``reference_device_ms``: K1's at the same receivers shape,
-   which streams the same ``[E, D]`` bytes; ``launches`` counts phases 4
-   and 5), and as the last line ``{"ok": true, "device": {"platform":
+   which streams the same ``[E, D]`` bytes; ``launches`` counts phases 4,
+   5 and 6), and as the last line ``{"ok": true, "device": {"platform":
    "gpu", ...}}``.
 
-``--cpu-rehearsal`` runs phases 3-5 at a tiny size on the CPU through the
+``--cpu-rehearsal`` runs phases 3-6 at a tiny size on the CPU through the
 plain versions, to check the script's control flow without a card. It
 times nothing on a device and never prints the success line.
 """
@@ -122,6 +146,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -140,6 +165,7 @@ from hydragnn_tpu_torch.benchmarks.model_bench import (
     bench_model,
     make_graphs,
 )
+from hydragnn_tpu_torch.data.layout import collate_for_layout, sample_triplets
 from hydragnn_tpu_torch.graph import collate_graphs, compute_triplets, pack_triplets, pad_sizes_for
 from hydragnn_tpu_torch.models import create_model_config
 from hydragnn_tpu_torch.models.gat import attention_dropout
@@ -801,7 +827,10 @@ def set_bn_stats(model, seed):
                 buf.copy_(torch.from_numpy(rng.uniform(0.5, 2.0, f).astype(np.float32)))
 
 
-def phase_serve(mode, cfg, plan, graphs, device, card, threads=4):
+def phase_serve(mode, cfg, plan, graphs, device, card, *, pool, threads=4):
+    """Serve the burst ``graphs``, hold every response against the CPU,
+    and break down one full batch of the largest bucket taken from
+    ``pool``."""
     t_run = time.perf_counter()
     family = cfg["model_type"]
     model = create_model_config(cfg, device=device, aggregation=aggregation_of(mode), seed=0)
@@ -843,11 +872,12 @@ def phase_serve(mode, cfg, plan, graphs, device, card, threads=4):
             raise AssertionError(f"{family} {mode}: launches {counts}, expected {expected}")
 
     # every response against a CPU copy of the model (the plain versions)
-    # run on the graphs of its batch, packed into the same bucket; a graph's
-    # outputs do not depend on its row within the batch. DimeNet's float32
-    # recurrence amplifies an ulp of sin/cos on short edges, so its
-    # responses are held against a float64 CPU forward, with the float32
-    # CPU forward as the witness of that arithmetic (hold_serve_against_f64)
+    # run on the graphs of its batch, packed at the pads they need
+    # (tight_pack); a graph's outputs depend neither on its row nor on the
+    # padding. DimeNet's float32 recurrence amplifies an ulp of sin/cos on
+    # short edges, so its responses are held against a float64 CPU
+    # forward, with the float32 CPU forward as the witness of that
+    # arithmetic (hold_serve_against_f64)
     ref_model = copy.deepcopy(model).cpu()
     f64 = family in SERVE_AGAINST_F64
     ref64 = copy.deepcopy(ref_model).double() if f64 else None
@@ -859,7 +889,7 @@ def phase_serve(mode, cfg, plan, graphs, device, card, threads=4):
     with torch.inference_mode():
         for idx in by_batch.values():
             bucket = plan.admit(graphs[idx[0]])[0]
-            batch, coords = plan.pack([graphs[i] for i in idx], bucket)
+            batch, coords = tight_pack(plan, [graphs[i] for i in idx], bucket)
             outs = [o.numpy() for o in ref_model(batch)]
             if f64:
                 with float64_port():
@@ -903,8 +933,30 @@ def phase_serve(mode, cfg, plan, graphs, device, card, threads=4):
     }
     emit({"serve": result})
     if device.type == "cuda":
-        breakdown(family, mode, model, plan, graphs, device, card)
+        breakdown(family, mode, model, plan, pool, device, card)
     return result
+
+
+def tight_pack(plan, samples, bucket):
+    """``plan.pack`` of ``samples`` at the smallest pads that hold them
+    (the bucket's list widths kept): a graph's outputs depend neither on
+    its row nor on the padding, and the CPU's forward then costs what the
+    real rows cost, not the bucket's pads."""
+    lay = plan.layouts[bucket]
+    trips = sum(sample_triplets(g)[0].shape[0] for g in samples) if lay.packs_triplets else 0
+    tight = dataclasses.replace(
+        lay,
+        n_pad=-(-(sum(g.num_nodes for g in samples) + 1) // 8) * 8,
+        e_pad=-(-max(sum(g.num_edges for g in samples), 1) // 8) * 8,
+        g_pad=len(samples) + 1,
+        t_pad=-(-max(trips, 1) // 8) * 8 if lay.packs_triplets else lay.t_pad,
+    )
+    batch = collate_for_layout(list(samples), tight)
+    coords, off = [], 0
+    for g, sample in enumerate(samples):
+        coords.append((g, off, int(sample.num_nodes)))
+        off += int(sample.num_nodes)
+    return batch, coords
 
 
 def hold_serve_against_f64(rows):
@@ -1740,6 +1792,279 @@ def phase_dropout(plan, graphs, cfg, device, card):
 # ---- main -------------------------------------------------------------------
 
 
+# ---- phase 6: run_training --------------------------------------------------
+
+CI_CONFIGS = 500  # tests/test_graphs.py's num_samples_tot: 350 / 75 / 75
+CI_CEILINGS = (0.20, 0.20)  # PNA's head error and sample MAE (tests/test_graphs.py:24-34)
+MULTIHEAD_CONFIGS = 640
+MULTIHEAD_CELLS = (3, 5)  # BCC cells of 3-4 on a side: 54-128 atoms
+# ci_multihead.json at MXU_HEADLINE's width; radius 1.2 holds a BCC atom's
+# 8 + 6 neighbours inside a cell
+MULTIHEAD_ARCH = dict(hidden_dim=256, num_conv_layers=3, radius=1.2)
+MULTIHEAD_TRAINING = dict(batch_size=64, num_epoch=2)
+# the stratified split needs as many test samples as composition classes;
+# at 54-128 atoms nearly every composition is its own class (428 classes
+# in 640 configurations), so both packages' stratified split refuses it
+# and the run takes the plain proportional split of the same total path
+MULTIHEAD_STRATIFIED = False
+RUN_REHEARSAL = dict(ci_configs=40, multihead_configs=40, hidden=8, num_epoch=2)
+
+
+def bcc_positions(ux, uy, uz):
+    """The atoms of ``ux * uy * uz`` BCC unit cells, in
+    ``tests/synthetic.py``'s order."""
+    cells = np.stack(np.meshgrid(np.arange(ux), np.arange(uy), np.arange(uz),
+                                 indexing="ij"), axis=-1).reshape(-1, 3).astype(np.float64)
+    return np.stack([cells, cells + 0.5], axis=1).reshape(-1, 3)
+
+
+def unit_test_text(node_feature, positions, out_x):
+    """One ``unit_test`` file (``tests/synthetic.py``'s format and target
+    formulas): the graph line ``sum(out) sum(out_x)``, then per atom
+    ``feature index x y z out_x out_x^2+feature out_x^3``."""
+    out_x2 = out_x ** 2 + node_feature
+    out_x3 = out_x ** 3
+    total = float(out_x.sum() + out_x2.sum() + out_x3.sum())
+    lines = [f"{total:.6g}\t{float(out_x.sum()):.6g}"]
+    for i in range(node_feature.shape[0]):
+        row = [node_feature[i, 0], float(i), *positions[i], out_x[i, 0], out_x2[i, 0],
+               out_x3[i, 0]]
+        lines.append("\t".join(f"{v:.2f}" for v in row))
+    return "\n".join(lines)
+
+
+def write_unit_test_data(path, number_configurations, cells=((1, 3), (1, 3), (1, 2)),
+                         number_types=3, number_neighbors=2, seed=97):
+    """``tests/synthetic.py``'s ``deterministic_graph_data`` without
+    scikit-learn (which the card's host lacks): the same draws from the
+    same seed (cell sizes, then each atom's type), ``out_x`` the mean type
+    of each atom's ``number_neighbors`` nearest atoms (itself first) by
+    scipy's k-d tree. Ties between equidistant neighbours on the lattice
+    may fall otherwise than scikit-learn's, so the files need not be
+    bit-equal; the format and the targets given ``out_x`` are
+    (``tests/test_torch_smoke_checks.py``)."""
+    from scipy.spatial import cKDTree
+
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    sizes = [rng.integers(lo, hi, number_configurations) for lo, hi in cells]
+    for c in range(number_configurations):
+        positions = bcc_positions(*(int(s[c]) for s in sizes))
+        n = positions.shape[0]
+        feature = rng.integers(0, number_types, (n, 1)).astype(np.float64)
+        _, idx = cKDTree(positions).query(positions, k=number_neighbors)
+        out_x = feature[idx.reshape(n, -1), 0].mean(axis=1, keepdims=True)
+        with open(os.path.join(path, f"output{c}.txt"), "w") as f:
+            f.write(unit_test_text(feature, positions, out_x))
+
+
+@contextlib.contextmanager
+def run_directory(path, env=None):
+    """Run inside ``path`` (logs and serialized data land there), with
+    ``env`` set; the working directory and environment come back after."""
+    path.mkdir(parents=True, exist_ok=True)
+    saved_cwd, saved_env = os.getcwd(), dict(os.environ)
+    os.chdir(path)
+    os.environ["SERIALIZED_DATA_PATH"] = str(path)
+    os.environ.update(env or {})
+    try:
+        yield
+    finally:
+        os.chdir(saved_cwd)
+        os.environ.clear()
+        os.environ.update(saved_env)
+
+
+def ci_config(name, data_root, configs, rehearsal):
+    """``tests/inputs/<name>`` with its raw directories written under
+    ``data_root`` (ci.json: three splits at 70/15/15 of ``configs``;
+    ci_multihead.json: one ``total`` of ``configs`` at MXU_HEADLINE's
+    width)."""
+    with open(_build.REPO_ROOT / "tests" / "inputs" / name) as f:
+        config = json.load(f)
+    perc = config["NeuralNetwork"]["Training"]["perc_train"]
+    multihead = "total" in config["Dataset"]["path"]
+    for split in config["Dataset"]["path"]:
+        num = (configs if split == "total" else int(configs * perc) if split == "train"
+               else int(configs * (1 - perc) * 0.5))
+        path = data_root / f"{name.split('.')[0]}_{split}_{num}"
+        if not path.exists():
+            write_unit_test_data(str(path), num,
+                                 cells=(MULTIHEAD_CELLS,) * 3 if multihead else
+                                 ((1, 3), (1, 3), (1, 2)))
+        config["Dataset"]["path"][split] = str(path)
+    if multihead:
+        arch = config["NeuralNetwork"]["Architecture"]
+        arch.update(MULTIHEAD_ARCH)
+        width = max(32, arch["hidden_dim"] // 4)  # model_bench._arch's heads
+        arch["output_heads"]["graph"].update(dim_sharedlayers=width, dim_headlayers=[width] * 2)
+        arch["output_heads"]["node"].update(dim_headlayers=[width] * 2)
+        config["NeuralNetwork"]["Training"].update(MULTIHEAD_TRAINING)
+        config["Dataset"]["compositional_stratified_splitting"] = MULTIHEAD_STRATIFIED
+        if rehearsal:
+            arch["hidden_dim"] = RUN_REHEARSAL["hidden"]
+    if rehearsal:
+        config["NeuralNetwork"]["Training"]["num_epoch"] = RUN_REHEARSAL["num_epoch"]
+    return config
+
+
+def run_and_predict(config, device, mode):
+    """``run_training`` then ``run_prediction`` of ``config``, with the
+    launch counts of the two together; the loaders (parsed again, as
+    ``run_prediction`` parses them) give the batch counts and the test
+    split's order."""
+    from hydragnn_tpu_torch import run_prediction, run_training
+    from hydragnn_tpu_torch.data.loaders import dataset_loading_and_splitting
+
+    train_l, val_l, test_l = dataset_loading_and_splitting(copy.deepcopy(config))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state = run_training(copy.deepcopy(config), device=device)
+    t1 = time.perf_counter()
+    error, tasks, true_values, predicted = run_prediction(copy.deepcopy(config), device=device)
+    t2 = time.perf_counter()
+    counts = launch_counts()
+    arch = dict(config["NeuralNetwork"]["Architecture"], equivariance=False)
+    history = state.info["history"]
+    steps = len(history) * len(train_l)
+    forwards = len(history) * (len(val_l) + len(test_l)) + len(test_l)
+    per_step, per_forward = launches_per_train_step(arch, mode), launches_per_forward(arch, mode)
+    expected = {k: steps * per_step[k] + forwards * per_forward[k] for k in KERNELS}
+    if device.type == "cuda" and counts != expected:
+        raise AssertionError(f"run_training ({mode}): launched {counts}, expected {expected} "
+                             f"({steps} steps, {forwards} forwards)")
+    if not all(np.isfinite([h["train_loss"] for h in history])) or not np.isfinite(error):
+        raise AssertionError(f"run_training ({mode}): losses {history}, error {error}")
+    save = state.info["last_save"]
+    line = {
+        "epochs_run": len(history),
+        "train_loss": [h["train_loss"] for h in history],
+        "val_loss": [h["val_loss"] for h in history],
+        "epoch_wall_s": [h["epoch_s"] for h in history],
+        "train_graphs_per_s": [len(train_l.dataset) / h["train_s"] for h in history],
+        "ms_per_step": [1e3 * h["train_s"] / len(train_l) for h in history],
+        "collate_share_of_train": (sum(h["train_collate_s"] for h in history)
+                                   / sum(h["train_s"] for h in history)),
+        "steps": steps, "forwards": forwards,
+        "launches": {k: v for k, v in counts.items() if v},
+        "launches_per_train_step": {k: v for k, v in per_step.items() if v},
+        "launches_per_forward": {k: v for k, v in per_forward.items() if v},
+        "checkpoint_bytes": save["bytes"],
+        "checkpoint_save_s": save["snapshot_s"] + save["write_s"],
+        "error": error, "head_error": [float(t) for t in tasks],
+        "sample_mae": [float(np.abs(t - p).mean()) for t, p in zip(true_values, predicted)],
+        "run_training_s": t1 - t0, "run_prediction_s": t2 - t1,
+        "graphs": [len(train_l.dataset), len(val_l.dataset), len(test_l.dataset)],
+    }
+    return state, counts, line, (train_l, test_l, predicted)
+
+
+def serve_checkpoint(log_name, test_l, predicted, dense, device):
+    """``ModelRegistry.load_checkpoint(log_name)`` served to the test split
+    (in ``run_prediction``'s order) through ``InferenceServer``; every
+    response held against ``run_prediction``'s rows at the serve phase's
+    rtol and atol. Returns the launches and the largest deviation."""
+    samples = [test_l.dataset[i] for _, chunk in test_l.batch_tasks() for i in chunk]
+    registry = ModelRegistry()
+    entry = registry.load_checkpoint(log_name, device=device)
+    plan = plan_from_samples(samples, max_batch_graphs=64, need_neighbors=dense)
+    reset_launch_counts()
+    with InferenceServer(registry, plan, device=device, queue_capacity=len(samples) + 1) as server:
+        futures = [server.submit(g, model=entry.name) for g in samples]
+        served = [f.result(120) for f in futures]
+    counts = launch_counts()
+    worst = 0.0
+    for ihead, want in enumerate(predicted):
+        got = np.concatenate([np.asarray(r[ihead], np.float32).reshape(-1, 1) for r in served])
+        if got.shape != want.shape:
+            raise AssertionError(f"served head {ihead}: {got.shape} rows for {want.shape}")
+        excess = np.abs(got - want) - (SERVE_ATOL + SERVE_RTOL * np.abs(want))
+        worst = max(worst, float(np.max(np.abs(got - want))))
+        if np.any(excess > 0):
+            raise AssertionError(f"served head {ihead} differs from run_prediction by up to "
+                                 f"{float(np.max(np.abs(got - want)))}")
+    return counts, {"served": len(samples), "max_abs_dev_from_run_prediction": worst}
+
+
+def profiled_epoch(state, config, train_l, device, name):
+    """One more epoch of ``state`` under the profiler: its wall and the
+    device's busy share (device time of its kernels, copies and fills
+    over the wall)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer = Trainer(state.model, config["NeuralNetwork"]["Training"])
+    train_l.set_epoch(MULTIHEAD_TRAINING["num_epoch"])
+    trace = _build.REPO_ROOT / "build" / "chip_smoke" / f"run_training_{name}_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_epoch(state, train_l)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prof.export_chrome_trace(str(trace))
+    by_phase, _, _, ops = split_trace(trace)
+    device_s = sum(by_phase.values()) / 1e3
+    return {"profiled_epoch_s": wall, "profiled_device_s": device_s or "not measured",
+            "device_busy_share": device_s / wall if device_s else "not measured",
+            "profiled_device_ops": ops}
+
+
+def phase_run_training(device, card, rehearsal):
+    """``run_training`` and ``run_prediction`` through the port's entry
+    points (module docstring, phase 6); one ``{"run_training": ...}``
+    line per run. Returns the launches."""
+    root = _build.REPO_ROOT / "build" / "chip_smoke" / "run_training"
+    if root.exists():
+        import shutil
+
+        shutil.rmtree(root)
+    data = root / "data"
+    launches = {name: 0 for name in KERNELS}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    configs = RUN_REHEARSAL["ci_configs"] if rehearsal else CI_CONFIGS
+    config = ci_config("ci.json", data, configs, rehearsal)
+    with run_directory(root / "ci"):
+        _, counts, line, _ = run_and_predict(config, device, "segment")
+    add(counts)
+    mae_ok = all(m < CI_CEILINGS[1] for m in line["sample_mae"])
+    err_ok = all(e < CI_CEILINGS[0] for e in line["head_error"] + [line["error"]])
+    if not rehearsal and not (mae_ok and err_ok):
+        raise AssertionError(f"ci.json PNA misses its ceilings {CI_CEILINGS}: {line}")
+    emit({"run_training": {"config": "ci.json", "model": "PNA", "branch": "segment",
+                           "ceilings": CI_CEILINGS, "ceilings_met": mae_ok and err_ok,
+                           **line, "card": card}})
+
+    configs = RUN_REHEARSAL["multihead_configs"] if rehearsal else MULTIHEAD_CONFIGS
+    config = ci_config("ci_multihead.json", data, configs, rehearsal)
+    for name, env, mode in (("default", {}, "dense"),
+                            ("fused", {"HYDRAGNN_AGG": "fused"}, "fused")):
+        with run_directory(root / f"multihead_{name}", env):
+            if rehearsal:  # hidden 8 is below the dense policy's width
+                mode = "segment" if name == "default" else mode
+            state, counts, line, (train_l, test_l, predicted) = run_and_predict(
+                config, device, mode)
+            add(counts)
+            serve_counts, served = serve_checkpoint(state.info["log_name"], test_l, predicted,
+                                                    mode == "dense", device)
+            path = {k for k, v in launches_per_forward(config["NeuralNetwork"]["Architecture"],
+                                                       mode).items() if v}
+            if device.type == "cuda" and {k for k, v in serve_counts.items() if v} != path:
+                raise AssertionError(f"serving ({name}) launched {serve_counts}, not {path}")
+            add(serve_counts)
+            if device.type == "cuda":
+                served.update(profiled_epoch(state, config, train_l, device, name))
+        emit({"run_training": {"config": "ci_multihead.json", "model": "PNA",
+                               "width": config["NeuralNetwork"]["Architecture"]["hidden_dim"],
+                               "branch": mode, "env": env, **line, **served,
+                               "serve_launches": {k: v for k, v in serve_counts.items() if v},
+                               "card": card}})
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -1808,12 +2133,13 @@ def main(argv=None):
     for family in FAMILIES:
         cfg = arch(size, family)
         for mode in ("fused", "segment"):
-            add(phase_serve(mode, cfg, plan, graphs[:SERVE_REQUESTS], device, card)["launches"])
+            add(phase_serve(mode, cfg, plan, graphs[:SERVE_REQUESTS], device, card,
+                            pool=graphs)["launches"])
     # the dense plan: PNA, and GIN and SAGE, which the JAX package's static
     # policy serves on the lists at this width
     for family in ("PNA", "GIN", "SAGE"):
         add(phase_serve("dense", arch(size, family), dense_plan, graphs[:SERVE_REQUESTS], device,
-                        card)["launches"])
+                        card, pool=graphs)["launches"])
     lap("serve (five stacks)")
     # the last four on the segment plan, and GAT, MFC and DimeNet also on
     # the dense one (the JAX package's static policy at these widths)
@@ -1821,7 +2147,7 @@ def main(argv=None):
         fam_graphs, plans = new_plans[family]
         for mode, fam_plan in plans.items():
             add(phase_serve(mode, arch(size, family), fam_plan, fam_graphs[:NEW_SERVE_REQUESTS],
-                            device, card)["launches"])
+                            device, card, pool=fam_graphs)["launches"])
     lap("serve (GAT, MFC, CGCNN, DimeNet)")
 
     set_targets(graphs, seed=1)
@@ -1852,6 +2178,8 @@ def main(argv=None):
         name = f"MXU_{row['model_type']}_{'dense_bf16' if row.get('dense') else 'segment_f32'}"
         add(phase_bench(name, row, size, device, card))
     lap("bench_model")
+    add(phase_run_training(device, card, rehearsal=args.cpu_rehearsal))
+    lap("run_training")
 
     # K2 and K6 beside K1 at the same receivers shape: the same [E, D] bytes
     # streamed, a sum where K2 also keeps squares and a count and K6

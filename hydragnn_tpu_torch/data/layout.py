@@ -128,12 +128,14 @@ def _layout_from_maxima(max_nodes: int, max_edges: int, batch_size: int,
                        need_triplets=need_triplets, t_pad=t_pad)
 
 
-def collate_for_layout(samples, layout: BatchLayout) -> GraphBatch:
-    """Collate ``samples`` into the static shapes of ``layout`` (inputs
-    only, on the host; move the batch with ``GraphBatch.to``), with the
-    triplet tables and the dense neighbour lists (and their slot tables)
-    in ``extras`` when the layout asks for them."""
-    batch = collate_graphs(samples, layout.n_pad, layout.e_pad, layout.g_pad)
+def collate_for_layout(samples, layout: BatchLayout, head_types=(), head_dims=()) -> GraphBatch:
+    """Collate ``samples`` into the static shapes of ``layout`` (on the
+    host; move the batch with ``GraphBatch.to``), with the triplet tables
+    and the dense neighbour lists (and their slot tables) in ``extras``
+    when the layout asks for them. Inputs only, unless ``head_types`` and
+    ``head_dims`` name the heads whose targets to pack (training)."""
+    batch = collate_graphs(samples, layout.n_pad, layout.e_pad, layout.g_pad,
+                           head_types=tuple(head_types), head_dims=tuple(head_dims))
     extras = {}
     if layout.packs_triplets:
         trips = [sample_triplets(s) + (s.num_nodes, s.num_edges) for s in samples]

@@ -26,7 +26,20 @@ filled, and every variable must land, or the load raises.
 :func:`load_optax_adam_state` carries optax's Adam/AdamW state (``mu``,
 ``nu``, ``count``, and the injected learning rate) into a ``torch.optim``
 optimizer built by ``train.optimizer.select_optimizer`` (which names its
-parameters), by the same path mapping.
+parameters), by the same path mapping, and the learning rate that optax keeps in
+``opt_state.hyperparams`` (``optax.inject_hyperparams``) into every param
+group's ``lr``.
+
+The reverse direction writes the tree the JAX package checkpoints for its
+``TrainState`` (``flax.serialization.to_state_dict`` of it):
+:func:`flax_variables_of` (the port's parameters and BatchNorm statistics
+as ``{"params", "batch_stats"}``), :func:`optax_state_of` (the optimizer
+as ``optax.inject_hyperparams(adam or adamw)``'s state: ``count``,
+``hyperparams.learning_rate``, ``hyperparams_states`` and
+``inner_state``, ``{"0": {count, mu, nu}, "1": {}, ...}`` with one empty
+state per transform after ``scale_by_adam``), and :func:`state_dict_of`
+for a whole ``TrainState``. :func:`restore_state` loads such a tree
+into a ``TrainState``.
 """
 
 from typing import Dict, Iterator, Tuple
@@ -108,9 +121,11 @@ def load_flax_variables(model: nn.Module, variables: Dict) -> nn.Module:
     return model
 
 
-def _as_tensor(value: np.ndarray) -> torch.Tensor:
-    # ascontiguousarray makes a 0-d leaf (GIN's eps) 1-d: reshape back
-    return torch.from_numpy(np.ascontiguousarray(value).reshape(value.shape))
+def _as_tensor(value) -> torch.Tensor:
+    if isinstance(value, torch.Tensor):  # a bfloat16 leaf of a checkpoint
+        return value
+    # a copy: checkpoint leaves are read-only views of the file's bytes
+    return torch.from_numpy(np.array(value, copy=True))
 
 
 def _find_adam_state(tree):
@@ -171,8 +186,131 @@ def load_optax_adam_state(optimizer: torch.optim.Optimizer, opt_state) -> torch.
     step = float(np.asarray(adam["count"]))
     for name, p in params.items():
         optimizer.state[p] = {"step": torch.tensor(step, dtype=torch.float32), **moments[name]}
-    hyper = getattr(opt_state, "hyperparams", None)
+    hyper = (opt_state.get("hyperparams") if isinstance(opt_state, dict)
+             else getattr(opt_state, "hyperparams", None))
     if hyper is not None and "learning_rate" in hyper:
         for group in optimizer.param_groups:
             group["lr"] = float(np.asarray(hyper["learning_rate"]))
     return optimizer
+
+
+# ---------------------------------------------------------------------------
+# the reverse direction: the port's state as the JAX package's tree
+# ---------------------------------------------------------------------------
+
+# the transforms optax chains after scale_by_adam, each with an empty state
+_EMPTY_STATES = {torch.optim.AdamW: 2, torch.optim.Adam: 1}
+
+
+def _flax_path(model: nn.Module, name: str, collection: str):
+    """``(flax path, transpose?)`` of the port's parameter or buffer
+    ``name``: the inverse of :func:`_target`, checked against it."""
+    *mods, leaf = name.split(".")
+    if collection == "batch_stats":
+        leaf = {"running_mean": "mean", "running_var": "var"}[leaf]
+    elif mods and mods[-1] == "final" and leaf in ("weight", "bias"):
+        mods, leaf = mods[:-1], "final_kernel" if leaf == "weight" else "final_bias"
+    elif leaf == "weight":
+        from hydragnn_tpu_torch.models.common import MaskedBatchNorm
+
+        owner = model.get_submodule(".".join(mods))
+        leaf = "scale" if isinstance(owner, MaskedBatchNorm) else "kernel"
+    path = tuple(mods) + (leaf,)
+    back, transpose = _target(path, collection)
+    if back != name:
+        raise ValueError(f"{name} has no flax path (it maps back to {back})")
+    return path, transpose
+
+
+def _nest(tree: Dict, path: Tuple[str, ...], value):
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def _to_numpy(t: torch.Tensor, transpose: bool) -> np.ndarray:
+    arr = t.detach().cpu()
+    if arr.dtype == torch.bfloat16:
+        arr = arr.float()
+    arr = arr.numpy()
+    arr = arr.T if transpose else arr
+    # ascontiguousarray makes a 0-d leaf (GIN's eps) 1-d: reshape back
+    return np.ascontiguousarray(arr).reshape(arr.shape)
+
+
+def flax_variables_of(model: nn.Module) -> Dict:
+    """``{"params": ..., "batch_stats": ...}`` of ``model`` in the JAX
+    package's names and layouts (numpy leaves): what
+    :func:`load_flax_variables` reads back."""
+    out = {"params": {}, "batch_stats": {}}
+    persistent = model.state_dict().keys()
+    for name, p in model.named_parameters():
+        path, transpose = _flax_path(model, name, "params")
+        _nest(out["params"], path, _to_numpy(p, transpose))
+    for name, b in model.named_buffers():
+        if name in persistent:
+            path, transpose = _flax_path(model, name, "batch_stats")
+            _nest(out["batch_stats"], path, _to_numpy(b, transpose))
+    return out
+
+
+def optax_state_of(optimizer: torch.optim.Optimizer, model: nn.Module) -> Dict:
+    """The state of ``optax.inject_hyperparams(adamw or adam)`` that the
+    JAX package's optimizer holds after as many updates as ``optimizer``
+    took: Adam's moments in flax's layout (zeros before the first step),
+    both counts, and the learning rate of the first param group, float32
+    as optax keeps it."""
+    kind = type(optimizer)
+    if kind not in _EMPTY_STATES:
+        raise ValueError(f"no optax counterpart for {kind.__name__}")
+    mu, nu = {}, {}
+    count = 0
+    for group in optimizer.param_groups:
+        names = group.get("param_names")
+        if names is None:
+            raise ValueError("the optimizer must be built over named parameters")
+        for name, p in zip(names, group["params"]):
+            path, transpose = _flax_path(model, name, "params")
+            state = optimizer.state.get(p, {})
+            zeros = torch.zeros_like(p, dtype=torch.float32)
+            _nest(mu, path, _to_numpy(state.get("exp_avg", zeros), transpose))
+            _nest(nu, path, _to_numpy(state.get("exp_avg_sq", zeros), transpose))
+            if "step" in state:
+                count = max(count, int(float(state["step"])))
+    count = np.asarray(count, np.int32)
+    inner = {"0": {"count": count, "mu": mu, "nu": nu}}
+    inner.update({str(i): {} for i in range(1, 1 + _EMPTY_STATES[kind])})
+    return {
+        "count": count,
+        "hyperparams": {
+            "learning_rate": np.asarray(optimizer.param_groups[0]["lr"], np.float32)
+        },
+        "hyperparams_states": {},
+        "inner_state": inner,
+    }
+
+
+def state_dict_of(state) -> Dict:
+    """The tree the JAX package checkpoints for its ``TrainState``
+    (``{"params", "batch_stats", "opt_state", "step"}``) of the port's
+    ``TrainState``."""
+    variables = flax_variables_of(state.model)
+    return {
+        "params": variables["params"],
+        "batch_stats": variables["batch_stats"],
+        "opt_state": optax_state_of(state.optimizer, state.model),
+        "step": np.asarray(state.step, np.int32),
+    }
+
+
+def restore_state(state, restored: Dict):
+    """Load a checkpoint's tree (``params``, ``batch_stats``, and
+    ``opt_state`` and ``step`` when present) into ``state`` in place: the
+    weights, Adam's moments and count, and the learning rate."""
+    load_flax_variables(state.model, {"params": restored["params"],
+                                      "batch_stats": restored.get("batch_stats", {})})
+    if restored.get("opt_state") is not None:
+        load_optax_adam_state(state.optimizer, restored["opt_state"])
+    if restored.get("step") is not None:
+        state.step = int(np.asarray(restored["step"]))
+    return state

@@ -18,6 +18,10 @@ class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+    # what ``run_training`` records of the run: ``log_name``, ``history``
+    # (per epoch: losses, walls, host collation seconds, lr), ``last_save``
+    # (the last checkpoint's bytes and seconds) and ``wall_s``
+    info: dict = dataclasses.field(default_factory=dict)
 
 
 def _env_flag(env_name: str, config: dict, config_key: str, default=False) -> bool:

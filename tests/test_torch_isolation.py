@@ -11,6 +11,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from hydragnn_tpu_torch import run_prediction, run_training
 from hydragnn_tpu_torch.benchmarks.model_bench import bench_model
 from hydragnn_tpu_torch.data import GraphData
 from hydragnn_tpu_torch.models import create_model_config
@@ -28,7 +29,12 @@ def _port_files():
     files = sorted((REPO / "hydragnn_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10 and all(f.exists() for f in files)
     assert REPO / "hydragnn_tpu_torch" / "train" / "trainer.py" in files
-    for new in ("ops/dense_agg.py", "ops/autotune.py", "benchmarks/model_bench.py"):
+    for new in ("ops/dense_agg.py", "ops/autotune.py", "benchmarks/model_bench.py",
+                "run_training.py", "run_prediction.py", "train/driver.py",
+                "train/epoch_driver.py", "train/checkpoint.py", "train/msgpack_codec.py",
+                "train/scheduler.py", "train/predict.py", "data/loaders.py", "data/raw.py",
+                "data/lsms.py", "data/radius_graph.py", "data/transforms.py",
+                "data/serialized.py", "data/split.py", "utils/config.py"):
         assert REPO / "hydragnn_tpu_torch" / new in files
     return files
 
@@ -66,6 +72,7 @@ def pytest_importing_the_port_loads_no_jax():
         "import sys, hydragnn_tpu_torch, hydragnn_tpu_torch.serve, hydragnn_tpu_torch.ops\n"
         "import hydragnn_tpu_torch.train, hydragnn_tpu_torch.benchmarks.model_bench\n"
         "import hydragnn_tpu_torch.ops.dense_agg, hydragnn_tpu_torch.ops.autotune\n"
+        "import hydragnn_tpu_torch.train.driver, hydragnn_tpu_torch.data.loaders\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'hydragnn_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -86,6 +93,52 @@ def pytest_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
         InferenceServer(ModelRegistry(), plan)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench_model(hidden=16, num_graphs=2, nodes=8, degree=4, layers=1, iters=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_training({"NeuralNetwork": {"Architecture": {}}, "Dataset": {}})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_prediction({"NeuralNetwork": {"Architecture": {}}, "Dataset": {}})
+    with pytest.raises(TypeError, match="use_devices"):
+        run_training({}, use_devices=True)
     with pytest.raises(ValueError):
         resolve_device("mps")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+class _Outside:
+    """A class no serialized dataset may name."""
+
+
+def pytest_serialized_unpickler_refuses_other_classes(tmp_path):
+    """The unpickler of serialized splits builds numpy arrays, builtin
+    containers and ``GraphData`` (the JAX package's name read as the
+    port's class) and refuses every other class before constructing it."""
+    import pickle
+
+    import numpy as np
+
+    from hydragnn_tpu_torch.data.serialized import read_serialized
+
+    path = tmp_path / "split.pkl"
+    with open(path, "wb") as f:
+        pickle.dump(np.zeros((2, 1)), f)
+        pickle.dump(np.zeros((2, 1)), f)
+        pickle.dump([GraphData(x=np.ones((2, 1), np.float32))], f)
+    *_, samples = read_serialized(str(path))
+    assert type(samples[0]) is GraphData
+    # a pickle of the JAX package's GraphData loads as the port's
+    from hydragnn_tpu.data.dataobj import GraphData as JaxGraphData
+
+    with open(path, "wb") as f:
+        pickle.dump(np.zeros((2, 1)), f)
+        pickle.dump(np.zeros((2, 1)), f)
+        pickle.dump([JaxGraphData(x=np.ones((2, 1), np.float32))], f)
+    assert b"hydragnn_tpu.data.dataobj" in path.read_bytes()
+    (sample,) = read_serialized(str(path))[2]
+    assert type(sample) is GraphData and sample.num_nodes == 2
+    for bad in (_Outside(), os.system):
+        with open(path, "wb") as f:
+            pickle.dump(np.zeros(1), f)
+            pickle.dump(np.zeros(1), f)
+            pickle.dump([bad], f)
+        with pytest.raises(pickle.UnpicklingError, match="refusing to load"):
+            read_serialized(str(path))
