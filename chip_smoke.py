@@ -5,7 +5,13 @@
     python3 chip_smoke.py --cpu-rehearsal  # tiny size, plain versions, CPU
     python3 chip_smoke.py --step1-bucket   # the last four's step 1 on the smallest bucket
 
-Phases, in order; any failure raises and exits non-zero:
+Phases, in order; any failure raises and exits non-zero. Phases 4-6 run
+through the port's captured programs (``train/capture.py``): every served
+forward, training step and evaluation is a CUDA graph per shape key,
+captured once (its warm-up runs the body eagerly once, which counts as a
+launch of each kernel it calls) and replayed; a replay adds the launches
+its capture recorded, so every launch count below holds replays and
+warm-ups alike (``train.capture_counts``).
 
 1. Card: requires ``torch.cuda.is_available()``, prints the card's name and
    power limit (``nvidia-smi``) and turns TF32 off for f32 products.
@@ -40,6 +46,11 @@ Phases, in order; any failure raises and exits non-zero:
    a seed, non-trivial BatchNorm statistics where the stack has any)
    served by ``InferenceServer`` to 128 molecule-sized graphs (80-90
    atoms, 12 edges per atom) from four threads, once per aggregation mode.
+   The server captures each bucket's forward at warmup: its
+   ``compiles_total`` must equal the buckets after warmup and after the
+   burst; in each stack's first branch a second version is registered
+   after the burst and warmed through the running batcher
+   (``warm_version``), which must verify (3 compiles, then 0).
    Launch counters are zeroed just before each run and read just after;
    every kernel of that family's and mode's path must have launched as
    often as its forwards need. Every response is held against a CPU copy
@@ -55,8 +66,10 @@ Phases, in order; any failure raises and exits non-zero:
    on the largest bucket's batch (n_pad 5768, e_pad 69120, g_pad 65): in
    f32 in ``fused`` and ``segment`` mode, and with the batch's dense
    neighbour lists (PNA's dense branch) in f32 and in bf16 mixed
-   precision. Each run: 1 warm step, 20 timed steps (CUDA events, the
-   median of 5 windows of 4 steps), one profiled step. Every step
+   precision. Each run: step 1 (captured at step 1's shape, then the
+   graphs freed), the step's capture at the batch's shape, 20 timed
+   replays (CUDA events, the median of 5 windows of 4 steps), one profiled
+   replay. Every step
    launches K3 3 times and K1 4 times (the pool, and K3's backward rule
    summing at the senders) in ``fused`` mode, K2 3 times and K1 once in
    ``segment`` mode, K1 once (the pool) in ``dense`` mode; the counts are
@@ -85,9 +98,10 @@ Phases, in order; any failure raises and exits non-zero:
    (:func:`split_trace`). One ``{"train": ...}`` line per run.
    Then the JAX package's headline, ``MXU_HEADLINE``, through the port's
    ``bench_model(**MXU_HEADLINE, iters=20)``: one ``{"train": ...}``
-   line with ms per step, graphs/s, the step's
-   matmul FLOPs and MFU, the device split and the card's name and power
-   limit. PNA is also served once more in phase 4 on a plan whose batches
+   line with ms per step of the captured step, the eager body's
+   (``eager_ms_per_step``), graphs/s, the step's
+   matmul FLOPs and MFU, the replay's device time and busy share and the
+   card's name and power limit. PNA is also served once more in phase 4 on a plan whose batches
    carry the dense lists (``plan_from_samples(need_neighbors=True)``);
    building the lists is host work, in ``pack_ms_host``.
    The last four stacks (:data:`NEW_FAMILIES`) at their bench rows (GAT
@@ -106,27 +120,41 @@ Phases, in order; any failure raises and exits non-zero:
 6. run_training: the port's public entry points, ``run_training`` then
    ``run_prediction``, on ``unit_test`` data written by
    :func:`write_unit_test_data` (``tests/synthetic.py``'s generator
-   without scikit-learn). First ``tests/inputs/ci.json`` as
-   ``tests/test_graphs.py`` drives it: PNA, hidden 8, 500 configurations
-   (350/75/75), up to 100 epochs with early stopping, on the ``segment``
-   branch (K2 per layer and K1 for the pool, forward and step); its head
-   errors and sample MAE held to PNA's ceilings (0.20). Then
+   without scikit-learn), in the four modes of :data:`RUNS`. First
+   ``tests/inputs/ci.json`` as ``tests/test_graphs.py`` drives it: PNA,
+   hidden 8, 500 configurations (350/75/75), up to 100 epochs with early
+   stopping, on the ``segment`` branch (K2 per layer and K1 for the pool,
+   forward and step), streaming and then with ``device_resident_dataset``
+   (staged epochs and evaluations, the staged predict); its head errors
+   and sample MAE held to PNA's ceilings (0.20) both times. Then
    ``ci_multihead.json`` at MXU_HEADLINE's width (hidden 256, 3 layers,
    64-wide heads; 640 configurations of 54-128 atoms, radius 1.2, the
    ``total`` path with the plain split, batch 64, 2 epochs), once on the
-   default branch (the dense lists by the static policy: K1 only) and
-   once under ``HYDRAGNN_AGG=fused`` (K3 and K1); after each,
-   ``ModelRegistry.load_checkpoint`` serves the test split through
-   ``InferenceServer`` and every response is held against
-   ``run_prediction``'s row (rtol 1e-3, atol 1e-4), and one more epoch
-   runs under the profiler for the device's busy share. The launches of
-   each run equal its training steps times :func:`launches_per_train_step`
-   plus its evaluation and prediction forwards times
-   :func:`launches_per_forward`. One ``{"run_training": ...}`` line per run:
+   default branch (the dense lists by the static policy: K1 only) with
+   ``steps_per_dispatch`` 4 and ``device_prefetch`` 2, and once under
+   ``HYDRAGNN_AGG=fused`` (K3 and K1) with ``device_resident_dataset``;
+   after each run, ``ModelRegistry.load_checkpoint`` serves the test
+   split through ``InferenceServer`` and every response is held against
+   ``run_prediction``'s row (rtol 1e-3, atol 1e-4), and two more epochs
+   run in the run's mode, the second under the profiler, for the
+   device's busy share. The launches of each run equal its training
+   steps (and its captures' warm-up steps) times
+   :func:`launches_per_train_step` plus its evaluation and prediction
+   forwards (and warm-up forwards) times :func:`launches_per_forward`.
+   One ``{"run_training": ...}`` line per run:
    epochs, each epoch's losses and wall, graphs/s, ms per step, the host
    collation's share of the training wall, launches, the checkpoint's
    bytes and save time.
-7. Prints one JSON line per kernel case, the card's name and power limit,
+7. Capture: one ``{"capture": ...}`` line of phase 4's compile counters
+   and ``warm_version`` results, one of phase 5's ``bench_model`` rows
+   (captured and eager ms a step, the replay's busy share and device ops,
+   launches per replay); then PNA at the training batch in ``fused``,
+   ``segment`` and dense bf16: three replays (from a host batch, a
+   device batch, a host batch) and evaluations under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync inside), and
+   a learning rate lowered tenfold after capture, the replayed update
+   held against two eager steps at the new rate (:func:`hold_update`).
+8. Prints one JSON line per kernel case, the card's name and power limit,
    the ``{"kernels": [...]}`` summary (per kernel, its main case's
    ``ms`` and median ``device_ms`` beside the bound, the plain version's
    ``plain_ms`` and the library call's ``library_ms`` and
@@ -184,7 +212,15 @@ from hydragnn_tpu_torch.serve import (
     ModelRegistry,
     plan_from_samples,
 )
-from hydragnn_tpu_torch.train import Trainer
+from hydragnn_tpu_torch.train import (
+    Trainer,
+    capture_counts,
+    get_learning_rate,
+    reset_capture_counts,
+    select_optimizer,
+    set_learning_rate,
+    steps as train_steps,
+)
 from hydragnn_tpu_torch.utils.timing import call_ms, device_ms
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -827,10 +863,14 @@ def set_bn_stats(model, seed):
                 buf.copy_(torch.from_numpy(rng.uniform(0.5, 2.0, f).astype(np.float32)))
 
 
-def phase_serve(mode, cfg, plan, graphs, device, card, *, pool, threads=4):
+def phase_serve(mode, cfg, plan, graphs, device, card, *, pool, threads=4, warm=False):
     """Serve the burst ``graphs``, hold every response against the CPU,
     and break down one full batch of the largest bucket taken from
-    ``pool``."""
+    ``pool``. The server captures one forward per bucket at warmup:
+    ``compiles_total`` must equal the buckets after warmup and after the
+    burst. With ``warm``, a second version of the model (the same weights)
+    is registered after the burst and warmed through the running batcher
+    (``warm_version``), which must verify."""
     t_run = time.perf_counter()
     family = cfg["model_type"]
     model = create_model_config(cfg, device=device, aggregation=aggregation_of(mode), seed=0)
@@ -849,6 +889,7 @@ def phase_serve(mode, cfg, plan, graphs, device, card, *, pool, threads=4):
     # room for the whole burst: the smoke measures serving, not shedding
     server = InferenceServer(registry, plan, queue_capacity=len(graphs), device=device)
     server.start()
+    compiles = {"after_warmup": server.metrics.snapshot()["compiles_total"]}
     t0 = time.monotonic()
     workers = [
         threading.Thread(target=submit, args=(range(k, len(graphs), threads),))
@@ -861,9 +902,17 @@ def phase_serve(mode, cfg, plan, graphs, device, card, *, pool, threads=4):
         if w.is_alive():
             raise RuntimeError("a submitting thread did not finish")
     answers = [f.result(600) for f in futures]
-    server.stop()
     counts = launch_counts()
     snap = server.metrics.snapshot()
+    compiles["after_burst"] = snap["compiles_total"]
+    warmed = None
+    if warm:
+        registry.register(family.lower(), copy.deepcopy(model))
+        warmed = server.warm_version(family.lower())
+    server.stop()
+    if compiles != {"after_warmup": plan.num_buckets, "after_burst": plan.num_buckets} or (
+            warmed is not None and not warmed["verified"]):
+        raise AssertionError(f"{family} {mode}: compiles_total {compiles}, warm_version {warmed}")
 
     forwards = snap["batches_total"] + plan.num_buckets  # + one warmup per bucket
     if device.type == "cuda":
@@ -928,6 +977,8 @@ def phase_serve(mode, cfg, plan, graphs, device, card, *, pool, threads=4):
         "max_abs_err_vs_cpu": worst,
         "against_float64": f64_check,
         "padding_waste": server.metrics.padding_waste_ratio(),
+        "compiles_total": compiles,
+        "warm_version": warmed,
         "card": card,
         "run_s": time.perf_counter() - t_run,  # the check against the CPU included
     }
@@ -1202,14 +1253,28 @@ class KinkReLUs:
     def __init__(self, record=True):
         self.record = record
         self.inputs, self.flip, self.calls = [], {}, 0
+        self.captured = False
 
     def __call__(self, x):
         site = self.calls
         self.calls += 1
         if self.record:
-            self.inputs.append(x.detach().to("cpu", torch.float64, copy=True))
+            if x.is_cuda and torch.cuda.is_current_stream_capturing():
+                # a captured step: the graph's own copy, which its replay
+                # fills (the capture's warm-up records go: they are a
+                # different run of the same step); read with card_inputs()
+                if not self.captured:
+                    self.inputs, self.captured = [], True
+                self.inputs.append(x.detach().clone())
+            else:
+                self.inputs.append(x.detach().to("cpu", torch.float64, copy=True))
             return F.relu(x)
         return _KinkReLU.apply(x, self, site)
+
+    def card_inputs(self):
+        """The recorded inputs on the host, in float64 (after the replay
+        that fills a captured step's)."""
+        return [t.to("cpu", torch.float64) for t in self.inputs]
 
     def install(self, model):
         for m in model.modules():
@@ -1489,22 +1554,25 @@ def split_trace(path):
     """Device time of one profiled step by phase and by op, and the number
     of device ops, from the profiler's trace: each kernel, copy or fill is
     put in the phase
-    (``train_step.forward``, ``.backward``, ``.optimizer``; else ``other``)
-    whose range on the host holds the call that launched it (matched by
+    (``train_step.forward``, ``.backward``, ``.optimizer``, ``replay``: a
+    captured program's graph, whose kernels the graph's launch issued;
+    else ``other``) whose range on the host holds the call that launched it (matched by
     correlation id; the backward's launches come from autograd's thread
     while the main thread waits inside the backward range)."""
     with open(path) as f:
         trace = json.load(f)
     events = trace["traceEvents"] if isinstance(trace, dict) else trace
     ranges = [
-        (ev["ts"], ev["ts"] + ev.get("dur", 0), ev["name"]) for ev in events
-        if ev.get("cat") == "user_annotation" and ev.get("name") in TRAIN_PHASES
+        (ev["ts"], ev["ts"] + ev.get("dur", 0),
+         "replay" if ev["name"].startswith("replay.") else ev["name"]) for ev in events
+        if ev.get("cat") == "user_annotation"
+        and (ev.get("name") in TRAIN_PHASES or ev.get("name", "").startswith("replay."))
     ]
     launched_at = {
         ev["args"]["correlation"]: ev["ts"] for ev in events
         if ev.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in ev.get("args", {})
     }
-    by_phase = {name: 0.0 for name in TRAIN_PHASES + ("other",)}
+    by_phase = {name: 0.0 for name in TRAIN_PHASES + ("replay", "other")}
     by_op, backward_ops, count = {}, {}, 0
     for ev in events:
         if ev.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
@@ -1543,13 +1611,14 @@ def trace_split(trace, ms_per_step):
 
 def phase_bench(name, row, size, device, card):
     """One ``bench_model`` row (``row``: its keyword arguments) through the
-    port's ``bench_model``: 1 warm step, 20 steps between CUDA events, one
-    ``eval_step``, then one profiled step; every step and the evaluation
+    port's ``bench_model``: 1 warm step (the step's capture, then a
+    replay), 20 replays between CUDA events, one ``eval_step``, one
+    profiled replay, then the same body eagerly (1 + 20 steps:
+    ``eager_ms_per_step``); every step, warm-up and evaluation
     launch what :func:`launches_per_train_step` and
     :func:`launches_per_forward` say (the row's mode: ``dense`` with the
     lists, else ``bench_model``'s ``segment``). The CPU rehearsal runs the
-    row at the tiny size. Prints one ``{"train": ...}`` line; returns the
-    launches."""
+    row at the tiny size. Prints one ``{"train": ...}`` line; returns it."""
     on_card = device.type == "cuda"
     kw = dict(row) if on_card else dict(
         row, hidden=size["hidden"], num_graphs=size["batch"],
@@ -1558,24 +1627,30 @@ def phase_bench(name, row, size, device, card):
     trace = _build.REPO_ROOT / "build" / "chip_smoke" / f"bench_{name}_trace.json"
     trace.parent.mkdir(parents=True, exist_ok=True)
     reset_launch_counts()
+    before = capture_counts()
     result = bench_model(**kw, iters=iters, device=device, trace_path=trace if on_card else None)
     counts = launch_counts()
+    warm = {k: capture_counts()[k] - before[k] for k in ("warm_steps", "warm_forwards")}
     cfg = _arch(kw["model_type"], kw["hidden"], kw["layers"], kw["nodes"])
     mode = "dense" if kw.get("dense") else "segment"
     per_step = launches_per_train_step(cfg, mode)
     per_eval = launches_per_forward(cfg, mode)
-    n_steps = 1 + iters + on_card
-    if on_card and counts != {k: n_steps * v + per_eval[k] for k, v in per_step.items()}:
-        raise AssertionError(f"{name}: {n_steps} steps and eval launched {counts}")
+    # the captured steps (and the capture's warm-up step), the eager ones,
+    # and the captured eval (and its warm-up forward)
+    n_steps = result["captured_steps"] + warm["warm_steps"] + result["eager_steps"]
+    n_evals = 1 + warm["warm_forwards"]
+    if on_card and counts != {k: n_steps * v + n_evals * per_eval[k]
+                              for k, v in per_step.items()}:
+        raise AssertionError(f"{name}: {n_steps} steps and {n_evals} evals launched {counts}")
     if not np.isfinite(result["eval_loss"]):
         raise AssertionError(f"{name}: eval loss {result['eval_loss']}")
     result = {"config": name, **result,
-              "launches_per_step": {k: v for k, v in per_step.items() if v}}
+              "launches_per_replay": {k: v for k, v in per_step.items() if v}}
     if on_card:
         result.update(trace_split(trace, result["ms_per_step"]))
     result.update(launches=counts, card=card)
     emit({"train": result})
-    return counts
+    return result
 
 
 def phase_train(mode, cfg, plan, graphs, device, card, bf16=False, windows=TRAIN_WINDOWS,
@@ -1623,30 +1698,40 @@ def phase_train(mode, cfg, plan, graphs, device, card, bf16=False, windows=TRAIN
     family = cfg["model_type"]
     what = f"{family} {mode} {precision}"
 
-    def steps(n, on=None):
+    def steps(n, on=None, prepare=False):
+        """``n`` captured steps (a new shape captures first: its warm-up
+        step runs eagerly and counts; ``prepare``: the capture alone),
+        their launches held to the steps the card ran."""
         nonlocal state
         reset_launch_counts()
+        warm0 = capture_counts()["warm_steps"]
         losses = []
+        if prepare:
+            trainer.prepare_step(state, batch)
         for _ in range(n):
             state, met = trainer.train_step(state, batch if on is None else on)
             losses.append(met["loss"])
         counts = launch_counts()
-        if on_card and counts != {k: n * v for k, v in per_step.items()}:
-            raise AssertionError(f"{what} train: {n} steps launched {counts}, "
+        ran = n + capture_counts()["warm_steps"] - warm0
+        if on_card and counts != {k: ran * v for k, v in per_step.items()}:
+            raise AssertionError(f"{what} train: {ran} steps launched {counts}, "
                                  f"expected {per_step} per step")
         for k, v in counts.items():
             launches[k] += v
         return losses
 
     # step 1 records the card's ReLU inputs (for kink_flips), then the
-    # model's own ReLU is back for the timed steps
+    # model's own ReLU is back, and the timed steps capture afresh
     card_acts = None if bf16 else KinkReLUs()
     if card_acts is not None:
         card_acts.install(model)
     first = steps(1, on=trainer.put_batch(host1))[0]
+    step1 = snapshot(model)
     if card_acts is not None:
         card_acts.remove(model)
-    step1 = snapshot(model)
+        card_acts.inputs = card_acts.card_inputs()
+        trainer.release()
+    steps(0, prepare=True)  # the timed windows replay only
 
     # each window: CUDA events around 4 steps, and the host's clock around
     # issuing them (close to the events' time when the host sets the pace)
@@ -1730,10 +1815,12 @@ def phase_train(mode, cfg, plan, graphs, device, card, bf16=False, windows=TRAIN
         result.update(ms_per_step="not measured (cpu rehearsal)",
                       graphs_per_s="not measured (cpu rehearsal)")
     reset_launch_counts()
-    ev = trainer.eval_step(state, batch)
+    warm0 = capture_counts()["warm_forwards"]
+    ev = trainer.eval_step(state, batch)  # captured: its warm-up forward, then the replay
     counts = launch_counts()
-    if on_card and counts != launches_per_forward(cfg, mode):
-        raise AssertionError(f"{what} eval: launches {counts}")
+    ran = 1 + capture_counts()["warm_forwards"] - warm0
+    if on_card and counts != {k: ran * v for k, v in launches_per_forward(cfg, mode).items()}:
+        raise AssertionError(f"{what} eval: {ran} forwards launched {counts}")
     for k, v in counts.items():
         launches[k] += v
     eval_loss = float(ev["loss"])
@@ -1746,6 +1833,7 @@ def phase_train(mode, cfg, plan, graphs, device, card, bf16=False, windows=TRAIN
     result.update(cpu_reference_s=cpu_s, run_s=time.perf_counter() - t_run,
                   matmul_probe=matmul_probe(device))
     emit({"train": result})
+    trainer.release()
     return launches
 
 
@@ -1787,6 +1875,100 @@ def phase_dropout(plan, graphs, cfg, device, card):
     if abs(share - (1 - GAT_DROPOUT)) > 3 * sigma or not exact or not np.isfinite(loss):
         raise AssertionError(f"GAT dropout: kept {share} (3 sigma {3 * sigma}), "
                              f"scaled exactly {exact}, loss {loss}")
+
+
+# ---- phase 7: capture ------------------------------------------------------------
+
+
+def hold_update(cap, eagers, start, lr, rel):
+    """A replayed step's parameter updates against two eager steps' from
+    the same state: within ``rel`` relative plus ``1e-2 lr`` where the
+    eager gradient is above ``1e-3`` of its tensor's largest, within
+    ``2 lr`` below it (Adam's update there is ``lr`` times a sign that
+    rounding can flip), each plus 4 times the two eager steps' own spread
+    (the atomics' order; Adam's first moment cancels over the steps, so an
+    update's relative error can exceed its gradient's). Returns the
+    largest update of the replay."""
+    first, second = (dict(m.named_parameters()) for m in eagers)
+    moved = 0.0
+    for name, p in cap.named_parameters():
+        q = first[name]
+        du, de = (p - start[name]).double(), (q - start[name]).double()
+        spread = float((de - (second[name] - start[name]).double()).abs().max())
+        ge = q.grad.double().abs()
+        sure = ge > 1e-3 * float(ge.max())
+        bound = rel * de.abs() + 1e-2 * lr + 4 * spread
+        bad = ((du - de).abs() > bound)[sure].any() or \
+            ((du - de).abs()[~sure] > 2 * lr + 4 * spread).any()
+        if bool(bad):
+            worst = float(((du - de).abs() - bound)[sure].max()) if bool(sure.any()) else None
+            raise AssertionError(f"replayed update of {name} differs from the eager one "
+                                 f"(worst excess {worst}, lr {lr}, eager spread {spread})")
+        moved = max(moved, float(du.abs().max()))
+    return moved
+
+
+def phase_capture(plan, graphs, device, card, served, benched):
+    """Phase 7: the captured programs (module docstring). (a) and (b)
+    summarise phases 4 and 5; (c) replays PNA at the training batch in
+    ``fused``, ``segment`` and dense bf16 under
+    ``torch.cuda.set_sync_debug_mode("error")``, then lowers the learning
+    rate tenfold and holds the replayed update against an eager step at
+    the new rate (:func:`hold_update`)."""
+    emit({"capture": {"serve_compiles": [
+        {"family": r["family"], "mode": r["mode"], "buckets": plan.num_buckets,
+         "compiles_total": r["compiles_total"], "warm_version": r["warm_version"]}
+        for r in served]}})
+    emit({"capture": {"bench_rows": [
+        {k: r.get(k) for k in ("config", "ms_per_step", "eager_ms_per_step",
+                               "device_busy_share", "device_ops_per_step",
+                               "launches_per_replay")} for r in benched], "card": card}})
+    if device.type != "cuda":
+        return
+    cfg = dict(arch(FULL, "PNA"), num_conv_layers=FIVE_TRAIN_LAYERS)
+    for mode, bf16 in (("fused", False), ("segment", False), ("dense", True)):
+        model = create_model_config(cfg, device=device, aggregation=aggregation_of(mode), seed=0)
+        host = train_batch(plan, graphs, cfg, dense=mode == "dense")
+        trainer = Trainer(model, train_config(bf16))
+        state, _ = trainer.train_step(trainer.init_state(host), host)  # the captures
+        trainer.eval_step(state, host)
+        dev = trainer.put_batch(host)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for b in (host, dev, host):
+                state, met = trainer.train_step(state, b)
+                trainer.eval_step(state, b)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        lr = get_learning_rate(state.optimizer) / 10
+        set_learning_rate(state.optimizer, lr)
+        start = {n: p.detach().clone() for n, p in model.named_parameters()}
+        twins = []
+        for _ in range(2):  # eager twins: copies of the model and the optimizer's state
+            twin = copy.deepcopy(model)
+            twin_opt = select_optimizer(train_config(bf16), twin)
+            for p, q in zip(model.parameters(), twin.parameters()):
+                twin_opt.state[q] = {k: v.clone() for k, v in state.optimizer.state[p].items()}
+            set_learning_rate(twin_opt, lr)
+            twin_state = dataclasses.replace(state, model=twin, optimizer=twin_opt)
+            _, tmet = train_steps.train_step(twin_state, trainer.put_batch(host),
+                                             mixed=trainer.precision["mixed"],
+                                             generator=trainer.generator)
+            twins.append(twin)
+        state, met = trainer.train_step(state, host)
+        moved = hold_update(model, twins, start, lr, rel=1e-2 if bf16 else 1e-3)
+        counts = trainer.programs(state).counts()
+        emit({"capture": {"family": "PNA", "mode": mode, "precision": "bf16" if bf16 else "f32",
+                          "replays_without_host_sync": 3, "lr_after": lr,
+                          "largest_update_after": moved,
+                          "loss": float(met["loss"]), "eager_loss": float(tmet["loss"]),
+                          "programs": counts, "card": card}})
+        if moved > 5 * lr:
+            raise AssertionError(f"PNA {mode}: a replay moved a parameter by {moved} at lr {lr}")
+        if counts["train_step"]["captures"] != 1 or counts["eval_step"]["captures"] != 1:
+            raise AssertionError(f"PNA {mode}: programs {counts}")
+        trainer.release()
 
 
 # ---- main -------------------------------------------------------------------
@@ -1918,6 +2100,7 @@ def run_and_predict(config, device, mode):
 
     train_l, val_l, test_l = dataset_loading_and_splitting(copy.deepcopy(config))
     reset_launch_counts()
+    reset_capture_counts()
     t0 = time.perf_counter()
     state = run_training(copy.deepcopy(config), device=device)
     t1 = time.perf_counter()
@@ -1929,10 +2112,13 @@ def run_and_predict(config, device, mode):
     steps = len(history) * len(train_l)
     forwards = len(history) * (len(val_l) + len(test_l)) + len(test_l)
     per_step, per_forward = launches_per_train_step(arch, mode), launches_per_forward(arch, mode)
-    expected = {k: steps * per_step[k] + forwards * per_forward[k] for k in KERNELS}
+    # every program's capture ran its body once eagerly first (warm-up)
+    programs = capture_counts()
+    expected = {k: (steps + programs["warm_steps"]) * per_step[k]
+                + (forwards + programs["warm_forwards"]) * per_forward[k] for k in KERNELS}
     if device.type == "cuda" and counts != expected:
         raise AssertionError(f"run_training ({mode}): launched {counts}, expected {expected} "
-                             f"({steps} steps, {forwards} forwards)")
+                             f"({steps} steps, {forwards} forwards, programs {programs})")
     if not all(np.isfinite([h["train_loss"] for h in history])) or not np.isfinite(error):
         raise AssertionError(f"run_training ({mode}): losses {history}, error {error}")
     save = state.info["last_save"]
@@ -1945,7 +2131,7 @@ def run_and_predict(config, device, mode):
         "ms_per_step": [1e3 * h["train_s"] / len(train_l) for h in history],
         "collate_share_of_train": (sum(h["train_collate_s"] for h in history)
                                    / sum(h["train_s"] for h in history)),
-        "steps": steps, "forwards": forwards,
+        "steps": steps, "forwards": forwards, "programs": programs,
         "launches": {k: v for k, v in counts.items() if v},
         "launches_per_train_step": {k: v for k, v in per_step.items() if v},
         "launches_per_forward": {k: v for k, v in per_forward.items() if v},
@@ -1987,32 +2173,55 @@ def serve_checkpoint(log_name, test_l, predicted, dense, device):
 
 
 def profiled_epoch(state, config, train_l, device, name):
-    """One more epoch of ``state`` under the profiler: its wall and the
-    device's busy share (device time of its kernels, copies and fills
-    over the wall)."""
+    """Two more epochs of ``state`` in the run's mode (streaming with its
+    ``steps_per_dispatch`` and ``device_prefetch``, or staged), the second
+    under the profiler, after the first captured its programs: the epoch's
+    wall and the device's busy share (device time of its kernels, copies
+    and fills over the wall)."""
     from torch.profiler import ProfilerActivity, profile
 
-    trainer = Trainer(state.model, config["NeuralNetwork"]["Training"])
+    training = config["NeuralNetwork"]["Training"]
+    trainer = Trainer(state.model, training)
+    if training.get("device_resident_dataset"):
+        staged = trainer.stage_batches(list(train_l))
+        epoch = lambda: trainer.train_epoch_staged(state, staged)  # noqa: E731
+    else:
+        epoch = lambda: trainer.train_epoch(state, train_l)  # noqa: E731
     train_l.set_epoch(MULTIHEAD_TRAINING["num_epoch"])
+    epoch()
     trace = _build.REPO_ROOT / "build" / "chip_smoke" / f"run_training_{name}_trace.json"
     trace.parent.mkdir(parents=True, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.train_epoch(state, train_l)
+        epoch()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     prof.export_chrome_trace(str(trace))
     by_phase, _, _, ops = split_trace(trace)
     device_s = sum(by_phase.values()) / 1e3
+    trainer.release()
     return {"profiled_epoch_s": wall, "profiled_device_s": device_s or "not measured",
             "device_busy_share": device_s / wall if device_s else "not measured",
-            "profiled_device_ops": ops}
+            "profiled_device_ops": ops,
+            "profiled_ms_per_step": 1e3 * wall / len(train_l)}
+
+
+# the four runs: (config, label, environment, Training keys, branch); the
+# multi-head runs at MXU_HEADLINE's width take the new dispatch modes
+RUNS = (
+    ("ci.json", "streaming", {}, {}, "segment"),
+    ("ci.json", "device_resident", {}, {"device_resident_dataset": True}, "segment"),
+    ("ci_multihead.json", "default_k4_prefetch2", {},
+     {"steps_per_dispatch": 4, "device_prefetch": 2}, "dense"),
+    ("ci_multihead.json", "fused_device_resident", {"HYDRAGNN_AGG": "fused"},
+     {"device_resident_dataset": True}, "fused"),
+)
 
 
 def phase_run_training(device, card, rehearsal):
     """``run_training`` and ``run_prediction`` through the port's entry
-    points (module docstring, phase 6); one ``{"run_training": ...}``
-    line per run. Returns the launches."""
+    points (module docstring, phase 6) in the four modes of :data:`RUNS`;
+    one ``{"run_training": ...}`` line per run. Returns the launches."""
     root = _build.REPO_ROOT / "build" / "chip_smoke" / "run_training"
     if root.exists():
         import shutil
@@ -2025,26 +2234,15 @@ def phase_run_training(device, card, rehearsal):
         for k, v in counts.items():
             launches[k] += v
 
-    configs = RUN_REHEARSAL["ci_configs"] if rehearsal else CI_CONFIGS
-    config = ci_config("ci.json", data, configs, rehearsal)
-    with run_directory(root / "ci"):
-        _, counts, line, _ = run_and_predict(config, device, "segment")
-    add(counts)
-    mae_ok = all(m < CI_CEILINGS[1] for m in line["sample_mae"])
-    err_ok = all(e < CI_CEILINGS[0] for e in line["head_error"] + [line["error"]])
-    if not rehearsal and not (mae_ok and err_ok):
-        raise AssertionError(f"ci.json PNA misses its ceilings {CI_CEILINGS}: {line}")
-    emit({"run_training": {"config": "ci.json", "model": "PNA", "branch": "segment",
-                           "ceilings": CI_CEILINGS, "ceilings_met": mae_ok and err_ok,
-                           **line, "card": card}})
-
-    configs = RUN_REHEARSAL["multihead_configs"] if rehearsal else MULTIHEAD_CONFIGS
-    config = ci_config("ci_multihead.json", data, configs, rehearsal)
-    for name, env, mode in (("default", {}, "dense"),
-                            ("fused", {"HYDRAGNN_AGG": "fused"}, "fused")):
-        with run_directory(root / f"multihead_{name}", env):
-            if rehearsal:  # hidden 8 is below the dense policy's width
-                mode = "segment" if name == "default" else mode
+    for name, label, env, training, mode in RUNS:
+        ci = name == "ci.json"
+        configs = (RUN_REHEARSAL["ci_configs" if ci else "multihead_configs"] if rehearsal
+                   else CI_CONFIGS if ci else MULTIHEAD_CONFIGS)
+        config = ci_config(name, data, configs, rehearsal)
+        config["NeuralNetwork"]["Training"].update(training)
+        if rehearsal and mode == "dense":  # hidden 8 is below the dense policy's width
+            mode = "segment"
+        with run_directory(root / f"{name.split('.')[0]}_{label}", env):
             state, counts, line, (train_l, test_l, predicted) = run_and_predict(
                 config, device, mode)
             add(counts)
@@ -2053,13 +2251,23 @@ def phase_run_training(device, card, rehearsal):
             path = {k for k, v in launches_per_forward(config["NeuralNetwork"]["Architecture"],
                                                        mode).items() if v}
             if device.type == "cuda" and {k for k, v in serve_counts.items() if v} != path:
-                raise AssertionError(f"serving ({name}) launched {serve_counts}, not {path}")
+                raise AssertionError(f"serving ({name} {label}) launched {serve_counts}, "
+                                     f"not {path}")
             add(serve_counts)
             if device.type == "cuda":
-                served.update(profiled_epoch(state, config, train_l, device, name))
-        emit({"run_training": {"config": "ci_multihead.json", "model": "PNA",
-                               "width": config["NeuralNetwork"]["Architecture"]["hidden_dim"],
-                               "branch": mode, "env": env, **line, **served,
+                served.update(profiled_epoch(state, config, train_l, device,
+                                             f"{name.split('.')[0]}_{label}"))
+        result = {"config": name, "mode": label, "model": "PNA",
+                  "width": config["NeuralNetwork"]["Architecture"]["hidden_dim"],
+                  "branch": mode, "env": env, "training": training}
+        if ci:
+            mae_ok = all(m < CI_CEILINGS[1] for m in line["sample_mae"])
+            err_ok = all(e < CI_CEILINGS[0] for e in line["head_error"] + [line["error"]])
+            if not rehearsal and not (mae_ok and err_ok):
+                raise AssertionError(f"ci.json PNA ({label}) misses its ceilings "
+                                     f"{CI_CEILINGS}: {line}")
+            result.update(ceilings=CI_CEILINGS, ceilings_met=mae_ok and err_ok)
+        emit({"run_training": {**result, **line, **served,
                                "serve_launches": {k: v for k, v in serve_counts.items() if v},
                                "card": card}})
     return launches
@@ -2130,24 +2338,28 @@ def main(argv=None):
         for name, n in counts.items():
             launches[name] += n
 
+    served = []  # each stack's first branch also warms a second version (phase 7)
     for family in FAMILIES:
         cfg = arch(size, family)
         for mode in ("fused", "segment"):
-            add(phase_serve(mode, cfg, plan, graphs[:SERVE_REQUESTS], device, card,
-                            pool=graphs)["launches"])
+            served.append(phase_serve(mode, cfg, plan, graphs[:SERVE_REQUESTS], device, card,
+                                      pool=graphs, warm=mode == "fused"))
     # the dense plan: PNA, and GIN and SAGE, which the JAX package's static
     # policy serves on the lists at this width
     for family in ("PNA", "GIN", "SAGE"):
-        add(phase_serve("dense", arch(size, family), dense_plan, graphs[:SERVE_REQUESTS], device,
-                        card, pool=graphs)["launches"])
+        served.append(phase_serve("dense", arch(size, family), dense_plan,
+                                  graphs[:SERVE_REQUESTS], device, card, pool=graphs))
     lap("serve (five stacks)")
     # the last four on the segment plan, and GAT, MFC and DimeNet also on
     # the dense one (the JAX package's static policy at these widths)
     for family in NEW_FAMILIES:
         fam_graphs, plans = new_plans[family]
         for mode, fam_plan in plans.items():
-            add(phase_serve(mode, arch(size, family), fam_plan, fam_graphs[:NEW_SERVE_REQUESTS],
-                            device, card, pool=fam_graphs)["launches"])
+            served.append(phase_serve(mode, arch(size, family), fam_plan,
+                                      fam_graphs[:NEW_SERVE_REQUESTS], device, card,
+                                      pool=fam_graphs, warm=mode == "segment"))
+    for result in served:
+        add(result["launches"])
     lap("serve (GAT, MFC, CGCNN, DimeNet)")
 
     set_targets(graphs, seed=1)
@@ -2173,13 +2385,17 @@ def main(argv=None):
                             **step1))
     phase_dropout(plan, graphs, arch(size, "GAT"), device, card)
     lap("train (GAT, MFC, CGCNN, DimeNet)")
-    add(phase_bench("MXU_HEADLINE", MXU_HEADLINE, size, device, card))
+    benched = [phase_bench("MXU_HEADLINE", MXU_HEADLINE, size, device, card)]
     for row in MXU_ROWS:
         name = f"MXU_{row['model_type']}_{'dense_bf16' if row.get('dense') else 'segment_f32'}"
-        add(phase_bench(name, row, size, device, card))
+        benched.append(phase_bench(name, row, size, device, card))
+    for result in benched:
+        add(result["launches"])
     lap("bench_model")
     add(phase_run_training(device, card, rehearsal=args.cpu_rehearsal))
     lap("run_training")
+    phase_capture(plan, graphs, device, card, served, benched)
+    lap("capture")
 
     # K2 and K6 beside K1 at the same receivers shape: the same [E, D] bytes
     # streamed, a sum where K2 also keeps squares and a count and K6

@@ -4,8 +4,13 @@
 ``bench_model`` does (``make_graphs`` -> ``_collate`` -> the dense
 neighbour lists when asked -> ``create_model_config(_arch(...))`` ->
 ``Trainer`` with AdamW at lr 1e-3 and ``mixed_precision = bf16``), takes
-one warm step, then times ``iters`` steps with CUDA events around them and
-one synchronise at the end, then takes one ``eval_step``. :data:`MXU_HEADLINE` is the JAX package's
+one warm step (on the card: the step's capture, then its first replay),
+then times ``iters`` steps with CUDA events around them and one
+synchronise at the end, then takes one ``eval_step``: the captured step,
+the program the JAX package's ``bench_model`` times. Beside it,
+``eager_ms_per_step`` times ``iters`` more steps of the same body run
+eagerly (``steps.train_step``, one launch per op from Python): a second
+measurement of the same step, not a mode. :data:`MXU_HEADLINE` is the JAX package's
 headline configuration (``bench.py:517-518``), :data:`MXU_ROWS` its
 MXU-scale rows of the eight other stacks (``bench.py:291-292,302-311``):
 GIN, GAT, SAGE, MFC, SchNet and EGNN at hidden 256, CGCNN at ``input_dim``
@@ -15,7 +20,7 @@ the lists' slot tables).
 
 ``flops_per_step`` is the matmul work of one step (forward and backward),
 counted from the products' shapes by ``torch.utils.flop_counter
-.FlopCounterMode`` on the warm step. XLA's count, which the JAX package
+.FlopCounterMode`` on the first eager step. XLA's count, which the JAX package
 reports, also counts elementwise work, so the two are not the same
 number. MFU is against the precision's peak of the card (NVIDIA's data
 sheet for the H100 SXM: 989 TFLOP/s bf16 dense, 67 TFLOP/s f32 outside
@@ -35,7 +40,7 @@ from hydragnn_tpu_torch.data import GraphData
 from hydragnn_tpu_torch.graph import collate_graphs, compute_triplets, pack_triplets, pad_sizes_for
 from hydragnn_tpu_torch.models import create_model_config
 from hydragnn_tpu_torch.ops.dense_agg import attach_neighbor_lists
-from hydragnn_tpu_torch.train import Trainer
+from hydragnn_tpu_torch.train import Trainer, steps
 from hydragnn_tpu_torch.utils import resolve_device
 
 MXU_HEADLINE = dict(model_type="PNA", hidden=256, num_graphs=64, nodes=90,
@@ -177,7 +182,10 @@ def bench_model(model_type="PNA", hidden=64, num_graphs=64, nodes=90, degree=12,
     """Time the training step of one configuration. Returns the JAX row's
     fields: the identity, ``ms_per_step``, ``graphs_per_sec``,
     ``flops_per_step``, ``achieved_tflops``, ``mfu_pct``, ``device_kind``
-    and ``peak_tflops_assumed``, with ``final_loss`` and ``eval_loss``.
+    and ``peak_tflops_assumed``, with ``final_loss`` and ``eval_loss``,
+    and beside them ``eager_ms_per_step`` and the steps taken each way
+    (``captured_steps``: the warm step, the timed ones and the profiled
+    one; ``eager_steps``).
 
     ``device``: the card unless ``"cpu"``.
     ``trace_path``: one more step runs under ``torch.profiler`` and its
@@ -200,24 +208,25 @@ def bench_model(model_type="PNA", hidden=64, num_graphs=64, nodes=90, degree=12,
     })
     state = trainer.init_state(batch)
     dbatch = trainer.put_batch(batch)
-
-    with FlopCounterMode(display=False) as counter:
-        state, metrics = trainer.train_step(state, dbatch)  # warm step
-    flops = int(counter.get_total_flops())
     on_card = dev.type == "cuda"
-    if on_card:
-        torch.cuda.synchronize(dev)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        state, metrics = trainer.train_step(state, dbatch)
-    if on_card:
-        end.record()
-        torch.cuda.synchronize(dev)
-        dt = start.elapsed_time(end) / 1e3 / iters
-    else:
-        dt = (time.perf_counter() - t0) / iters
+
+    def timed(step):
+        """Seconds per step of ``iters`` calls of ``step``."""
+        if on_card:
+            torch.cuda.synchronize(dev)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = step()
+        if on_card:
+            end.record()
+            torch.cuda.synchronize(dev)
+            return start.elapsed_time(end) / 1e3 / iters, out
+        return (time.perf_counter() - t0) / iters, out
+
+    state, metrics = trainer.train_step(state, dbatch)  # warm step: the capture
+    dt, (state, metrics) = timed(lambda: trainer.train_step(state, dbatch))
     loss = float(metrics["loss"])
     if not np.isfinite(loss):
         raise FloatingPointError(f"the loss is not finite after {iters + 1} steps: {loss}")
@@ -232,6 +241,17 @@ def bench_model(model_type="PNA", hidden=64, num_graphs=64, nodes=90, degree=12,
                 torch.cuda.synchronize(dev)
         prof.export_chrome_trace(str(trace_path))
 
+    # the same body taken eagerly
+    def eager():
+        return steps.train_step(state, dbatch, guarded=trainer.guarded,
+                                mixed=trainer.precision["mixed"], generator=trainer.generator)
+
+    with FlopCounterMode(display=False) as counter:
+        eager()
+    flops = int(counter.get_total_flops())
+    eager_dt, _ = timed(eager)
+    trainer.release()
+
     kind = torch.cuda.get_device_name(dev) if on_card else "cpu"
     peak = PEAK_TFLOPS.get(kind, {}).get("bf16" if bf16 else "f32")
     tflops = flops / dt / 1e12
@@ -240,6 +260,9 @@ def bench_model(model_type="PNA", hidden=64, num_graphs=64, nodes=90, degree=12,
                           nodes=nodes, degree=degree, layers=layers, bf16=bf16, dense=dense,
                           input_dim=input_dim),
         "ms_per_step": dt * 1e3,
+        "eager_ms_per_step": eager_dt * 1e3,
+        "captured_steps": 1 + iters + (trace_path is not None),
+        "eager_steps": 1 + iters,
         "graphs_per_sec": num_graphs / dt,
         "flops_per_step": flops,
         "achieved_tflops": tflops,

@@ -15,10 +15,15 @@ package's: a numpy permutation seeded ``seed + epoch`` (``set_epoch``),
 ``batch_size`` samples per batch; with ``Training.batch_buckets`` > 1 the
 samples are binned by node count (the exact DP of ``data/layout.py``),
 each bucket packed greedily under its budgets, and the batch order
-shuffled across buckets. Collation runs on the calling thread: prefetch
-threads, worker pools with CPU pinning, and sharding across processes are
-not ported yet (``ROADMAP.md``, queue 1, items 8 and 9), and the
-environment variables that ask for them raise.
+shuffled across buckets, or, with ``contiguous_buckets`` (the config's
+``Training.contiguous_buckets``, ``HYDRAGNN_BUCKET_CONTIGUOUS`` over it),
+shuffled within each bucket and the buckets' order shuffled, so that
+same-shape batches stay adjacent for ``steps_per_dispatch``. With
+``HYDRAGNN_PREFETCH`` > 0 a background thread collates that many batches
+ahead (:func:`prefetch_iter`, the JAX package's pipeline stage, which the
+trainer's device prefetch shares). Worker pools with CPU pinning
+(``HYDRAGNN_NUM_WORKERS`` > 1) and sharding across processes are not
+ported yet (``ROADMAP.md``, queue 1, items 8 and 9) and raise.
 """
 
 import bisect
@@ -160,11 +165,17 @@ class GraphLoader:
     """Padded host batches of one split, in the JAX package's order."""
 
     def __init__(self, dataset, batch_size: int, layout, shuffle: bool = True,
-                 seed: int = 42, bucket_graph_cap: str = "batch"):
-        if _env_int("HYDRAGNN_PREFETCH", 0) > 0 or _env_int("HYDRAGNN_NUM_WORKERS", 1) > 1:
+                 seed: int = 42, contiguous_buckets: Optional[bool] = None,
+                 bucket_graph_cap: str = "batch"):
+        if _env_int("HYDRAGNN_NUM_WORKERS", 1) > 1:
             raise NotImplementedError(
-                "HYDRAGNN_PREFETCH and HYDRAGNN_NUM_WORKERS (collation threads) are not "
-                "ported yet: see ROADMAP.md, queue 1, items 8 and 9")
+                "HYDRAGNN_NUM_WORKERS (a pool of collation workers) is not ported yet: "
+                "see ROADMAP.md, queue 1, items 8 and 9")
+        self.prefetch = _env_int("HYDRAGNN_PREFETCH", 0)
+        env_contig = os.getenv("HYDRAGNN_BUCKET_CONTIGUOUS")
+        if env_contig is not None:
+            contiguous_buckets = env_contig.strip().lower() not in ("", "0", "false", "no", "off")
+        self.contiguous_buckets = bool(contiguous_buckets)
         if bucket_graph_cap not in ("batch", "budget"):
             raise ValueError(f"bucket_graph_cap must be 'batch' or 'budget', got {bucket_graph_cap!r}")
         if bucket_graph_cap == "budget" and not isinstance(layout, BucketedLayout):
@@ -212,7 +223,18 @@ class GraphLoader:
             plan.extend((b, chunk) for chunk in
                         _pack_indices(bidx, nodes, edges, trips, lay, batch_size=cap))
         if self.shuffle and plan:
-            plan = [plan[i] for i in rng.permutation(len(plan))]
+            if self.contiguous_buckets:
+                # shuffle within each bucket's run and the runs' order
+                segments = {}
+                for item in plan:
+                    segments.setdefault(item[0], []).append(item)
+                keys = list(segments)
+                plan = []
+                for k in rng.permutation(len(keys)):
+                    seg = segments[keys[k]]
+                    plan.extend(seg[i] for i in rng.permutation(len(seg)))
+            else:
+                plan = [plan[i] for i in rng.permutation(len(plan))]
         self._plan_cache = (self.epoch, plan)
         return plan
 
@@ -234,27 +256,91 @@ class GraphLoader:
     def collate(self, layout, chunk):
         return collate_for_layout([self.dataset[i] for i in chunk], layout, *self.heads)
 
-    def __iter__(self):
+    def _batches(self):
         for layout, chunk in self.batch_tasks():
             yield self.collate(layout, chunk)
+
+    def __iter__(self):
+        if self.prefetch <= 0:
+            return self._batches()
+        return prefetch_iter(self._batches(), self.prefetch, name="graphloader-prefetch")
+
+
+def prefetch_iter(source, depth: int, fn=None, name: str = "prefetch"):
+    """A bounded background stage (port of ``data/loaders.py::
+    prefetch_iter``, one worker): ``fn`` (identity if None) applied to
+    each item of ``source`` on a thread, up to ``depth`` results ahead of
+    the consumer, yielded in order. The worker's puts are stop-aware, so
+    a consumer that stops early (an exception, ``HYDRAGNN_MAX_NUM_BATCH``)
+    leaks no thread holding batches; a worker's error is raised on the
+    consumer's side."""
+    import queue
+    import threading
+
+    if fn is None:
+        fn = lambda x: x  # noqa: E731
+    q: "queue.Queue" = queue.Queue(maxsize=max(depth, 1))
+    sentinel = object()
+    stop = threading.Event()
+    err = []
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in source:
+                if not put(fn(item)):
+                    return
+        except BaseException as e:  # raised again on the consumer's side
+            err.append(e)
+        finally:
+            put(sentinel)
+
+    t = threading.Thread(target=worker, daemon=True, name=name)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is sentinel:
+                break
+            yield item
+    finally:
+        stop.set()
+        try:
+            while True:
+                q.get_nowait()
+        except queue.Empty:
+            pass
+        t.join(timeout=10.0)
+        if not t.is_alive():
+            closer = getattr(source, "close", None)
+            if callable(closer):
+                closer()
+    if err:
+        raise err[0]
 
 
 def create_dataloaders(trainset, valset, testset, batch_size: int,
                        need_triplets: bool = False, need_neighbors: bool = False,
-                       num_buckets: Optional[int] = None, bucket_graph_cap: str = "batch"):
+                       num_buckets: Optional[int] = None,
+                       contiguous_buckets: Optional[bool] = None,
+                       bucket_graph_cap: str = "batch"):
     """Train, validation and test loaders over one layout (all three
     shuffled, as in the JAX package). ``HYDRAGNN_BATCH_BUCKETS`` overrides
-    ``num_buckets``. Keeping a bucket's batches adjacent
-    (``contiguous_buckets``) serves ``steps_per_dispatch``, which is not
-    ported yet (``ROADMAP.md``, queue 1, item 5)."""
-    contig = os.getenv("HYDRAGNN_BUCKET_CONTIGUOUS", "")
-    if contig.strip().lower() not in ("", "0", "false", "no", "off"):
-        raise NotImplementedError(
-            "contiguous buckets are not ported yet: see ROADMAP.md, queue 1, item 5")
+    ``num_buckets``. ``contiguous_buckets`` keeps a bucket's batches
+    adjacent, so that ``steps_per_dispatch`` can stack them."""
     num_buckets = max(_env_int("HYDRAGNN_BATCH_BUCKETS", num_buckets or 1), 1)
     layout = compute_layout([trainset, valset, testset], batch_size, need_triplets,
                             need_neighbors=need_neighbors, num_buckets=num_buckets)
     return tuple(GraphLoader(ds, batch_size, layout, shuffle=True,
+                             contiguous_buckets=contiguous_buckets,
                              bucket_graph_cap=bucket_graph_cap)
                  for ds in (trainset, valset, testset))
 
@@ -318,14 +404,12 @@ def dataset_loading_and_splitting(config: dict):
     }
     arch = config["NeuralNetwork"]["Architecture"]
     training = config["NeuralNetwork"]["Training"]
-    if training.get("contiguous_buckets"):
-        raise NotImplementedError(
-            "contiguous buckets are not ported yet: see ROADMAP.md, queue 1, item 5")
     return create_dataloaders(
         datasets["train"], datasets["validate"], datasets["test"],
         batch_size=training["batch_size"],
         need_triplets=arch.get("model_type") == "DimeNet",
         need_neighbors=needs_dense_neighbors(arch_for_auto_policy(config["NeuralNetwork"])),
         num_buckets=training.get("batch_buckets"),
+        contiguous_buckets=training.get("contiguous_buckets"),
         bucket_graph_cap=training.get("bucket_graph_cap", "batch"),
     )

@@ -4,6 +4,7 @@ from hydragnn_tpu_torch.graph.batch import (
     compute_triplets,
     pack_triplets,
     pad_sizes_for,
+    stack_batches,
 )
 from hydragnn_tpu_torch.graph.segment import (
     segment_count,
@@ -26,4 +27,5 @@ __all__ = [
     "segment_softmax",
     "segment_softmax_unnorm",
     "segment_sum",
+    "stack_batches",
 ]

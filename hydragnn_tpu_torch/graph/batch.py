@@ -63,6 +63,48 @@ class GraphBatch:
         """The same batch with ``extras`` merged into its own."""
         return dataclasses.replace(self, extras={**self.extras, **extras})
 
+    def leaves(self):
+        """``(names, tensors)``: every tensor of the batch in one fixed
+        order (the fields that are set, then the targets, then the
+        extras), each named (``targets.<i>``, ``extras.<key>``)."""
+        names = [
+            f.name for f in dataclasses.fields(self)
+            if f.name not in ("targets", "extras") and getattr(self, f.name) is not None
+        ]
+        tensors = [getattr(self, name) for name in names] + list(self.targets)
+        names += [f"targets.{i}" for i in range(len(self.targets))]
+        names += [f"extras.{k}" for k in self.extras]
+        tensors += list(self.extras.values())
+        return names, tensors
+
+    def from_leaves(self, tensors) -> "GraphBatch":
+        """A batch of ``self``'s structure over ``tensors``, given in the
+        order of :meth:`leaves`."""
+        names, _ = self.leaves()
+        fields = {f.name: None for f in dataclasses.fields(self)}
+        targets, extras = [], {}
+        for name, t in zip(names, tensors):
+            if name.startswith("targets."):
+                targets.append(t)
+            elif name.startswith("extras."):
+                extras[name[len("extras."):]] = t
+            else:
+                fields[name] = t
+        fields["targets"] = tuple(targets)
+        fields["extras"] = extras
+        return GraphBatch(**fields)
+
+    def map(self, fn) -> "GraphBatch":
+        """The batch with ``fn`` applied to every tensor."""
+        return self.from_leaves([fn(t) for t in self.leaves()[1]])
+
+    def shape_key(self):
+        """Every tensor's name, shape and dtype: what selects a compiled
+        program (the JAX ``Trainer._group_plan._shape_key``, with the
+        dtypes)."""
+        names, tensors = self.leaves()
+        return tuple((n, tuple(t.shape), t.dtype) for n, t in zip(names, tensors))
+
     def to(self, device) -> "GraphBatch":
         """The same batch on ``device`` (``self`` when already there).
 
@@ -74,27 +116,30 @@ class GraphBatch:
         device = torch.device(device)
         if self.x.device == device:
             return self
-        names = [
-            f.name for f in dataclasses.fields(self)
-            if f.name not in ("targets", "extras") and getattr(self, f.name) is not None
-        ]
-        keys = list(self.extras)
-        tensors = (
-            [getattr(self, name) for name in names] + list(self.targets)
-            + [self.extras[k] for k in keys]
-        )
+        _, tensors = self.leaves()
         if self.x.device.type != "cpu":
-            moved = [t.to(device) for t in tensors]
-        else:
-            pin = device.type == "cuda"
-            host, spans = stage_bytes(tensors, pin_memory=pin)
-            moved = unstage_bytes(host.to(device, non_blocking=pin), spans)
-        fields = {f.name: None for f in dataclasses.fields(self)}
-        fields.update(zip(names, moved))
-        n_targets = len(self.targets)
-        fields["targets"] = tuple(moved[len(names) : len(names) + n_targets])
-        fields["extras"] = dict(zip(keys, moved[len(names) + n_targets :]))
-        return GraphBatch(**fields)
+            return self.from_leaves([t.to(device) for t in tensors])
+        pin = device.type == "cuda"
+        host, spans = stage_bytes(tensors, pin_memory=pin)
+        return self.from_leaves(unstage_bytes(host.to(device, non_blocking=pin), spans))
+
+
+def stack_batches(batches) -> GraphBatch:
+    """Stack K collated batches of one structure and shape along a new
+    leading axis (port of ``graph/batch.py::stack_batches``): the input
+    of the multi-step and staged programs. Raises ``ValueError`` on
+    ragged input (another shape or structure), as the JAX one does."""
+    batches = list(batches)
+    if not batches:
+        raise ValueError("stack_batches needs at least one batch")
+    key = batches[0].shape_key()
+    for b in batches[1:]:
+        other = b.shape_key()
+        if other != key:
+            diff = next(((a, o) for a, o in zip(key, other) if a != o), (len(key), len(other)))
+            raise ValueError(f"batches differ in shape or structure: {diff[0]} vs {diff[1]}")
+    columns = zip(*(b.leaves()[1] for b in batches))
+    return batches[0].from_leaves([torch.stack(ts) for ts in columns])
 
 
 _ALIGN = 16  # bytes: every field's view starts on a 16-byte boundary

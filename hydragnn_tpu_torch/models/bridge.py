@@ -184,13 +184,25 @@ def load_optax_adam_state(optimizer: torch.optim.Optimizer, opt_state) -> torch.
     if missing:
         raise ValueError(f"no Adam moments for: {sorted(missing)}")
     step = float(np.asarray(adam["count"]))
+    capturable = optimizer.defaults.get("capturable", False)
     for name, p in params.items():
-        optimizer.state[p] = {"step": torch.tensor(step, dtype=torch.float32), **moments[name]}
+        new = {"step": torch.tensor(step, dtype=torch.float32,
+                                    device=p.device if capturable else "cpu"),
+               **moments[name]}
+        old = optimizer.state.get(p)
+        if old is not None and old.keys() == new.keys():
+            # in place: a captured step (train/capture.py) holds these tensors
+            with torch.no_grad():
+                for key, value in new.items():
+                    old[key].copy_(value)
+        else:
+            optimizer.state[p] = new
     hyper = (opt_state.get("hyperparams") if isinstance(opt_state, dict)
              else getattr(opt_state, "hyperparams", None))
     if hyper is not None and "learning_rate" in hyper:
-        for group in optimizer.param_groups:
-            group["lr"] = float(np.asarray(hyper["learning_rate"]))
+        from hydragnn_tpu_torch.train.optimizer import set_learning_rate
+
+        set_learning_rate(optimizer, float(np.asarray(hyper["learning_rate"])))
     return optimizer
 
 
@@ -283,7 +295,7 @@ def optax_state_of(optimizer: torch.optim.Optimizer, model: nn.Module) -> Dict:
     return {
         "count": count,
         "hyperparams": {
-            "learning_rate": np.asarray(optimizer.param_groups[0]["lr"], np.float32)
+            "learning_rate": np.asarray(float(optimizer.param_groups[0]["lr"]), np.float32)
         },
         "hyperparams_states": {},
         "inner_state": inner,

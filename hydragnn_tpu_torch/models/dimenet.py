@@ -133,6 +133,21 @@ class BesselBasisLayer(nn.Module):
         return envelope(d, self.envelope_exponent) * torch.sin(self.freq * d)
 
 
+# the zeros on each device, made at the first call there: a captured
+# forward (train/capture.py) runs its body eagerly first, and a capture
+# cannot copy from the host
+_ZEROS_ON_DEVICE = {}
+
+
+def _bessel_zeros(num_spherical: int, num_radial: int, dtype, device) -> torch.Tensor:
+    key = (num_spherical, num_radial, dtype, torch.device(device))
+    zeros = _ZEROS_ON_DEVICE.get(key)
+    if zeros is None:
+        zeros = _ZEROS_ON_DEVICE[key] = torch.tensor(
+            BESSEL_ZEROS_F32[:num_spherical, :num_radial], dtype=dtype, device=device)
+    return zeros
+
+
 def radial_sbf(dist, num_spherical: int, num_radial: int, cutoff: float,
                envelope_exponent: int) -> torch.Tensor:
     """``env(d) * j_l(z_ln * d)`` -> ``[..., S, R]``, the radial half of the
@@ -140,8 +155,7 @@ def radial_sbf(dist, num_spherical: int, num_radial: int, cutoff: float,
     d = torch.clamp(dist / cutoff, 1e-6, 1.0)
     env = envelope(d, envelope_exponent)
     # the float32 zeros (the JAX package's), also in a float64 evaluation
-    zeros = torch.tensor(BESSEL_ZEROS_F32[:num_spherical, :num_radial], dtype=torch.float32,
-                         device=dist.device)
+    zeros = _bessel_zeros(num_spherical, num_radial, torch.float32, dist.device)
     jl = spherical_jn(num_spherical - 1, d[..., None, None] * zeros)
     rad = torch.stack([jl[ll][..., ll, :] for ll in range(num_spherical)], dim=-2)
     return env[..., None, None] * rad

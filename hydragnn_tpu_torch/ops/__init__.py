@@ -65,8 +65,17 @@ def reset_launch_counts():
         fn.launches = 0
 
 
+def add_launches(counts: dict):
+    """Add ``counts`` (``{wrapper name: launches}``) to the wrappers'
+    counts: a captured graph's replay launches its kernels without calling
+    the wrappers (``train/capture.py``)."""
+    for name, n in counts.items():
+        KERNELS[name][0].launches += n
+
+
 __all__ = [
     "KERNELS",
+    "add_launches",
     "fused_egnn_edge_phase",
     "fused_egnn_edge_phase_plain",
     "fused_egnn_edge_phase_vjp",

@@ -1,6 +1,9 @@
 """Serving metrics (a stdlib copy of the counters the JAX package's
 ``obs/metrics.py::ServeMetrics`` records for the predict server).
 
+``compiles_total`` counts the novel (model version, shape) keys the server
+compiled a program for (on the card, captured a graph): its buckets at
+warmup, and after that none, unless a shape leaked past the plan.
 ``requests_total`` counts every accepted submit; a request then ends in
 exactly one of ``responses_total``, ``timeouts_total`` or
 ``errors_total``. ``shed_total`` counts queue-full rejections (never
@@ -79,6 +82,11 @@ class ServeMetrics:
         self.deadline_missed_total = 0
         self.request_latency = LatencyHistogram()
         self.batch_latency = LatencyHistogram()
+        self.compiles_total = 0
+
+    def on_compile(self):
+        with self._lock:
+            self.compiles_total += 1
 
     def on_submit(self):
         with self._lock:
@@ -147,4 +155,5 @@ class ServeMetrics:
                 "deadline_missed_total": self.deadline_missed_total,
                 "request_latency": self.request_latency.state(),
                 "batch_latency": self.batch_latency.state(),
+                "compiles_total": self.compiles_total,
             }

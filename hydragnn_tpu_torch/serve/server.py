@@ -6,8 +6,18 @@ Request lifecycle::
     submit(graph) --admission--> bounded queue --batcher thread-->
       group by (model version, bucket) --max-wait / budget-full flush-->
         pack into the bucket's static pads on the host -->
-          one transfer to the device, forward under inference_mode -->
+          one transfer into the bucket's captured forward, a replay -->
             outputs back in one copy, split per request --> future resolves
+
+- **One program per (model version, bucket)**: ``warmup`` captures the
+  forward of every registered version at every bucket's pads as a CUDA
+  graph (``train/capture.py``; on the CPU the forward runs eagerly), and
+  every batch replays its bucket's graph. ``metrics.compiles_total``
+  counts the novel (version, shape) keys: the buckets at warmup, none
+  after, unless a shape leaked past the plan. :meth:`InferenceServer.
+  warm_version` warms a newly registered version through the running
+  batcher and verifies that its second pass compiled nothing. ``stop``
+  frees the graphs.
 
 - **Micro-batching trades a bounded wait for throughput**: requests wait at
   most ``max_wait_s`` for co-riders; a full budget flushes at once.
@@ -35,6 +45,7 @@ from hydragnn_tpu_torch.data.dataobj import GraphData
 from hydragnn_tpu_torch.serve.buckets import ServingBucketPlan
 from hydragnn_tpu_torch.serve.metrics import ServeMetrics
 from hydragnn_tpu_torch.serve.registry import ModelEntry, ModelRegistry
+from hydragnn_tpu_torch.train.capture import ProgramSet
 from hydragnn_tpu_torch.utils.device import resolve_device
 
 
@@ -154,6 +165,7 @@ class InferenceServer:
         # guards the stopped-check + enqueue pair in submit() against stop()
         self._submit_lock = threading.Lock()
         self._stopped = False
+        self._programs: Optional[ProgramSet] = None  # one forward per model version
 
     # ---- lifecycle -----------------------------------------------------
     def start(self, warmup: bool = True):
@@ -212,6 +224,14 @@ class InferenceServer:
         )
         if failed:
             self.metrics.on_error(failed)
+        if thread is None or not thread.is_alive():
+            self._release()
+
+    def _release(self):
+        """Free every captured forward (a later start captures again)."""
+        if self._programs is not None:
+            self._programs.release()
+            self._programs = None
 
     def __enter__(self):
         return self.start()
@@ -221,19 +241,72 @@ class InferenceServer:
 
     # ---- warmup --------------------------------------------------------
     def warmup(self):
-        """One dispatch of the plan's warmup sample per bucket per model:
-        builds the kernels and fills the allocator's caches before traffic."""
+        """Capture every (registered model version, bucket) forward before
+        traffic, on the plan's warmup sample packed at each bucket's pads
+        (one eager forward each on the card, which builds the kernels,
+        then the capture). After this, any request the plan admits
+        replays a captured graph."""
+        for name in self.registry.names():
+            self.warmup_entry(self.registry.get(name))
+
+    def warmup_entry(self, entry: ModelEntry):
+        """Capture one model version at every bucket, directly (the
+        batcher is not running yet); a running server warms a new version
+        with :meth:`warm_version`."""
+        sample = self._warmup_sample()
+        for b in range(self.plan.num_buckets):
+            batch, _ = self.plan.pack([sample], b)
+            self._compiled(entry, batch, run=False)
+
+    def _warmup_sample(self):
         sample = self.plan.warmup_sample
         if sample is None:
             raise ValueError(
                 "plan has no warmup_sample; pass one (a small GraphData) or "
                 "build the plan via plan_from_samples"
             )
-        for name in self.registry.names():
-            entry = self.registry.get(name)
-            for b in range(self.plan.num_buckets):
-                batch, _ = self.plan.pack([sample], b)
-                self._forward(entry, batch)
+        return sample
+
+    def warm_version(self, name: str, version: Optional[int] = None, timeout: float = 120.0,
+                     passes: int = 2) -> Dict[str, int]:
+        """Warm a (newly registered) model version through the running
+        batcher: one warmup request pinned to each bucket per pass,
+        between live traffic. Returns the passes' compile counts: pass 1
+        must compile ``num_buckets`` novel shapes, every later pass none
+        (``verified``); a later compile means the version's programs did
+        not stay captured."""
+        if not self._running.is_set():
+            raise RuntimeError(
+                "warm_version needs a running batcher; call start() first "
+                "(startup warmup uses warmup_entry directly)"
+            )
+        entry = self.registry.get(name, version)
+        sample = self._warmup_sample()
+        deltas: List[int] = []
+        for _ in range(max(int(passes), 1)):
+            before = self.metrics.compiles_total
+            futures = [self._submit_pinned(sample, entry, b) for b in range(self.plan.num_buckets)]
+            for fut in futures:
+                fut.result(timeout)  # a dispatch error propagates
+            deltas.append(self.metrics.compiles_total - before)
+        return {
+            "buckets": self.plan.num_buckets,
+            "first_pass_compiles": deltas[0],
+            "later_pass_compiles": sum(deltas[1:]),
+            "verified": deltas[0] == self.plan.num_buckets and sum(deltas[1:]) == 0,
+        }
+
+    def _submit_pinned(self, graph, entry: ModelEntry, bucket: int) -> ServeFuture:
+        """Enqueue one request pinned to ``(entry, bucket)`` (the
+        warm-version path), counted like any other request."""
+        sizes = self.plan.request_sizes(graph)
+        req = _Request(graph, entry, bucket, sizes, None, fallback=False)
+        with self._submit_lock:
+            if self._stopped:
+                raise RuntimeError("server stopped; submits are refused")
+            self._queue.put_nowait(req)  # queue.Full propagates: a warm must not vanish
+        self.metrics.on_submit()
+        return req.future
 
     # ---- submission ----------------------------------------------------
     def submit(self, graph: GraphData, model: Optional[str] = None,
@@ -408,19 +481,37 @@ class InferenceServer:
         )
 
     # ---- device dispatch -----------------------------------------------
-    def _forward(self, entry: ModelEntry, batch) -> List[np.ndarray]:
-        """Run ``entry``'s model on one host batch: one transfer in, the
-        forward under ``torch.inference_mode()``, one copy of every head's
-        output back. Returns the per-head outputs as numpy arrays."""
+    def _compiled(self, entry: ModelEntry, batch, run: bool = True):
+        """``entry``'s forward program on one host batch: captured, and
+        counted in ``compiles_total``, when its (version, shape) key is new;
+        replayed with ``run``. Returns the per-head outputs (on the
+        device) with ``run``."""
         if entry.device != self.device:
             raise RuntimeError(
                 f"model {entry.name!r} v{entry.version} lives on {entry.device}, "
                 f"the server on {self.device}"
             )
-        with torch.inference_mode():
-            outputs = entry.model(batch.to(self.device))
-            flat = torch.cat([o.reshape(-1).to(torch.float32) for o in outputs]).cpu()
-        host = flat.numpy()
+        if self._programs is None:
+            self._programs = ProgramSet(self.device)
+        model = entry.model
+
+        def forward(b):
+            with torch.inference_mode():
+                return [o.to(torch.float32) for o in model(b)]
+
+        prog = self._programs.program(f"serve:{entry.name}:v{entry.version}", forward)
+        before = prog.captures
+        outputs = prog(batch) if run else prog.prepare(batch)
+        if prog.captures != before:
+            self.metrics.on_compile()
+        return outputs
+
+    def _forward(self, entry: ModelEntry, batch) -> List[np.ndarray]:
+        """Run ``entry``'s model on one host batch through its captured
+        forward: one transfer in, a replay, one copy of every head's
+        output back. Returns the per-head outputs as numpy arrays."""
+        outputs = self._compiled(entry, batch)
+        host = torch.cat([o.reshape(-1) for o in outputs]).cpu().numpy()
         out, off = [], 0
         for o in outputs:
             out.append(host[off : off + o.numel()].reshape(tuple(o.shape)))

@@ -1,0 +1,308 @@
+"""Captured programs: the port's counterpart of the JAX package's compiled
+programs (one ``jax.jit`` executable per shape signature).
+
+A :class:`Program` wraps one Python body. On a CUDA device it keeps one
+CUDA graph (``torch.cuda.CUDAGraph``) per shape key, every input tensor's
+name, shape and dtype, and replays it: the first call with a new key
+captures, every later call refills the graph's input buffers and replays.
+On the CPU the same body runs eagerly, with the same key cache and
+counters: a "program" there is the body itself. A capture or a replay that
+fails raises; nothing runs the body eagerly on the card instead.
+
+The capture recipe, per new key:
+
+1. The inputs go into static buffers: one device byte buffer per key,
+   which every call refills (a host batch in one copy from pinned memory,
+   a device batch tensor by tensor).
+2. Warm-up: the body runs once eagerly on a side stream. That builds every
+   kernel (``ops/_build.py`` runs ``nvcc`` at first launch, and K7's
+   source sets its shared-memory attribute once per device), creates
+   AdamW's lazy state and fills the allocator.
+3. For a body that changes the training state, the state is restored in
+   place after the warm-up (:class:`ProgramSet` ``snapshot``/``restore``:
+   parameters, optimizer moments and step counts, BatchNorm statistics,
+   the dropout generator's offset), so that the first replay is the eager
+   step 1, not step 2.
+4. Capture on the side stream into the program set's one memory pool,
+   with the set's generator registered with the graph (GAT's dropout).
+   The tensors a graph writes and keeps beyond one replay (its outputs,
+   the parameters' gradients) are held with the graph, so that no later
+   capture in the shared pool takes their memory.
+
+A replay copies its outputs out (a clone of each), so that the next
+replay cannot overwrite what a caller holds.
+
+Launch accounting (``ops.launch_counts``): a capture records the kernel
+wrappers' launch counts of its capture pass and takes them back off (the
+capture launched nothing); each replay adds them again. The warm-up's
+launches are real and stay counted; :func:`capture_counts` tallies the
+step and forward bodies that warm-ups ran, beside captures and replays,
+process-wide as the launch counts are.
+"""
+
+import dataclasses
+from typing import Callable, Dict, List, Optional
+
+import torch
+from torch.profiler import record_function
+from torch.utils._pytree import tree_leaves, tree_map
+
+from hydragnn_tpu_torch import ops
+from hydragnn_tpu_torch.graph.batch import GraphBatch, stage_bytes, unstage_bytes
+
+# process-wide, as ops.launch_counts(): graphs captured, replays, and the
+# training-step and forward bodies that capture warm-ups ran on the card
+_TALLY = {"captures": 0, "replays": 0, "warm_steps": 0, "warm_forwards": 0}
+
+
+def capture_counts() -> Dict[str, int]:
+    """``{"captures", "replays", "warm_steps", "warm_forwards"}`` so far."""
+    return dict(_TALLY)
+
+
+def reset_capture_counts():
+    for key in _TALLY:
+        _TALLY[key] = 0
+
+
+def _flatten(args):
+    """``(leaves, rebuild)``: the tensors of ``args`` (``GraphBatch``es and
+    tensors) in order, and the function that rebuilds ``args`` from such
+    a list."""
+    leaves, parts = [], []
+    for a in args:
+        if isinstance(a, GraphBatch):
+            _, ts = a.leaves()
+            parts.append((a, len(ts)))
+            leaves += ts
+        else:
+            parts.append((None, 1))
+            leaves.append(a)
+
+    def rebuild(tensors):
+        out, i = [], 0
+        for template, n in parts:
+            out.append(tensors[i] if template is None else template.from_leaves(tensors[i : i + n]))
+            i += n
+        return tuple(out)
+
+    return leaves, rebuild
+
+
+def shape_key(args):
+    """Every input tensor's name, shape and dtype (``extras`` included)."""
+    key = []
+    for a in args:
+        if isinstance(a, GraphBatch):
+            key.append(a.shape_key())
+        else:
+            key.append((tuple(a.shape), a.dtype))
+    return tuple(key)
+
+
+@dataclasses.dataclass
+class _Graph:
+    graph: "torch.cuda.CUDAGraph"
+    static: List[torch.Tensor]  # the input leaves, views of ``buffer``
+    buffer: Optional[torch.Tensor]
+    out: object  # the body's outputs as captured
+    launches: Dict[str, int]  # kernel launches of one replay
+    keep: list  # tensors the graph writes and keeps beyond a replay
+
+    def fill(self, leaves):
+        """Refill the static inputs from ``leaves`` (same shapes)."""
+        if self.buffer is not None and all(t.device.type == "cpu" for t in leaves):
+            host, _ = stage_bytes(leaves, pin_memory=True)  # the key fixed the layout
+            self.buffer.copy_(host, non_blocking=True)
+            return
+        for s, t in zip(self.static, leaves):
+            s.copy_(t, non_blocking=True)
+
+
+class Program:
+    """One body, one captured graph per shape key (see the module's
+    docstring). ``bodies``: how many training steps (``kind="step"``) or
+    forwards (``kind="forward"``) one call runs; ``mutates``: the body
+    changes the training state, which capture then restores after its
+    warm-up. ``bound=True``: the inputs are device tensors the graph
+    reads in place (a staged stack, its cursor and its result buffers),
+    not copied into static buffers: the key then holds their addresses,
+    the graph keeps them alive, and it may write the tensor arguments
+    (not a ``GraphBatch``)."""
+
+    def __init__(self, owner: "ProgramSet", name: str, body: Callable, kind: str,
+                 mutates: bool, bodies: Callable = lambda args: 1, bound: bool = False):
+        if kind not in ("step", "forward"):
+            raise ValueError(f"kind must be 'step' or 'forward', got {kind!r}")
+        self.owner, self.name, self.body = owner, name, body
+        self.kind, self.mutates, self.bodies, self.bound = kind, mutates, bodies, bound
+        self.graphs: Dict[tuple, object] = {}  # key -> _Graph (CPU: None)
+        self.captures = 0
+        self.replays = 0
+
+    def key(self, args):
+        key = shape_key(args)
+        if self.bound:
+            key += tuple(t.data_ptr() for t in _flatten(args)[0])
+        return key
+
+    def __call__(self, *args):
+        key = self.key(args)
+        novel = key not in self.graphs
+        if self.owner.device.type != "cuda":
+            if novel:
+                self.graphs[key] = None
+                self._count_capture()
+            return self.body(*args)
+        leaves, _ = _flatten(args)
+        if any(t.device.type == "cuda" and t.device != self.owner.device for t in leaves):
+            raise RuntimeError(f"{self.name}: inputs on another device than {self.owner.device}")
+        entry = self._capture(args) if novel else self.graphs[key]
+        if novel:
+            self.graphs[key] = entry
+        elif not self.bound:
+            entry.fill(leaves)
+        with record_function(f"replay.{self.name}"):
+            entry.graph.replay()
+        ops.add_launches(entry.launches)
+        self.replays += 1
+        _TALLY["replays"] += 1
+        return tree_map(lambda t: t.clone() if torch.is_tensor(t) else t, entry.out)
+
+    def prepare(self, *args):
+        """Capture the graph for ``args``' key, if new, without replaying
+        it: the state is as before the call."""
+        key = self.key(args)
+        if key in self.graphs:
+            return
+        if self.owner.device.type != "cuda":
+            self.graphs[key] = None
+            self._count_capture()
+            return
+        self.graphs[key] = self._capture(args)
+
+    def _count_capture(self):
+        self.captures += 1
+        _TALLY["captures"] += 1
+
+    def _capture(self, args) -> _Graph:
+        owner = self.owner
+        leaves, rebuild = _flatten(args)
+        if self.bound:
+            buffer, static = None, list(leaves)
+        else:
+            host, spans = stage_bytes([t.detach().cpu() for t in leaves])
+            buffer = host.to(owner.device)
+            static = unstage_bytes(buffer, spans)
+        static_args = rebuild(static)
+        snap = owner.snapshot() if self.mutates else None
+        # a bound program's tensor arguments (a cursor, result rows) are
+        # the graph's to write: the warm-up's writes to them are undone too
+        written = [(t, t.clone()) for t in args if torch.is_tensor(t)] if self.bound else []
+        stream = owner.stream
+        stream.wait_stream(torch.cuda.current_stream(owner.device))
+        with torch.cuda.stream(stream):
+            self.body(*static_args)  # warm-up: builds kernels, lazy state
+            if snap is not None:
+                owner.restore(snap)
+            for t, before in written:
+                t.copy_(before)
+        torch.cuda.current_stream(owner.device).wait_stream(stream)
+        _TALLY["warm_steps" if self.kind == "step" else "warm_forwards"] += self.bodies(args)
+        graph = torch.cuda.CUDAGraph()
+        if owner.generator is not None:
+            graph.register_generator_state(owner.generator)
+        before = ops.launch_counts()
+        with torch.cuda.graph(graph, pool=owner.pool, stream=stream,
+                              capture_error_mode="thread_local"):
+            out = self.body(*static_args)
+        launches = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        ops.add_launches({k: -v for k, v in launches.items()})
+        self._count_capture()
+        keep = [t for t in tree_leaves(out) if torch.is_tensor(t)] + owner.persistent()
+        if self.bound:
+            keep += static
+        return _Graph(graph, static, buffer, out, launches, keep)
+
+
+class ProgramSet:
+    """The programs of one owner (a ``Trainer`` bound to one model and
+    optimizer, or a server's model version) on one device: one memory pool,
+    one side stream for warm-ups and captures, and the state a mutating
+    body restores after its warm-up. ``release()`` frees every graph."""
+
+    def __init__(self, device, model=None, optimizer=None, generator=None):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.model, self.optimizer, self.generator = model, optimizer, generator
+        self.programs: Dict[str, Program] = {}
+        if self.device.type == "cuda":
+            self.pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(self.device)
+        else:
+            self.pool = self.stream = None
+
+    def program(self, name: str, body: Callable, kind: str = "forward", mutates: bool = False,
+                bodies: Callable = lambda args: 1, bound: bool = False) -> Program:
+        prog = self.programs.get(name)
+        if prog is None:
+            prog = self.programs[name] = Program(self, name, body, kind, mutates, bodies, bound)
+        return prog
+
+    def counts(self) -> Dict[str, Dict[str, int]]:
+        """``{program: {"captures", "replays"}}``."""
+        return {name: {"captures": p.captures, "replays": p.replays}
+                for name, p in self.programs.items()}
+
+    def release(self):
+        """Drop every captured graph (and the memory they hold)."""
+        for prog in self.programs.values():
+            prog.graphs.clear()
+        self.programs.clear()
+
+    # ---- the training state a mutating body changes ----------------------
+
+    def persistent(self) -> list:
+        """Tensors a training graph writes and keeps beyond one replay:
+        the parameters' gradients."""
+        if self.model is None:
+            return []
+        return [p.grad for p in self.model.parameters() if p.grad is not None]
+
+    def snapshot(self):
+        """A copy of the parameters, buffers, optimizer state and
+        generator state."""
+        model, opt = self.model, self.optimizer
+        with torch.no_grad():
+            params = [p.detach().clone() for p in model.parameters()]
+            buffers = [b.detach().clone() for b in model.buffers()]
+            opt_state = {} if opt is None else {
+                p: {k: v.clone() if torch.is_tensor(v) else v for k, v in st.items()}
+                for p, st in opt.state.items()
+            }
+        gen = None if self.generator is None else self.generator.get_state()
+        return params, buffers, opt_state, gen
+
+    def restore(self, snap):
+        """Put ``snap`` back in place. Optimizer state created since (a
+        fresh optimizer's lazy moments and step) goes back to zero, as it
+        was before its first step."""
+        params, buffers, opt_state, gen = snap
+        with torch.no_grad():
+            for p, s in zip(self.model.parameters(), params):
+                p.copy_(s)
+            for b, s in zip(self.model.buffers(), buffers):
+                b.copy_(s)
+            if self.optimizer is not None:
+                for p, st in self.optimizer.state.items():
+                    before = opt_state.get(p)
+                    for k, v in st.items():
+                        if not torch.is_tensor(v):
+                            continue
+                        if before is None:
+                            v.zero_()
+                        else:
+                            v.copy_(before[k])
+        if gen is not None:
+            self.generator.set_state(gen)

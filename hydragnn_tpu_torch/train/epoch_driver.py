@@ -14,7 +14,16 @@ key unchanged: the one it read when resuming, else
 ``Training.random_seed`` > 1337), which is ``[seed >> 32, seed & 0xffffffff]``
 for the threefry key. The JAX package accepts either on resume.
 
-The staged and ``fit_staged`` epochs, streaming data, the divergence
+With ``device_resident_dataset`` (or ``HYDRAGNN_DEVICE_RESIDENT``) the
+training set is staged on the device once and every epoch runs
+``Trainer.train_epoch_staged``; the validation and test sets are staged at
+the first evaluation and run by ``evaluate_staged`` (the JAX package's
+``epoch_driver.py:336-348`` and ``:590-661``). Batches of more than one
+shape cannot stack: the driver prints the JAX package's message and
+streams, its documented rule for bucketed layouts. Evaluation sets that
+cannot stage (ragged, empty, or out of memory) stream from then on.
+
+``fit_chunk_epochs`` (``fit_staged``), streaming data, the divergence
 guard's restore, candidate publication, elastic runs and plots raise
 where a config or the environment asks for them (``ROADMAP.md``, queue 1).
 """
@@ -25,7 +34,7 @@ import time
 import numpy as np
 
 from hydragnn_tpu_torch.train.checkpoint import drain_async, resolve_async_writer, save_model
-from hydragnn_tpu_torch.train.common import _env_flag
+from hydragnn_tpu_torch.train.common import _env_flag, _is_oom
 from hydragnn_tpu_torch.train.optimizer import get_learning_rate, set_learning_rate
 from hydragnn_tpu_torch.train.scheduler import BestCheckpoint, EarlyStopping, ReduceLROnPlateau
 
@@ -48,10 +57,9 @@ def _not_ported(what: str, item: int):
 
 
 def _check_supported(training: dict, create_plots: bool):
-    if _env_flag("HYDRAGNN_DEVICE_RESIDENT", training, "device_resident_dataset"):
-        raise _not_ported("device_resident_dataset (staged epochs)", 5)
     if int(os.getenv("HYDRAGNN_FIT_CHUNK", str(training.get("fit_chunk_epochs", 0)))) > 0:
-        raise _not_ported("fit_chunk_epochs (fit_staged)", 5)
+        raise _not_ported("fit_chunk_epochs (fit_staged, with the plateau, early stop and "
+                          "best state on the device)", 5)
     if os.getenv("HYDRAGNN_PUBLISH_DIR", training.get("publish_dir") or ""):
         raise _not_ported("publish_dir (the canary's candidate channel)", 5)
     if os.getenv("HYDRAGNN_ELASTIC_DIR") or os.getenv("HYDRAGNN_HEARTBEAT_FILE"):
@@ -121,16 +129,51 @@ def train_validate_test(trainer, state, train_loader, val_loader, test_loader,
         trainer.final_train_meta = meta
         trainer.final_state_saved = True
 
+    staged = None
+    if _env_flag("HYDRAGNN_DEVICE_RESIDENT", training, "device_resident_dataset"):
+        try:
+            staged = trainer.stage_batches(list(train_loader))
+        except ValueError:
+            print_distributed(
+                verbosity,
+                "device_resident_dataset: batches are not shape-uniform "
+                "(bucketed layout?) — falling back to streaming")
+    staged_evals = None
+
+    def evaluate_both():
+        nonlocal staged_evals
+        if staged is not None and staged_evals is None:
+            try:
+                vb, tb = list(val_loader), list(test_loader)
+                if not vb or not tb:
+                    raise ValueError("empty eval loader")
+                staged_evals = (trainer.stage_batches(vb), trainer.stage_batches(tb))
+            except Exception as e:
+                if not (isinstance(e, ValueError) or _is_oom(e)):
+                    raise
+                staged_evals = False
+        if staged_evals:
+            try:
+                return (trainer.evaluate_staged(state, staged_evals[0])[0],
+                        trainer.evaluate_staged(state, staged_evals[1])[0])
+            except Exception as e:
+                if not _is_oom(e):
+                    raise
+                staged_evals = False
+        return trainer.evaluate(state, val_loader)[0], trainer.evaluate(state, test_loader)[0]
+
     for epoch in range(start_epoch, num_epoch):
         t0 = time.time()
         trainer.final_state_saved = False
         train_loader.set_epoch(epoch)
         collate0 = trainer.collate_s
-        state, train_loss, train_tasks = trainer.train_epoch(state, train_loader)
+        if staged is not None:
+            state, train_loss, train_tasks = trainer.train_epoch_staged(state, staged)
+        else:
+            state, train_loss, train_tasks = trainer.train_epoch(state, train_loader)
         t_train = time.time() - t0
         collate_s = trainer.collate_s - collate0
-        val_loss, _ = trainer.evaluate(state, val_loader)
-        test_loss, _ = trainer.evaluate(state, test_loader)
+        val_loss, test_loss = evaluate_both()
         new_lr = scheduler.step(val_loss)
         if abs(new_lr - get_learning_rate(state.optimizer)) > 1e-12:
             set_learning_rate(state.optimizer, new_lr)

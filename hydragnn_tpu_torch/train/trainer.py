@@ -1,29 +1,47 @@
 """The ``Trainer`` (port of ``train/trainer.py``'s host loop): ``__init__``,
 ``init_state``, ``place_state``, ``put_batch``, ``train_step``,
-``eval_step``, ``train_epoch``, ``evaluate`` and, from
-``train/predict.py``, ``predict``, on the model's device.
+``eval_step``, ``train_epoch``, ``evaluate``, the staged (device-resident)
+epochs ``stage_batches``, ``train_epoch_staged`` and ``evaluate_staged``,
+and, from ``train/predict.py``, ``predict``, on the model's device.
+
+Every step and forward runs through the trainer's programs
+(``steps.CapturedSteps``, bound to the state's model and optimizer): on
+the card one CUDA graph per shape key, captured at its first call and
+replayed after (``train/capture.py``); on the CPU the same bodies eagerly.
 
 The compute precision is the JAX package's decision
 (``models.create.resolve_precision``), kept in ``precision``; where it
 resolves to bf16 the training step runs in bf16 mixed precision
-(``steps.train_step(mixed=True)``), and evaluation stays float32. The
+(``steps.train_body(mixed=True)``), and evaluation stays float32. The
 trainer owns the ``torch.Generator`` (on the model's device, seeded 0)
 that each training step's stochastic layers draw from (GAT's attention
-dropout), as the JAX trainer threads its ``rng``.
+dropout), as the JAX trainer threads its ``rng``; a captured step has it
+registered with its graph.
 
-An epoch walks the loader on the host: each batch goes to the card in one
-copy (``GraphBatch.to``) and takes one step; its metrics stay on the card
-as one packed vector (``[loss * graphs, graphs, tasks * graphs]``,
-:meth:`Trainer._acc_add`), and the epoch reads them back once at its end
-and sums them in float64 (:meth:`Trainer._acc_read`), so that no step
-waits for the host. ``predict`` keeps each batch's outputs on the card the
-same way and reads them back once a pass.
+A streaming epoch (JAX ``train_epoch``/``evaluate``) walks the loader's
+dispatch plan (:meth:`Trainer._group_plan`): with ``steps_per_dispatch``
+K > 1 (config or ``HYDRAGNN_STEPS_PER_DISPATCH``) every full K-group of
+same-shape batches is stacked (``graph.stack_batches``) and taken by one
+``train_multi``/``eval_multi`` replay, everything else by the single-step
+program. With ``device_prefetch`` > 0 (config or
+``HYDRAGNN_DEVICE_PREFETCH``) a background thread collates and stacks
+ahead and copies each payload to the card from pinned memory on a side
+stream, up to that many ahead; an event orders the copy before the replay
+that reads it (:meth:`Trainer._prefetch_put`). Metrics stay on the card as
+one packed vector per dispatch (``[loss * graphs, graphs, tasks *
+graphs]``, :meth:`Trainer._acc_add`), read back once at the pass's end and
+summed in float64 (:meth:`Trainer._acc_read`). ``HYDRAGNN_MAX_NUM_BATCH``
+caps every pass, as in the JAX package.
+
+A staged epoch (``device_resident_dataset``) is one replay per microbatch
+of a stack kept on the card: no copy to it and no readback inside the
+epoch; the microbatch order is drawn on the host from a ``torch.Generator``
+and sent once, and the per-microbatch rows come back once.
 
 Not ported yet, and refused where a config or the environment asks for
-them: the staged (device-resident) epochs, ``fit_staged``,
-``steps_per_dispatch > 1`` and device prefetch (``ROADMAP.md``, queue 1,
-item 5); the divergence guard's host side; ``freeze_conv`` and the
-optimizers other than Adam and AdamW (item 7); meshes (item 8).
+them: ``fit_staged`` (``ROADMAP.md``, queue 1, item 5); the divergence
+guard's host side; ``freeze_conv`` and the optimizers other than Adam and
+AdamW (item 7); meshes (item 8).
 """
 
 import os
@@ -32,12 +50,12 @@ import time
 import numpy as np
 import torch
 
-from hydragnn_tpu_torch.graph.batch import GraphBatch
+from hydragnn_tpu_torch.graph.batch import GraphBatch, stack_batches
 from hydragnn_tpu_torch.models.create import resolve_precision
-from hydragnn_tpu_torch.train import steps
-from hydragnn_tpu_torch.train.common import TrainState, guard_enabled
+from hydragnn_tpu_torch.train.common import TrainState, _env_int, _nbatch, guard_enabled
 from hydragnn_tpu_torch.train.optimizer import select_optimizer
 from hydragnn_tpu_torch.train.predict import PredictMixin
+from hydragnn_tpu_torch.train.steps import CapturedSteps, Staged
 
 
 class Trainer(PredictMixin):
@@ -46,20 +64,22 @@ class Trainer(PredictMixin):
             raise NotImplementedError(
                 "meshes are not ported yet: see ROADMAP.md, queue 1, item 8"
             )
-        for env, key in (("HYDRAGNN_STEPS_PER_DISPATCH", "steps_per_dispatch"),
-                         ("HYDRAGNN_DEVICE_PREFETCH", "device_prefetch")):
-            default = 1 if key == "steps_per_dispatch" else 0
-            if int(os.getenv(env, str(training_config.get(key, default)))) > default:
-                raise NotImplementedError(
-                    f"{key} is not ported yet: see ROADMAP.md, queue 1, item 5")
         self.model = model
         self.training_config = training_config
         self.freeze_conv = freeze_conv
         self.precision = resolve_precision(model, training_config)
         self.guarded = guard_enabled(training_config)
+        self.steps_per_dispatch = _env_int("HYDRAGNN_STEPS_PER_DISPATCH",
+                                           int(training_config.get("steps_per_dispatch", 1)))
+        self.device_prefetch = _env_int("HYDRAGNN_DEVICE_PREFETCH",
+                                        int(training_config.get("device_prefetch", 0)))
         self.device = next(model.parameters()).device
         self.generator = torch.Generator(device=self.device).manual_seed(0)
+        # the staged epochs' microbatch order, drawn on the host
+        self.perm_generator = torch.Generator().manual_seed(0)
         self.collate_s = 0.0  # host seconds making batches, summed over passes
+        self._steps = None
+        self._copy_stream = None
 
     def init_state(self, example_batch: GraphBatch) -> TrainState:
         """The state to train from: the model as built (its weights drawn
@@ -78,34 +98,78 @@ class Trainer(PredictMixin):
     def place_state(self, state: TrainState) -> TrainState:
         """``state`` on the model's device: the module, and the
         optimizer's moments (a restored checkpoint may have put them
-        elsewhere; Adam's step counts stay on the host)."""
+        elsewhere) and, for an optimizer built for capture, its step
+        counts (else they stay on the host). Frees the captured graphs:
+        they hold the tensors that a move replaces."""
+        self.release()
         state.model.to(self.device)
+        capturable = state.optimizer.defaults.get("capturable", False)
         for per_param in state.optimizer.state.values():
             for key, value in per_param.items():
-                if torch.is_tensor(value) and key != "step":
+                if torch.is_tensor(value) and (key != "step" or capturable):
                     per_param[key] = value.to(self.device)
         return state
+
+    def programs(self, state: TrainState) -> CapturedSteps:
+        """The captured programs over ``state``'s model and optimizer (new
+        ones, the old released, when the state holds others)."""
+        steps = self._steps
+        if steps is None or steps.model is not state.model or steps.optimizer is not state.optimizer:
+            self.release()
+            steps = self._steps = CapturedSteps(self, state)
+        return steps
+
+    def release(self):
+        """Free every captured graph of this trainer."""
+        if self._steps is not None:
+            self._steps.release()
+            self._steps = None
 
     def put_batch(self, batch: GraphBatch) -> GraphBatch:
         """The host batch on the model's device, in one transfer."""
         return batch.to(self.device)
 
+    def _feed(self, batch: GraphBatch) -> GraphBatch:
+        # on the card a program copies a host batch into its static input in
+        # one transfer; on the CPU the body takes the batch as it is
+        return batch if self.device.type == "cuda" else self.put_batch(batch)
+
     def train_step(self, state: TrainState, batch: GraphBatch):
-        return steps.train_step(state, self.put_batch(batch), guarded=self.guarded,
-                                mixed=self.precision["mixed"], generator=self.generator)
+        metrics = self.programs(state).train_step(self._feed(batch))
+        state.step += 1
+        return state, metrics
 
     def eval_step(self, state: TrainState, batch: GraphBatch):
-        return steps.eval_step(state, self.put_batch(batch))
+        return self.programs(state).eval_step(self._feed(batch))
+
+    def prepare_step(self, state: TrainState, batch: GraphBatch):
+        """Capture the training step for ``batch``'s shape without taking
+        it (the state is as before): a timed loop then only replays."""
+        self.programs(state).train_step(self._feed(batch), run=False)
+
+    def train_multi(self, state: TrainState, stacked: GraphBatch):
+        """K steps over a stacked group (``graph.stack_batches``) in one
+        replay; metrics stacked ``[K, ...]``."""
+        metrics = self.programs(state).train_multi(self._feed(stacked))
+        state.step += int(stacked.x.shape[0])
+        return state, metrics
+
+    def eval_multi(self, state: TrainState, stacked: GraphBatch):
+        return self.programs(state).eval_multi(self._feed(stacked))
 
     # ---- epochs on the host loop ----------------------------------------
 
     @staticmethod
-    def _acc_add(acc, metrics):
-        """Append one batch's ``[loss * graphs, graphs, tasks * graphs]``,
-        on the device: no readback."""
+    def _acc_add(acc, metrics, multi=False):
+        """Append one dispatch's ``[loss * graphs, graphs, tasks * graphs]``
+        (summed over the group's K steps with ``multi``), on the device:
+        no readback."""
         g = metrics["num_graphs"].to(torch.float32)
-        part = torch.cat([(metrics["loss"].float() * g).reshape(1), g.reshape(1),
-                          metrics["tasks"].float() * g])
+        loss, tasks = metrics["loss"].float(), metrics["tasks"].float()
+        if multi:
+            part = torch.cat([(loss @ g).reshape(1), g.sum().reshape(1), tasks.T @ g])
+        else:
+            part = torch.cat([(loss * g).reshape(1), g.reshape(1), tasks * g])
         acc = [] if acc is None else acc
         acc.append(part)
         return acc
@@ -120,17 +184,86 @@ class Trainer(PredictMixin):
         n = max(a[1], 1.0)
         return float(a[0] / n), a[2:] / n
 
-    def _batches(self, loader):
-        """The loader's batches, with the host seconds spent making them
-        (sample fetch and collation) added to ``self.collate_s``."""
+    def _batches(self, loader, nbatch=None):
+        """The loader's batches (at most ``nbatch``), with the host
+        seconds spent making them (sample fetch and collation) added to
+        ``self.collate_s``."""
         it = iter(loader)
-        while True:
+        for _ in range(len(loader) if nbatch is None else nbatch):
             t0 = time.perf_counter()
             batch = next(it, None)
             self.collate_s += time.perf_counter() - t0
             if batch is None:
                 return
             yield batch
+
+    @staticmethod
+    def _group_plan(batches, K):
+        """The dispatch plan (JAX ``Trainer._group_plan``): ``K``-long
+        groups of same-shape batches (the multi-step program) and single
+        batches (everything else). Only full groups take the multi-step
+        program, so that no partial group captures a graph of its own; a
+        shape change flushes the open group as singles."""
+        pending = []
+        for batch in batches:
+            if K == 1:
+                yield [batch]
+                continue
+            if pending and batch.shape_key() != pending[0].shape_key():
+                for b in pending:
+                    yield [b]
+                pending = []
+            pending.append(batch)
+            if len(pending) == K:
+                yield pending
+                pending = []
+        for b in pending:  # a trailing partial group: the single-step program
+            yield [b]
+
+    @staticmethod
+    def _put_group(group):
+        """A group as ``(payload, count)``: one batch, or K stacked."""
+        if len(group) > 1:
+            return stack_batches(group), len(group)
+        return group[0], 1
+
+    def _prefetch_put(self, plan, depth):
+        """``(payload, count)`` per dispatch of ``plan``. With ``depth`` >
+        0 a background thread stacks each group and copies it to the card
+        from pinned memory on a side stream, up to ``depth`` ahead (the
+        shared ``data.loaders.prefetch_iter``); the consumer's stream waits
+        on the copy's event, and the payload's memory is marked in use by
+        that stream until the replay that reads it. ``depth <= 0``: the
+        program copies each host payload itself."""
+        if depth <= 0 or self.device.type != "cuda":
+            for group in plan:
+                yield self._put_group(group)
+            return
+        from hydragnn_tpu_torch.data.loaders import prefetch_iter
+
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        copy_stream = self._copy_stream
+
+        def put(group):
+            payload, count = self._put_group(group)
+            with torch.cuda.stream(copy_stream):
+                payload = payload.to(self.device)
+                done = torch.cuda.Event()
+                done.record(copy_stream)
+            return payload, count, done
+
+        compute = torch.cuda.current_stream(self.device)
+        for payload, count, done in prefetch_iter(plan, depth, fn=put,
+                                                  name="hydragnn-torch-device-prefetch"):
+            compute.wait_event(done)
+            for t in payload.leaves()[1]:
+                t.record_stream(compute)
+            yield payload, count
+
+    def _dispatches(self, loader, K):
+        return self._prefetch_put(self._group_plan(self._batches(loader, _nbatch(loader)), K),
+                                  self.device_prefetch)
 
     def train_epoch(self, state: TrainState, loader):
         """One pass of training steps over ``loader``; returns ``(state,
@@ -140,16 +273,67 @@ class Trainer(PredictMixin):
                 "the divergence guard's host side (skip and restore) is not ported yet: "
                 "see ROADMAP.md, queue 1, item 7")
         acc = None
-        for batch in self._batches(loader):
-            state, metrics = self.train_step(state, batch)
-            acc = self._acc_add(acc, metrics)
+        for payload, count in self._dispatches(loader, max(1, self.steps_per_dispatch)):
+            if count > 1:
+                state, metrics = self.train_multi(state, payload)
+            else:
+                state, metrics = self.train_step(state, payload)
+            acc = self._acc_add(acc, metrics, multi=count > 1)
         loss, tasks = self._acc_read(acc)
         return state, loss, tasks
 
     def evaluate(self, state: TrainState, loader):
         """``(mean loss, per-task mean losses)`` of the model in eval mode
-        over ``loader``."""
+        over ``loader``, with the same multi-step dispatch as training."""
         acc = None
-        for batch in self._batches(loader):
-            acc = self._acc_add(acc, self.eval_step(state, batch))
+        for payload, count in self._dispatches(loader, max(1, self.steps_per_dispatch)):
+            if count > 1:
+                acc = self._acc_add(acc, self.eval_multi(state, payload), multi=True)
+            else:
+                acc = self._acc_add(acc, self.eval_step(state, payload))
         return self._acc_read(acc)
+
+    # ---- the device-resident dataset --------------------------------------
+
+    def stage_batches(self, batches) -> Staged:
+        """Stack same-shape collated batches and keep them on the card
+        (JAX ``stage_batches``); raises ``ValueError`` on ragged batches."""
+        return Staged(stack_batches(batches).to(self.device), self.model.num_heads)
+
+    @staticmethod
+    def _rows_mean(rows):
+        """``(mean loss, per-task means)`` of result rows ``[loss,
+        graphs, tasks...]``, weighted by graphs, in float64."""
+        rows = rows.cpu().numpy().astype(np.float64)  # the pass's one readback
+        g = rows[:, 1]
+        n = max(float(g.sum()), 1.0)
+        return float(rows[:, 0] @ g) / n, (rows[:, 2:] * g[:, None]).sum(0) / n
+
+    @staticmethod
+    def _staged_count(staged: Staged) -> int:
+        cap = os.getenv("HYDRAGNN_MAX_NUM_BATCH")
+        return staged.nb if cap is None else min(staged.nb, int(cap))
+
+    def train_epoch_staged(self, state: TrainState, staged: Staged, perm=None):
+        """One epoch over a staged stack, one replay a microbatch (JAX
+        ``train_epoch_staged``), in a shuffled order drawn from
+        ``self.perm_generator`` (or ``perm``): the microbatches' order
+        changes, their samples were fixed at staging. Returns ``(state,
+        mean loss, per-task mean losses)``."""
+        n_use = self._staged_count(staged)
+        if perm is None:
+            perm = torch.randperm(staged.nb, generator=self.perm_generator)[:n_use]
+        perm = torch.as_tensor(perm, dtype=torch.int64)
+        n_use = perm.shape[0]
+        staged.perm[:n_use].copy_(perm, non_blocking=False)
+        self.programs(state).epoch_scan(staged, n_use)
+        state.step += n_use
+        loss, tasks = self._rows_mean(staged.rows[:n_use])
+        return state, loss, tasks
+
+    def evaluate_staged(self, state: TrainState, staged: Staged):
+        """``(mean loss, per-task means)`` over a staged stack, one replay
+        a microbatch and one readback (JAX ``evaluate_staged``)."""
+        n = self._staged_count(staged)
+        self.programs(state).eval_epoch(staged, n)
+        return self._rows_mean(staged.rows[:n])

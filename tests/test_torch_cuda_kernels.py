@@ -851,7 +851,7 @@ def pytest_pna_dense_bf16_step_on_the_card(card):
     import chip_smoke as cs
     from hydragnn_tpu_torch.models import create_model_config
     from hydragnn_tpu_torch.serve import plan_from_samples
-    from hydragnn_tpu_torch.train import Trainer
+    from hydragnn_tpu_torch.train import Trainer, capture_counts
 
     size = dict(cs.FULL, graphs=16, batch=16)
     graphs = cs.make_graphs(size["graphs"], size["nodes"], size["degree"], seed=0)
@@ -864,10 +864,13 @@ def pytest_pna_dense_bf16_step_on_the_card(card):
         model, host, bf16=True,
         reversed_host=cs.train_batch(plan, graphs, cfg, dense=True, reverse=True))
     trainer = Trainer(model, cs.train_config(bf16=True))
-    before = segment_sum.launches
+    before, warm = segment_sum.launches, capture_counts()["warm_steps"]
     _, met = trainer.train_step(trainer.init_state(host), trainer.put_batch(host))
     torch.cuda.synchronize()
-    assert segment_sum.launches == before + 1  # the pool; the dense branch runs no kernel
+    # the step's replay and its capture's warm-up step: the pool once each
+    # (the dense branch runs no kernel)
+    steps_run = 1 + capture_counts()["warm_steps"] - warm
+    assert steps_run == 2 and segment_sum.launches == before + steps_run
     rows, bad, _ = cs.hold_step_against_cpu(cs.snapshot(model), float(met["loss"]), cpu, exact,
                                             bf16=True)
     assert rows and not bad, bad
