@@ -44,7 +44,7 @@ warm-ups alike (``train.capture_counts``).
    EGNN (and the last four stacks, below) (hidden 256, 3 conv layers, a
    graph head and a node head of 64-wide layers, ``benchmarks/model_bench.py:_arch``; random weights from
    a seed, non-trivial BatchNorm statistics where the stack has any)
-   served by ``InferenceServer`` to 128 molecule-sized graphs (80-90
+   served by ``InferenceServer`` to 64 molecule-sized graphs (80-90
    atoms, 12 edges per atom) from four threads, once per aggregation mode.
    The server captures each bucket's forward at warmup: its
    ``compiles_total`` must equal the buckets after warmup and after the
@@ -144,7 +144,26 @@ warm-ups alike (``train.capture_counts``).
    One ``{"run_training": ...}`` line per run:
    epochs, each epoch's losses and wall, graphs/s, ms per step, the host
    collation's share of the training wall, launches, the checkpoint's
-   bytes and save time.
+   bytes and save time. Then the whole runs (:func:`phase_whole_runs`):
+   ``ci.json`` PNA as ``tests/test_graphs.py:240-257`` drives it (300
+   configurations, ``device_resident_dataset`` and ``fit_chunk_epochs``
+   10: ``Trainer.fit_staged`` chunks, one readback each), held to its
+   ceilings, its launches to the count of every epoch the chunks
+   dispatched (padded and stopped ones replay too), the tail's plateau
+   rates, stop and best epoch to the host trackers run again over its
+   validation series (:func:`host_decisions`), then one more chunk
+   profiled (ms an epoch, busy share) and :data:`FIT_SYNC_CHUNKS` queued
+   under ``torch.cuda.set_sync_debug_mode("error")``
+   (:func:`profiled_chunk`); the other eight stacks (:data:`OTHER_STACKS`)
+   the same way at 500 configurations, on the branch the data path picks
+   for them (the static dense policy), each held to its
+   ``tests/test_graphs.py`` ceilings (:data:`THRESHOLDS`); a guarded
+   streaming PNA run (``divergence_guard``) with
+   ``HYDRAGNN_FAULT_NAN_AT_STEP`` poisoning two steps: 2 skipped, no
+   restore, ceilings met, and the guard's cost a step
+   (:func:`guard_cost`); and one poisoned step under
+   ``HYDRAGNN_NAN_SENTINEL=1``, which must raise ``NonFiniteError``
+   naming a parameter (:func:`sentinel_check`).
 7. Capture: one ``{"capture": ...}`` line of phase 4's compile counters
    and ``warm_version`` results, one of phase 5's ``bench_model`` rows
    (captured and eager ms a step, the replay's busy share and device ops,
@@ -266,11 +285,13 @@ GAT_DROPOUT = 0.25  # the JAX package's HydraBase.dropout
 # recurrence of DimeNet's spherical Bessel functions; tests/test_torch_dimenet.py)
 SERVE_AGAINST_F64 = ("DimeNet",)
 # the last four stacks' bursts: their first graphs (two full buckets and
-# more), every response held against the CPU, whose forwards of these
-# stacks take most of the phase's time
-NEW_SERVE_REQUESTS = 64
-# the earlier five stacks' bursts, cut from 320 to keep the smoke's wall
-SERVE_REQUESTS = 128
+# more at 64; cut to 32 for the whole runs' share of the wall), every
+# response held against the CPU, whose forwards of these stacks take most
+# of the phase's time
+NEW_SERVE_REQUESTS = 32
+# the earlier five stacks' bursts, cut from 320 to 128 and then to 64 to
+# keep the smoke's wall
+SERVE_REQUESTS = 64
 # the earlier five stacks train at this depth (their bench rows have 3),
 # for the same wall: their float64 CPU steps are most of their phase
 FIVE_TRAIN_LAYERS = 2
@@ -1348,7 +1369,23 @@ def exact_with_flips(start, host, flips):
     return m, loss
 
 
-def cpu_references(model, host, bf16=False, reversed_host=None, kinks=None):
+def _graph_tensors(batch):
+    """The batch's tensors but its neighbour lists (``extras``), by name."""
+    names, tensors = batch.leaves()
+    return {n: t for n, t in zip(names, tensors) if not n.startswith("extras.")}
+
+
+def _same_start(model, host, first):
+    """Whether ``model``'s weights and statistics and ``host``'s graphs
+    equal, bit for bit, those that ``first`` recorded."""
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    graphs = _graph_tensors(host)
+    return (state.keys() == first["state"].keys() and graphs.keys() == first["graphs"].keys()
+            and all(torch.equal(state[k], first["state"][k]) for k in state)
+            and all(torch.equal(graphs[k], first["graphs"][k]) for k in graphs))
+
+
+def cpu_references(model, host, bf16=False, reversed_host=None, kinks=None, shared=None):
     """Step 1 of CPU copies of ``model`` (taken before any step) on ``host``:
     the witnesses, through the plain versions in float32 (with ``bf16``, in
     bf16 mixed precision: the card's own arithmetic; then also on
@@ -1361,22 +1398,41 @@ def cpu_references(model, host, bf16=False, reversed_host=None, kinks=None):
     loss))``. With ``kinks`` (a dict) and ``bf16`` False, every ReLU's input
     is recorded in both steps: ``kinks`` gets them (``z32``, ``z64``) and a
     copy of the model before the step (``start``), for
-    :func:`kink_flips` and :func:`exact_with_flips`."""
+    :func:`kink_flips` and :func:`exact_with_flips`.
+
+    With ``shared`` (a dict kept across one stack's runs), the float64
+    step is taken once, by the first run, and the others reuse it: each
+    later run's model must start from the same weights and statistics and
+    its batch hold the same graphs, bit for bit (its branch's neighbour
+    lists aside), else it raises. The branches compute one function; their
+    float64 steps, through different plain versions, agree to float64's
+    rounding (in a parameter, to what AdamW's first step makes of a
+    gradient that is rounding noise)."""
     if bf16 and reversed_host is None:
         raise ValueError("a bf16 step needs its second witness: pass reversed_host")
     witness = copy.deepcopy(model).cpu()
     start = copy.deepcopy(witness)
-    f64 = copy.deepcopy(witness).double()
     second = None if reversed_host is None else copy.deepcopy(witness)
+    if shared:
+        if not _same_start(model, host, shared):
+            raise AssertionError("the shared float64 step: another start or other graphs")
+        f64, loss64, z64 = shared["exact"]
+    else:
+        f64, z64 = copy.deepcopy(witness).double(), KinkReLUs()
+        z64.install(f64)  # its inputs serve every f32 run of the stack
+        with float64_port(), Float32Watch() as watch:
+            loss64 = cpu_step(f64, as_float64(host))
+        if watch.seen:
+            raise AssertionError(f"float32 in the float64 step: {sorted(watch.seen)}")
+        z64.remove(f64)
+        if shared is not None:
+            shared.update(exact=(f64, loss64, z64), graphs=_graph_tensors(host),
+                          state={k: v.detach().cpu().clone()
+                                 for k, v in model.state_dict().items()})
     record = kinks is not None and not bf16
-    z32, z64 = KinkReLUs(), KinkReLUs()
+    z32 = KinkReLUs()
     if record:
-        z64.install(f64)
         z32.install(witness)
-    with float64_port(), Float32Watch() as watch:
-        loss64 = cpu_step(f64, as_float64(host))
-    if watch.seen:
-        raise AssertionError(f"float32 in the float64 step: {sorted(watch.seen)}")
     witnesses = [(witness, cpu_step(witness, host, bf16))]
     if second is not None:
         witnesses.append((second, cpu_step(second, reversed_host, bf16)))
@@ -1589,6 +1645,33 @@ def split_trace(path):
     return by_phase, by_op, backward_ops, count
 
 
+def replay_split(path):
+    """``{program: [device ms, device ops]}`` of a profiled trace, each
+    kernel, copy and fill put in the captured program whose
+    ``replay.<name>`` range on the host launched it (as
+    :func:`split_trace` matches them); ``other`` for the rest."""
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    ranges = [(ev["ts"], ev["ts"] + ev.get("dur", 0), ev["name"][len("replay."):])
+              for ev in events if ev.get("cat") == "user_annotation"
+              and ev.get("name", "").startswith("replay.")]
+    launched_at = {
+        ev["args"]["correlation"]: ev["ts"] for ev in events
+        if ev.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in ev.get("args", {})
+    }
+    out = {}
+    for ev in events:
+        if ev.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        t = launched_at.get(ev.get("args", {}).get("correlation"))
+        name = next((n for lo, hi, n in ranges if t is not None and lo <= t <= hi), "other")
+        row = out.setdefault(name, [0.0, 0])
+        row[0] += ev.get("dur", 0.0) / 1e3
+        row[1] += 1
+    return out
+
+
 def trace_split(trace, ms_per_step):
     """A profiled step's device time from its trace (:func:`split_trace`),
     by phase, with the busy share against ``ms_per_step``."""
@@ -1654,7 +1737,7 @@ def phase_bench(name, row, size, device, card):
 
 
 def phase_train(mode, cfg, plan, graphs, device, card, bf16=False, windows=TRAIN_WINDOWS,
-                step1_graphs=None, step1_bucket=None):
+                step1_graphs=None, step1_bucket=None, shared=None):
     """Training of ``cfg``'s stack through the port's entry points:
     ``Trainer`` -> ``init_state`` -> ``put_batch`` -> 1 + ``windows`` x 4
     ``train_step`` (AdamW; with ``bf16``, bf16 mixed precision) -> one
@@ -1663,8 +1746,9 @@ def phase_train(mode, cfg, plan, graphs, device, card, bf16=False, windows=TRAIN
     the one held against the CPU, takes the first ``step1_graphs`` graphs
     of that batch only (the CPU's float64 step at the full batch is most
     of the phase's time for the last four stacks); with ``step1_bucket``,
-    the batch of that bucket of ``plan``. Returns the kernel launches of
-    the run."""
+    the batch of that bucket of ``plan``. ``shared``: the stack's float64
+    step, taken by its first run (:func:`cpu_references`). Returns the
+    kernel launches of the run."""
     t_run = time.perf_counter()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -1685,7 +1769,7 @@ def phase_train(mode, cfg, plan, graphs, device, card, bf16=False, windows=TRAIN
     reversed_host = train_batch(plan, graphs, cfg, dense=mode == "dense", reverse=True,
                                 **cut) if two_orders else None
     kinks = {}
-    cpu, exact = cpu_references(model, host1, bf16, reversed_host, kinks=kinks)
+    cpu, exact = cpu_references(model, host1, bf16, reversed_host, kinks=kinks, shared=shared)
     cpu_s = time.perf_counter() - t_run
     trainer = Trainer(model, train_config(bf16))
     if trainer.precision["mixed"] != bf16:
@@ -2094,11 +2178,14 @@ def run_and_predict(config, device, mode):
     """``run_training`` then ``run_prediction`` of ``config``, with the
     launch counts of the two together; the loaders (parsed again, as
     ``run_prediction`` parses them) give the batch counts and the test
-    split's order."""
+    split's order. ``mode`` None: the branch the loaders' layout took
+    (``dense`` where the batches carry the lists)."""
     from hydragnn_tpu_torch import run_prediction, run_training
     from hydragnn_tpu_torch.data.loaders import dataset_loading_and_splitting
 
     train_l, val_l, test_l = dataset_loading_and_splitting(copy.deepcopy(config))
+    if mode is None:  # the branch the data path chose (the static dense policy)
+        mode = "dense" if getattr(train_l.layout, "need_neighbors", False) else "segment"
     reset_launch_counts()
     reset_capture_counts()
     t0 = time.perf_counter()
@@ -2109,8 +2196,11 @@ def run_and_predict(config, device, mode):
     counts = launch_counts()
     arch = dict(config["NeuralNetwork"]["Architecture"], equivariance=False)
     history = state.info["history"]
-    steps = len(history) * len(train_l)
-    forwards = len(history) * (len(val_l) + len(test_l)) + len(test_l)
+    chunk = int(config["NeuralNetwork"]["Training"].get("fit_chunk_epochs", 0))
+    # a chunk replays all its padded epochs, those after a stop included
+    epochs = chunk * len({h["chunk"] for h in history}) if chunk else len(history)
+    steps = epochs * len(train_l)
+    forwards = epochs * (len(val_l) + len(test_l)) + len(test_l)
     per_step, per_forward = launches_per_train_step(arch, mode), launches_per_forward(arch, mode)
     # every program's capture ran its body once eagerly first (warm-up)
     programs = capture_counts()
@@ -2141,7 +2231,15 @@ def run_and_predict(config, device, mode):
         "sample_mae": [float(np.abs(t - p).mean()) for t, p in zip(true_values, predicted)],
         "run_training_s": t1 - t0, "run_prediction_s": t2 - t1,
         "graphs": [len(train_l.dataset), len(val_l.dataset), len(test_l.dataset)],
+        "branch": mode,
     }
+    if chunk:
+        line.update(epochs_dispatched=epochs, chunks=len({h["chunk"] for h in history}),
+                    chunk_readbacks=state.info["fit_readbacks"],
+                    ms_per_epoch=[1e3 * h["epoch_s"] for h in history])
+        if state.info["fit_readbacks"] != line["chunks"]:
+            raise AssertionError(f"run_training ({mode}): {state.info['fit_readbacks']} "
+                                 f"readbacks for {line['chunks']} chunks")
     return state, counts, line, (train_l, test_l, predicted)
 
 
@@ -2273,6 +2371,259 @@ def phase_run_training(device, card, rehearsal):
     return launches
 
 
+# ---- phase 6, continued: whole runs, the guard and the sentinel -------------
+
+FIT_CONFIGS = 300  # tests/test_graphs.py:240-257: PNA's whole-training dispatch
+FIT_CHUNK = 10  # its fit_chunk_epochs
+FIT_SYNC_CHUNKS = 3  # chunks queued under set_sync_debug_mode("error")
+# tests/test_graphs.py:24-34: each head's error, then each head's sample MAE
+THRESHOLDS = {"SAGE": (0.20, 0.20), "PNA": (0.20, 0.20), "MFC": (0.20, 0.20),
+              "GIN": (0.25, 0.20), "GAT": (0.60, 0.70), "CGCNN": (0.50, 0.40),
+              "SchNet": (0.20, 0.20), "DimeNet": (0.50, 0.50), "EGNN": (0.20, 0.20)}
+OTHER_STACKS = ("GIN", "SAGE", "MFC", "GAT", "CGCNN", "SchNet", "DimeNet", "EGNN")
+GUARD_NAN_STEPS = "5,40"  # HYDRAGNN_FAULT_NAN_AT_STEP of the guarded run: two steps
+GUARD_COST_STEPS = 50
+
+
+def ceilings(model_type, line):
+    """``tests/test_graphs.py``'s rule: every head's error and the total
+    below the first ceiling, every head's sample MAE below the second."""
+    err, mae = THRESHOLDS[model_type]
+    return (all(e < err for e in line["head_error"] + [line["error"]])
+            and all(m < mae for m in line["sample_mae"]))
+
+
+def fit_meta(log_name):
+    """The final checkpoint's ``train_meta``."""
+    from hydragnn_tpu_torch.train import checkpoint
+
+    return checkpoint.pop_train_meta(checkpoint.load_state_dict(log_name, fallback=False))
+
+
+def host_decisions(history, training, meta):
+    """The host trackers (``ReduceLROnPlateau``, ``EarlyStopping``,
+    ``BestCheckpoint``'s rule) run again over the chunked run's validation
+    series: their rates, stop and best epoch against the device tail's
+    (the series' rates, the last epoch with the stop flag, the epoch whose
+    loss is ``fit_sched.best_val``). Exact: the same inputs."""
+    from hydragnn_tpu_torch.train.scheduler import EarlyStopping, ReduceLROnPlateau
+
+    plateau = ReduceLROnPlateau(lr=float(np.float32(training["Optimizer"]["learning_rate"])))
+    early = EarlyStopping(training.get("patience", 5)) if training.get("EarlyStopping") else None
+    warmup = training.get("checkpoint_warmup", 10)
+    rates, stop, best, best_epoch = [], None, None, None
+    for h in history:
+        rates.append(float(np.float32(plateau.step(h["val_loss"]))))
+        if h["epoch"] >= warmup and (best is None or h["val_loss"] < best):
+            best, best_epoch = h["val_loss"], h["epoch"]
+        if early is not None and early(h["val_loss"]) and stop is None:
+            stop = h["epoch"]
+    device_rates = [float(np.float32(h["lr"])) for h in history]
+    best_val = float(meta["fit_sched"]["best_val"])
+    device_best = next((h["epoch"] for h in history
+                        if h["epoch"] >= warmup and np.float32(h["val_loss"]) == best_val), None)
+    device_stop = history[-1]["epoch"] if bool(meta["fit_sched"]["stopped"]) else None
+    out = {"rates_equal": rates == device_rates, "stop_epoch": device_stop,
+           "host_stop_epoch": stop, "best_epoch": device_best, "host_best_epoch": best_epoch,
+           "rate_drops": len(set(device_rates)) - 1}
+    out["equal"] = (out["rates_equal"] and stop == device_stop and best_epoch == device_best)
+    return out
+
+
+def profiled_chunk(state, config, loaders, device, name):
+    """Chunks of the run's state through a new trainer: one to capture,
+    one under the profiler (its wall, the device's busy share, ms an
+    epoch, each program's device time and ops an epoch), then :data:`FIT_SYNC_CHUNKS` queued under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync inside one
+    raises), each read back after; one readback a chunk."""
+    from torch.profiler import ProfilerActivity, profile
+
+    training = config["NeuralNetwork"]["Training"]
+    chunk = training["fit_chunk_epochs"]
+    trainer = Trainer(state.model, training)
+    staged, val, test = (trainer.stage_batches(list(ld)) for ld in loaders)
+    fit = lambda: trainer.fit_staged(state, staged, chunk, staged_val=val,  # noqa: E731
+                                     staged_test=test)
+    fit()
+    trace = _build.REPO_ROOT / "build" / "chip_smoke" / f"run_training_{name}_chunk_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        series = fit()[3]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prof.export_chrome_trace(str(trace))
+    by_phase, _, _, ops = split_trace(trace)
+    device_s = sum(by_phase.values()) / 1e3
+    by_program = {name: {"device_ms_per_epoch": ms / chunk, "device_ops_per_epoch": n / chunk}
+                  for name, (ms, n) in replay_split(trace).items()}
+    dispatch_s = []
+    for _ in range(FIT_SYNC_CHUNKS):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            trainer.fit_dispatch(state, staged, chunk, staged_val=val, staged_test=test)
+            dispatch_s.append(time.perf_counter() - t0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        trainer.fit_read(state)
+    readbacks = trainer.fit_readbacks
+    trainer.release()
+    if readbacks != 2 + FIT_SYNC_CHUNKS:
+        raise AssertionError(f"{readbacks} readbacks for {2 + FIT_SYNC_CHUNKS} chunks")
+    return {"profiled_chunk_s": wall, "profiled_ms_per_epoch": 1e3 * wall / chunk,
+            "profiled_device_s": device_s or "not measured",
+            "device_busy_share": device_s / wall if device_s else "not measured",
+            "profiled_device_ops": ops, "profiled_by_program": by_program,
+            "profiled_ms_per_step": 1e3 * wall / (chunk * len(loaders[0])),
+            "profiled_train_loss_finite": bool(np.isfinite(series["train_loss"]).all()),
+            "sync_free_chunks": FIT_SYNC_CHUNKS, "host_queue_s_per_chunk": dispatch_s,
+            "profiled_readbacks": readbacks, "profiled_chunks": 2 + FIT_SYNC_CHUNKS}
+
+
+def guard_cost(state, config, loader, device):
+    """The guard's cost a step on the run's first batch: captured steps
+    with the guard (the pre-step copy into its buffers, the step with its
+    ``finite`` reduction, the scalar read back) against the same steps
+    without it, :data:`GUARD_COST_STEPS` each, host clock to a sync, in
+    turns (without, with, with, without)."""
+    training = config["NeuralNetwork"]["Training"]
+    model, optimizer = copy.deepcopy((state.model, state.optimizer))
+    bare = dict(training, divergence_guard=False)
+    trainers = {"bare": Trainer(model, bare), "guarded": Trainer(model, dict(
+        training, divergence_guard=True))}
+    st = dataclasses.replace(state, model=model, optimizer=optimizer, info={})
+    batch = next(iter(loader))
+    for trainer in trainers.values():
+        trainer.train_step(st, batch)  # capture
+    trainers["guarded"].guard.snapshot(st)  # its buffers, allocated once
+
+    def run(kind):
+        trainer = trainers[kind]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GUARD_COST_STEPS):
+            if kind == "guarded":
+                prev = trainer.guard.snapshot(st)
+                _, met = trainer.train_step(st, batch)
+                if not bool(met["finite"]):
+                    trainer.guard.on_bad_step(st, prev)
+            else:
+                trainer.train_step(st, batch)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / GUARD_COST_STEPS
+
+    ms = {"bare": [], "guarded": []}
+    for kind in ("bare", "guarded", "guarded", "bare"):
+        ms[kind].append(run(kind))
+    for trainer in trainers.values():
+        trainer.release()
+    bare_ms, guarded_ms = min(ms["bare"]), min(ms["guarded"])
+    return {"ms_per_step_bare": ms["bare"], "ms_per_step_guarded": ms["guarded"],
+            "guard_ms_per_step": guarded_ms - bare_ms}
+
+
+def sentinel_check(state, config, loader):
+    """One poisoned step under ``HYDRAGNN_NAN_SENTINEL=1`` (after a finite
+    one, which captures): it must raise ``NonFiniteError`` naming a
+    parameter by its key and its JAX path."""
+    from hydragnn_tpu_torch.analysis import NonFiniteError
+
+    model, optimizer = copy.deepcopy((state.model, state.optimizer))
+    st = dataclasses.replace(state, model=model, optimizer=optimizer, info={})
+    batch = next(iter(loader))
+    saved = os.environ.get("HYDRAGNN_NAN_SENTINEL")
+    os.environ["HYDRAGNN_NAN_SENTINEL"] = "1"
+    try:
+        trainer = Trainer(model, config["NeuralNetwork"]["Training"])
+        trainer.train_step(st, batch)
+        try:
+            trainer.train_step(st, dataclasses.replace(batch, x=batch.x * float("nan")))
+        except NonFiniteError as err:
+            origin = err.origin
+        else:
+            raise AssertionError("a poisoned step passed the NaN sentinel")
+        finally:
+            trainer.release()
+    finally:
+        if saved is None:
+            os.environ.pop("HYDRAGNN_NAN_SENTINEL")
+        else:
+            os.environ["HYDRAGNN_NAN_SENTINEL"] = saved
+    key = origin["origin"].split(" = ")[0]
+    if key not in dict(model.named_parameters()) or " = [0].params[" not in origin["origin"]:
+        raise AssertionError(f"the sentinel named {origin}, not a parameter")
+    return {"raised": "NonFiniteError", **origin}
+
+
+def phase_whole_runs(device, card, rehearsal):
+    """Phase 6's whole runs (module docstring): PNA's chunked ``ci.json``
+    run with its profiled and sync-checked chunks and the tail's decisions
+    against the host trackers; the eight other stacks' chunked runs, each
+    held to its ceilings; a guarded streaming PNA run with two poisoned
+    steps, and the guard's cost a step; the NaN sentinel. One
+    ``{"run_training": ...}`` line per run. Returns the launches."""
+    root = _build.REPO_ROOT / "build" / "chip_smoke" / "whole_runs"
+    if root.exists():
+        import shutil
+
+        shutil.rmtree(root)
+    data = root / "data"
+    launches = {name: 0 for name in KERNELS}
+    chunked = {"device_resident_dataset": True, "fit_chunk_epochs": FIT_CHUNK}
+    runs = [("PNA", FIT_CONFIGS, "fit_chunk", chunked, {})]
+    runs += [(m, CI_CONFIGS, "fit_chunk", chunked, {}) for m in OTHER_STACKS]
+    runs += [("PNA", CI_CONFIGS, "guarded_streaming", {"divergence_guard": True},
+              {"HYDRAGNN_FAULT_NAN_AT_STEP": GUARD_NAN_STEPS})]
+    for model_type, configs, label, training, env in runs:
+        configs = RUN_REHEARSAL["ci_configs"] if rehearsal else configs
+        config = ci_config("ci.json", data, configs, rehearsal)
+        config["NeuralNetwork"]["Architecture"]["model_type"] = model_type
+        config["NeuralNetwork"]["Training"].update(training)
+        t0 = time.perf_counter()
+        with run_directory(root / f"{model_type}_{label}", env):
+            state, counts, line, (train_l, test_l, _) = run_and_predict(config, device, None)
+            for k, v in counts.items():
+                launches[k] += v
+            extra = {}
+            if label == "fit_chunk":
+                meta = fit_meta(state.info["log_name"])
+                extra["fit_sched"] = {k: float(v) for k, v in meta["fit_sched"].items()}
+                decisions = host_decisions(state.info["history"],
+                                           config["NeuralNetwork"]["Training"], meta)
+                if not decisions["equal"]:
+                    raise AssertionError(f"{model_type}: the tail's decisions differ from the "
+                                         f"host trackers': {decisions}")
+                extra["tail_decisions"] = decisions
+            if model_type == "PNA" and label == "fit_chunk" and device.type == "cuda":
+                from hydragnn_tpu_torch.data.loaders import dataset_loading_and_splitting
+
+                loaders = dataset_loading_and_splitting(copy.deepcopy(config))
+                extra.update(profiled_chunk(state, config, loaders, device, "ci_fit_chunk"))
+            if label == "guarded_streaming":
+                guard = state.info["guard"]
+                if not rehearsal and guard != {"skipped": 2, "restores": 0}:
+                    raise AssertionError(f"the guarded run counted {guard}, not 2 skipped steps "
+                                         "and no restore")
+                extra["guard"] = guard
+                if device.type == "cuda":
+                    extra.update(guard_cost(state, config, train_l, device))
+                extra["sentinel"] = sentinel_check(state, config, train_l)
+        met = ceilings(model_type, line)
+        if not rehearsal and not met:
+            raise AssertionError(f"ci.json {model_type} ({label}) misses its ceilings "
+                                 f"{THRESHOLDS[model_type]}: {line}")
+        emit({"run_training": {"config": "ci.json", "mode": label, "model": model_type,
+                               "width": config["NeuralNetwork"]["Architecture"]["hidden_dim"],
+                               "env": env, "training": training,
+                               "ceilings": THRESHOLDS[model_type], "ceilings_met": met,
+                               **line, **extra, "phase_s": time.perf_counter() - t0,
+                               "card": card}})
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -2370,19 +2721,21 @@ def main(argv=None):
         cfg = dict(arch(size, family), equivariance=family in ("SchNet", "EGNN"),
                    num_conv_layers=min(size["layers"], FIVE_TRAIN_LAYERS))
         windows = TRAIN_WINDOWS if family == "PNA" else STACK_TRAIN_WINDOWS
+        shared = {}  # the stack's float64 step, for its four runs
         for mode, bf16 in (("fused", False), ("segment", False), ("dense", False),
                            ("dense", True)):
-            add(phase_train(mode, cfg, plan, graphs, device, card, bf16=bf16, windows=windows))
+            add(phase_train(mode, cfg, plan, graphs, device, card, bf16=bf16, windows=windows,
+                            shared=shared))
     lap("train (five stacks)")
     step1 = (dict(step1_bucket=0) if args.step1_bucket else
              dict(step1_graphs=NEW_STEP1_GRAPHS if size is FULL else 2))
     for family in NEW_FAMILIES:
         fam_graphs, plans = new_plans[family]
         cfg = arch(size, family)
+        shared = {}
         for mode, bf16 in (("segment", False), ("dense", False), ("dense", True)):
             add(phase_train(mode, cfg, plans["segment"], fam_graphs, device, card, bf16=bf16,
-                            windows=STACK_TRAIN_WINDOWS,
-                            **step1))
+                            windows=STACK_TRAIN_WINDOWS, shared=shared, **step1))
     phase_dropout(plan, graphs, arch(size, "GAT"), device, card)
     lap("train (GAT, MFC, CGCNN, DimeNet)")
     benched = [phase_bench("MXU_HEADLINE", MXU_HEADLINE, size, device, card)]
@@ -2394,6 +2747,8 @@ def main(argv=None):
     lap("bench_model")
     add(phase_run_training(device, card, rehearsal=args.cpu_rehearsal))
     lap("run_training")
+    add(phase_whole_runs(device, card, rehearsal=args.cpu_rehearsal))
+    lap("run_training (whole runs, guard, sentinel)")
     phase_capture(plan, graphs, device, card, served, benched)
     lap("capture")
 

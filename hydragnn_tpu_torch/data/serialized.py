@@ -12,7 +12,9 @@ numpy arrays and scalars, builtin containers and the port's ``GraphData``.
 The JAX package writes the same pickles with its own ``GraphData``
 (``hydragnn_tpu.data.dataobj.GraphData``, the same fields); that one name
 is read as the port's class, so that a pickle of either package loads
-without importing the other. Any other class is refused.
+without importing the other. Any other class is refused. The read goes
+through ``utils.faults.flaky_read`` and is retried on a transient
+``OSError`` (``utils.retry.retry_io``), as the JAX package's is.
 """
 
 import pickle
@@ -28,6 +30,8 @@ from hydragnn_tpu_torch.data.transforms import (
     point_pair_features,
     spherical_descriptor,
 )
+from hydragnn_tpu_torch.utils import faults
+from hydragnn_tpu_torch.utils.retry import retry_io
 
 _GRAPH_DATA = {
     ("hydragnn_tpu_torch.data.dataobj", "GraphData"),
@@ -119,7 +123,13 @@ class SerializedGraphLoader:
         self.point_pair_features = descriptors.get("PointPairFeatures", False)
 
     def load_serialized_data(self, dataset_path: str) -> List[GraphData]:
-        _, _, dataset = read_serialized(dataset_path)
+        def read():
+            faults.flaky_read(dataset_path)
+            return read_serialized(dataset_path)[2]
+
+        # one large read off a shared filesystem: a transient OSError is
+        # retried with backoff instead of ending the job at its start
+        dataset = retry_io(read, what=dataset_path)
         if self.rotational_invariance:
             dataset = [normalize_rotation(d) for d in dataset]
         for data in dataset:

@@ -20,9 +20,10 @@ The capture recipe, per new key:
    AdamW's lazy state and fills the allocator.
 3. For a body that changes the training state, the state is restored in
    place after the warm-up (:class:`ProgramSet` ``snapshot``/``restore``:
-   parameters, optimizer moments and step counts, BatchNorm statistics,
-   the dropout generator's offset), so that the first replay is the eager
-   step 1, not step 2.
+   :func:`state_tensors`, that is parameters, BatchNorm statistics,
+   optimizer moments and step counts and the rates, and the dropout
+   generator's offset), so that the first replay is the eager step 1,
+   not step 2.
 4. Capture on the side stream into the program set's one memory pool,
    with the set's generator registered with the graph (GAT's dropout).
    The tensors a graph writes and keeps beyond one replay (its outputs,
@@ -31,6 +32,20 @@ The capture recipe, per new key:
 
 A replay copies its outputs out (a clone of each), so that the next
 replay cannot overwrite what a caller holds.
+
+A program of ``kind="tail"`` is bookkeeping between the steps of a run
+(the chunk's epoch head and tail, ``steps.CapturedSteps.fit_dispatch``):
+it runs no training step and no forward, and writes the state in place
+with the buffers it is bound to (the epoch-start snapshot, the best state,
+the schedulers' state and the series), all of which its capture's warm-up
+restores.
+
+:func:`state_tensors` lists the training state in one fixed order
+(parameters, buffers, the optimizer's per-parameter tensors, the rates
+held as tensors): what a capture's warm-up restores, a chunk snapshots
+and selects and the divergence guard copies, always in place, since a captured graph reads these very
+tensors and a tensor rebound in Python would leave it reading stale
+memory.
 
 Launch accounting (``ops.launch_counts``): a capture records the kernel
 wrappers' launch counts of its capture pass and takes them back off (the
@@ -63,6 +78,44 @@ def capture_counts() -> Dict[str, int]:
 def reset_capture_counts():
     for key in _TALLY:
         _TALLY[key] = 0
+
+
+def state_tensors(model, optimizer=None, strict: bool = True) -> List[torch.Tensor]:
+    """The training state, in a fixed order: every parameter, every
+    buffer, each parameter's optimizer tensors (by key: moments and step
+    count) and each param group's rate where it is a tensor (shared
+    tensors once). Two models of one architecture with optimizers of one
+    kind give lists that align tensor for tensor. The optimizer's state
+    must exist (``optimizer.ensure_optimizer_state``); ``strict=False``
+    skips the parameters that have none yet."""
+    out = [p for p in model.parameters()] + [b for b in model.buffers()]
+    if optimizer is None:
+        return out
+    for p in model.parameters():
+        per = optimizer.state.get(p)
+        if per is None:
+            if strict:
+                raise ValueError("the optimizer has no state for a parameter yet")
+            continue
+        out += [per[k] for k in sorted(per) if torch.is_tensor(per[k])]
+    return out + rate_tensors(optimizer)
+
+
+def rate_tensors(optimizer) -> List[torch.Tensor]:
+    """The param groups' rates held as tensors, each shared one once: the
+    tail of :func:`state_tensors`."""
+    out = []
+    for group in optimizer.param_groups:
+        lr = group["lr"]
+        if torch.is_tensor(lr) and all(lr is not t for t in out):
+            out.append(lr)
+    return out
+
+
+def copy_state(dst: List[torch.Tensor], src: List[torch.Tensor]):
+    """``dst[i] <- src[i]`` in place (one multi-tensor copy)."""
+    with torch.no_grad():
+        torch._foreach_copy_(dst, src)
 
 
 def _flatten(args):
@@ -119,10 +172,14 @@ class _Graph:
             s.copy_(t, non_blocking=True)
 
 
+KINDS = ("step", "forward", "tail")
+
+
 class Program:
     """One body, one captured graph per shape key (see the module's
     docstring). ``bodies``: how many training steps (``kind="step"``) or
-    forwards (``kind="forward"``) one call runs; ``mutates``: the body
+    forwards (``kind="forward"``) one call runs (``kind="tail"``: none,
+    bookkeeping between them); ``mutates``: the body
     changes the training state, which capture then restores after its
     warm-up. ``bound=True``: the inputs are device tensors the graph
     reads in place (a staged stack, its cursor and its result buffers),
@@ -132,8 +189,8 @@ class Program:
 
     def __init__(self, owner: "ProgramSet", name: str, body: Callable, kind: str,
                  mutates: bool, bodies: Callable = lambda args: 1, bound: bool = False):
-        if kind not in ("step", "forward"):
-            raise ValueError(f"kind must be 'step' or 'forward', got {kind!r}")
+        if kind not in KINDS:
+            raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
         self.owner, self.name, self.body = owner, name, body
         self.kind, self.mutates, self.bodies, self.bound = kind, mutates, bodies, bound
         self.graphs: Dict[tuple, object] = {}  # key -> _Graph (CPU: None)
@@ -198,17 +255,20 @@ class Program:
         snap = owner.snapshot() if self.mutates else None
         # a bound program's tensor arguments (a cursor, result rows) are
         # the graph's to write: the warm-up's writes to them are undone too
-        written = [(t, t.clone()) for t in args if torch.is_tensor(t)] if self.bound else []
+        written = ([(t, t.detach().clone()) for t in args if torch.is_tensor(t)]
+                   if self.bound else [])
         stream = owner.stream
         stream.wait_stream(torch.cuda.current_stream(owner.device))
         with torch.cuda.stream(stream):
             self.body(*static_args)  # warm-up: builds kernels, lazy state
             if snap is not None:
                 owner.restore(snap)
-            for t, before in written:
-                t.copy_(before)
+            with torch.no_grad():  # a tail's arguments include the parameters
+                for t, before in written:
+                    t.copy_(before)
         torch.cuda.current_stream(owner.device).wait_stream(stream)
-        _TALLY["warm_steps" if self.kind == "step" else "warm_forwards"] += self.bodies(args)
+        if self.kind != "tail":
+            _TALLY["warm_steps" if self.kind == "step" else "warm_forwards"] += self.bodies(args)
         graph = torch.cuda.CUDAGraph()
         if owner.generator is not None:
             graph.register_generator_state(owner.generator)
@@ -271,38 +331,26 @@ class ProgramSet:
         return [p.grad for p in self.model.parameters() if p.grad is not None]
 
     def snapshot(self):
-        """A copy of the parameters, buffers, optimizer state and
-        generator state."""
-        model, opt = self.model, self.optimizer
+        """A copy of the training state (:func:`state_tensors`, over the
+        optimizer state that exists) and of the generator state."""
+        tensors = state_tensors(self.model, self.optimizer, strict=False)
         with torch.no_grad():
-            params = [p.detach().clone() for p in model.parameters()]
-            buffers = [b.detach().clone() for b in model.buffers()]
-            opt_state = {} if opt is None else {
-                p: {k: v.clone() if torch.is_tensor(v) else v for k, v in st.items()}
-                for p, st in opt.state.items()
-            }
+            copies = [t.detach().clone() for t in tensors]
         gen = None if self.generator is None else self.generator.get_state()
-        return params, buffers, opt_state, gen
+        return tensors, copies, gen
 
     def restore(self, snap):
         """Put ``snap`` back in place. Optimizer state created since (a
         fresh optimizer's lazy moments and step) goes back to zero, as it
         was before its first step."""
-        params, buffers, opt_state, gen = snap
-        with torch.no_grad():
-            for p, s in zip(self.model.parameters(), params):
-                p.copy_(s)
-            for b, s in zip(self.model.buffers(), buffers):
-                b.copy_(s)
-            if self.optimizer is not None:
-                for p, st in self.optimizer.state.items():
-                    before = opt_state.get(p)
-                    for k, v in st.items():
-                        if not torch.is_tensor(v):
-                            continue
-                        if before is None:
+        tensors, copies, gen = snap
+        copy_state(tensors, copies)
+        if self.optimizer is not None:
+            known = {id(t) for t in tensors}
+            with torch.no_grad():
+                for st in self.optimizer.state.values():
+                    for v in st.values():
+                        if torch.is_tensor(v) and id(v) not in known:
                             v.zero_()
-                        else:
-                            v.copy_(before[k])
         if gen is not None:
             self.generator.set_state(gen)

@@ -20,7 +20,9 @@ primary it walks back to the newest intact rolling file, unless
 ``fallback=False`` (prediction and serving, which must never answer from
 older weights). :class:`AsyncCheckpointWriter` moves serialisation and
 I/O to a background thread; the caller keeps only the snapshot, an owned
-host copy of every tensor.
+host copy of every tensor. After each write ``utils.faults.corrupt_checkpoint``
+may flip a byte of the primary file (``HYDRAGNN_FAULT_CORRUPT_CHECKPOINT``),
+which the load's CRC check and rolling fallback then meet.
 """
 
 import binascii
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from hydragnn_tpu_torch.train import msgpack_codec
+from hydragnn_tpu_torch.utils import faults
 
 MAGIC = b"HGTPCKPT"
 VERSION = 2  # 2 = 1 + the optional "train_meta" section
@@ -154,9 +157,11 @@ def _serialize_and_write(sd, path: str, name: str, keep: int):
     out_dir = os.path.join(path, name)
     os.makedirs(out_dir, exist_ok=True)
     payload = encode(sd)
-    _write_durably(os.path.join(out_dir, name + ".pk"), payload)
+    final = os.path.join(out_dir, name + ".pk")
+    _write_durably(final, payload)
     if keep > 0:
         _retain_rolling(out_dir, name, payload, keep)
+    faults.corrupt_checkpoint(final)  # HYDRAGNN_FAULT_CORRUPT_CHECKPOINT; else nothing
     return len(payload), time.perf_counter() - t0
 
 

@@ -81,8 +81,8 @@ def _prepare(config, device):
 
 def run_training_impl(config, device=None):
     """Train the run of ``config``; returns the final ``TrainState``, with
-    the run's name, per-epoch history and last checkpoint write in its
-    ``info``."""
+    the run's name, per-epoch history, last checkpoint write, the chunks'
+    readbacks and the divergence guard's counters in its ``info``."""
     t0 = time.perf_counter()
     dev, verbosity, (train_loader, val_loader, test_loader), config = _prepare(config, device)
     log_name = get_log_name_config(config)
@@ -116,7 +116,8 @@ def run_training_impl(config, device=None):
         raise
     state.info.update(log_name=log_name, history=trainer.history,
                       last_save=getattr(trainer, "last_save", None),
-                      wall_s=time.perf_counter() - t0)
+                      wall_s=time.perf_counter() - t0, fit_readbacks=trainer.fit_readbacks,
+                      guard=None if trainer.guard is None else trainer.guard.state_dict())
     return state
 
 

@@ -6,13 +6,18 @@ checkpoint with its ``train_meta`` every ``resume_every`` epochs (keeping
 
 ``train_meta`` is the JAX package's format-2 section: ``format``,
 ``epoch``, ``rng``, and the ``state_dict``s of the plateau, early-stopping
-and best-checkpoint trackers. ``rng`` is a JAX PRNG key, ``uint32[2]``.
-The port draws nothing from it (its stochastic layers draw from
+and best-checkpoint trackers (and of the divergence guard, and a chunked
+run's ``fit_sched``). ``rng`` is a JAX PRNG key, ``uint32[2]``. The port
+draws nothing from it (its stochastic layers draw from
 ``Trainer.generator``) and cannot split it without JAX, so it carries the
 key unchanged: the one it read when resuming, else
 ``jax.random.PRNGKey(seed)`` of the run's seed (``HYDRAGNN_SEED`` >
 ``Training.random_seed`` > 1337), which is ``[seed >> 32, seed & 0xffffffff]``
-for the threefry key. The JAX package accepts either on resume.
+for the threefry key. The JAX package accepts either on resume. The port
+adds ``perm_rng``, the state of ``Trainer.perm_generator`` (the staged
+epochs' microbatch order, uint8), which the JAX package does not read: a
+resumed staged or chunked run then draws the orders the uninterrupted run
+would have.
 
 With ``device_resident_dataset`` (or ``HYDRAGNN_DEVICE_RESIDENT``) the
 training set is staged on the device once and every epoch runs
@@ -23,18 +28,42 @@ shape cannot stack: the driver prints the JAX package's message and
 streams, its documented rule for bucketed layouts. Evaluation sets that
 cannot stage (ragged, empty, or out of memory) stream from then on.
 
-``fit_chunk_epochs`` (``fit_staged``), streaming data, the divergence
-guard's restore, candidate publication, elastic runs and plots raise
-where a config or the environment asks for them (``ROADMAP.md``, queue 1).
+With ``fit_chunk_epochs`` (or ``HYDRAGNN_FIT_CHUNK``) > 0 and a staged
+training set, the run goes in chunks of that many epochs, each one
+``Trainer.fit_staged`` (the JAX package's ``epoch_driver.py:337-590``):
+the plateau rate, early stopping and the best state on the device, one
+readback a chunk, every chunk padded to the same length so that the last
+one replays the same programs. Between chunks the host logs the epochs,
+saves ``<name>-best`` when the chunk improved it, writes the resumable
+checkpoint with ``train_meta``'s ``fit_sched`` section (and the host
+trackers mirrored from the device's state), stops after an early stop
+or when the job's wall clock (``parallel.check_remaining``) has no room
+for another chunk. ``restage_per_chunk`` (``HYDRAGNN_RESTAGE_PER_CHUNK``)
+stages the training set again, in the next epoch's sample order, before
+each chunk, into the staged stack's own tensors (``Trainer.restage``), so
+that the captured programs bound to them stay valid. A resumed chunked run takes its ``fit_sched`` with
+``best_val`` reset (the resumed weights did not earn it).
+
+The divergence guard (``trainer.guard``): on host epochs last-good is
+seeded with the starting state, an epoch whose training or validation
+loss is not finite restores it with the rate lowered and is not logged,
+and a finite epoch commits; on chunks, a chunk whose last epoch is NaN
+without an early stop restores and runs again. Its counters go into
+``train_meta``'s ``guard`` section and come back on resume.
+
+Candidate publication, elastic runs and plots raise where a config or the
+environment asks for them (``ROADMAP.md``, queue 1).
 """
 
 import os
 import time
 
 import numpy as np
+import torch
 
+from hydragnn_tpu_torch.parallel.distributed import check_remaining
 from hydragnn_tpu_torch.train.checkpoint import drain_async, resolve_async_writer, save_model
-from hydragnn_tpu_torch.train.common import _env_flag, _is_oom
+from hydragnn_tpu_torch.train.common import FIT_SCHED_FIELDS, SchedState, _env_flag, _is_oom
 from hydragnn_tpu_torch.train.optimizer import get_learning_rate, set_learning_rate
 from hydragnn_tpu_torch.train.scheduler import BestCheckpoint, EarlyStopping, ReduceLROnPlateau
 
@@ -57,9 +86,6 @@ def _not_ported(what: str, item: int):
 
 
 def _check_supported(training: dict, create_plots: bool):
-    if int(os.getenv("HYDRAGNN_FIT_CHUNK", str(training.get("fit_chunk_epochs", 0)))) > 0:
-        raise _not_ported("fit_chunk_epochs (fit_staged, with the plateau, early stop and "
-                          "best state on the device)", 5)
     if os.getenv("HYDRAGNN_PUBLISH_DIR", training.get("publish_dir") or ""):
         raise _not_ported("publish_dir (the canary's candidate channel)", 5)
     if os.getenv("HYDRAGNN_ELASTIC_DIR") or os.getenv("HYDRAGNN_HEARTBEAT_FILE"):
@@ -68,15 +94,40 @@ def _check_supported(training: dict, create_plots: bool):
         raise _not_ported("Visualization.create_plots", 7)
 
 
-def build_train_meta(epoch, rng, scheduler, early, ckpt):
-    """The format-2 training-loop state after epoch ``epoch``."""
+def build_train_meta(epoch, rng, scheduler, early, ckpt, guard=None, sched=None,
+                     perm_rng=None):
+    """The format-2 training-loop state after epoch ``epoch``; ``guard``
+    adds the guard's counters, ``sched`` (a chunk's ``fit_sched``: numpy
+    0-d arrays by JAX's field names) the device schedulers' state and
+    ``perm_rng`` the order generator's state."""
     meta = {"format": 2, "epoch": int(epoch), "rng": np.asarray(rng, np.uint32),
             "plateau": scheduler.state_dict()}
+    if perm_rng is not None:
+        meta["perm_rng"] = np.asarray(perm_rng.numpy(), np.uint8)
     if early is not None:
         meta["early"] = early.state_dict()
     if ckpt is not None:
         meta["best_ckpt"] = ckpt.state_dict()
+    if guard is not None:
+        meta["guard"] = guard.state_dict()
+    if sched is not None:
+        meta["fit_sched"] = {k: np.asarray(sched[k]) for k in FIT_SCHED_FIELDS}
     return meta
+
+
+def mirror_sched(sched: dict, scheduler, early, lr: float):
+    """The host trackers set from a chunk's ``fit_sched`` (JAX
+    ``epoch_driver.py:544-557``), so that a checkpoint's ``plateau`` and
+    ``early`` sections stay true for a resumed run on the host path."""
+    scheduler.lr = float(lr)
+    pb = float(sched["plateau_best"])
+    scheduler.best = pb if np.isfinite(pb) else None
+    scheduler.num_bad_epochs = int(sched["plateau_bad"])
+    if early is not None:
+        eb = float(sched["early_best"])
+        early.best = eb if np.isfinite(eb) else None
+        early.counter = int(sched["early_count"])
+        early.early_stop = bool(sched["stopped"])
 
 
 def train_validate_test(trainer, state, train_loader, val_loader, test_loader,
@@ -101,6 +152,10 @@ def train_validate_test(trainer, state, train_loader, val_loader, test_loader,
     keep_last = int(os.getenv("HYDRAGNN_CKPT_KEEP", str(training.get("checkpoint_keep_last", 3))))
     writer = resolve_async_writer(training)
 
+    guard = getattr(trainer, "guard", None)
+    skip_valtest = int(os.getenv("HYDRAGNN_VALTEST", "1")) == 0
+    fit_chunk = int(os.getenv("HYDRAGNN_FIT_CHUNK", str(training.get("fit_chunk_epochs", 0))))
+
     trainer.final_train_meta = resume_meta
     trainer.final_state_saved = False
     trainer.history = []
@@ -115,6 +170,11 @@ def train_validate_test(trainer, state, train_loader, val_loader, test_loader,
             early.load_state_dict(resume_meta["early"])
         if ckpt is not None and resume_meta.get("best_ckpt") is not None:
             ckpt.load_state_dict(resume_meta["best_ckpt"])
+        if guard is not None and resume_meta.get("guard") is not None:
+            guard.load_state_dict(resume_meta["guard"])
+        if resume_meta.get("perm_rng") is not None:
+            trainer.perm_generator.set_state(
+                torch.from_numpy(np.array(resume_meta["perm_rng"], np.uint8)))
         if early is not None and early.early_stop:
             print_distributed(verbosity, "Resume: early stopping had already triggered")
             start_epoch = num_epoch
@@ -122,12 +182,25 @@ def train_validate_test(trainer, state, train_loader, val_loader, test_loader,
                                      f"(lr {scheduler.lr:.3e})")
         trainer.final_state_saved = start_epoch >= num_epoch
 
-    def save_resumable(epoch):
-        meta = build_train_meta(epoch, rng, scheduler, early, ckpt)
+    def save_resumable(epoch, sched=None):
+        meta = build_train_meta(epoch, rng, scheduler, early, ckpt, guard, sched,
+                                trainer.perm_generator.get_state())
         trainer.last_save = save_model(state, log_name, train_meta=meta, keep_last=keep_last,
                                        writer=writer)
         trainer.final_train_meta = meta
         trainer.final_state_saved = True
+
+    def log_epoch(epoch, train_loss, val_loss, test_loss, train_tasks, t_train, extra):
+        print_distributed(
+            verbosity,
+            f"Epoch: {epoch:04d}, Train Loss: {train_loss:.8f}, Val Loss: {val_loss:.8f}, "
+            f"Test Loss: {test_loss:.8f}, Train Time: {t_train:.2f}s, "
+            f"{len(train_loader.dataset) / max(t_train, 1e-9):.0f} graphs/sec")
+        trainer.history.append({
+            "epoch": epoch, "train_loss": float(train_loss), "val_loss": float(val_loss),
+            "test_loss": float(test_loss), "train_tasks": np.atleast_1d(train_tasks).tolist(),
+            "train_s": t_train, **extra,
+        })
 
     staged = None
     if _env_flag("HYDRAGNN_DEVICE_RESIDENT", training, "device_resident_dataset"):
@@ -138,6 +211,14 @@ def train_validate_test(trainer, state, train_loader, val_loader, test_loader,
                 verbosity,
                 "device_resident_dataset: batches are not shape-uniform "
                 "(bucketed layout?) — falling back to streaming")
+
+    ran_fit = staged is not None and fit_chunk > 0
+    if ran_fit:
+        state = _fit_chunks(trainer, state, staged, train_loader, val_loader, test_loader,
+                            training, fit_chunk, num_epoch, start_epoch, resume_meta,
+                            skip_valtest, scheduler, early, ckpt, guard, resume_every,
+                            save_resumable, log_epoch, verbosity)
+
     staged_evals = None
 
     def evaluate_both():
@@ -162,7 +243,11 @@ def train_validate_test(trainer, state, train_loader, val_loader, test_loader,
                 staged_evals = False
         return trainer.evaluate(state, val_loader)[0], trainer.evaluate(state, test_loader)[0]
 
-    for epoch in range(start_epoch, num_epoch):
+    if guard is not None and guard.last_good is None:
+        # a non-finite first epoch is then a bounded restore (the streaming
+        # path also seeds inside train_epoch)
+        guard.commit(state)
+    for epoch in range(start_epoch, num_epoch) if not ran_fit else ():
         t0 = time.time()
         trainer.final_state_saved = False
         train_loader.set_epoch(epoch)
@@ -173,29 +258,109 @@ def train_validate_test(trainer, state, train_loader, val_loader, test_loader,
             state, train_loss, train_tasks = trainer.train_epoch(state, train_loader)
         t_train = time.time() - t0
         collate_s = trainer.collate_s - collate0
-        val_loss, test_loss = evaluate_both()
+        if skip_valtest:
+            val_loss = test_loss = train_loss
+        else:
+            val_loss, test_loss = evaluate_both()
+        if guard is not None:
+            if not (np.isfinite(train_loss) and np.isfinite(val_loss)):
+                print_distributed(
+                    verbosity, f"Epoch {epoch:04d}: non-finite loss (train {train_loss}, "
+                               f"val {val_loss}) — restoring last-good state with halved LR")
+                state = guard.on_bad_epoch(state)
+                continue
+            guard.commit(state)
+            # a restore lowered the rate in place: the plateau must not raise it
+            scheduler.lr = get_learning_rate(state.optimizer)
         new_lr = scheduler.step(val_loss)
         if abs(new_lr - get_learning_rate(state.optimizer)) > 1e-12:
             set_learning_rate(state.optimizer, new_lr)
-        print_distributed(
-            verbosity,
-            f"Epoch: {epoch:04d}, Train Loss: {train_loss:.8f}, Val Loss: {val_loss:.8f}, "
-            f"Test Loss: {test_loss:.8f}, Train Time: {t_train:.2f}s, "
-            f"{len(train_loader.dataset) / max(t_train, 1e-9):.0f} graphs/sec")
         if ckpt is not None:
             ckpt(state, epoch, val_loss, save_model)
         stopping = early is not None and early(val_loss)
         if resume_every > 0 and ((epoch + 1) % resume_every == 0 or stopping
                                  or epoch == num_epoch - 1):
             save_resumable(epoch)
-        trainer.history.append({
-            "epoch": epoch, "train_loss": float(train_loss), "val_loss": float(val_loss),
-            "test_loss": float(test_loss), "train_tasks": np.atleast_1d(train_tasks).tolist(),
-            "train_s": t_train, "train_collate_s": collate_s, "epoch_s": time.time() - t0,
-            "lr": float(get_learning_rate(state.optimizer)),
-        })
+        log_epoch(epoch, train_loss, val_loss, test_loss, train_tasks, t_train, {
+            "train_collate_s": collate_s, "epoch_s": time.time() - t0,
+            "lr": float(get_learning_rate(state.optimizer))})
         if stopping:
             print_distributed(verbosity, f"Early stopping at epoch {epoch}")
             break
+        if not check_remaining(time.time() - t0):
+            # a wall-clock stop is when a resumable checkpoint matters
+            if resume_every > 0 and not trainer.final_state_saved:
+                save_resumable(epoch)
+            print_distributed(verbosity, "Stopping: not enough job wall-clock time left")
+            break
     drain_async()
+    return state
+
+
+def _fit_chunks(trainer, state, staged, train_loader, val_loader, test_loader, training,
+                fit_chunk, num_epoch, start_epoch, resume_meta, skip_valtest, scheduler, early,
+                ckpt, guard, resume_every, save_resumable, log_epoch, verbosity):
+    """The chunked run (module docstring; JAX ``epoch_driver.py:337-590``).
+    Returns the state."""
+    staged_val = None if skip_valtest else trainer.stage_batches(list(val_loader))
+    staged_test = None if skip_valtest else trainer.stage_batches(list(test_loader))
+    sched = best_state = None
+    # the best already on disk: a worse epoch after a resume must not replace it
+    best_saved = float(ckpt.best) if ckpt is not None and ckpt.best is not None else np.inf
+    if resume_meta and resume_meta.get("fit_sched") is not None:
+        section = dict(resume_meta["fit_sched"])
+        # the resumed weights did not earn the saved best_val: track anew
+        section["best_val"] = np.asarray(np.inf, np.float32)
+        sched = SchedState.from_host(section, trainer.device)
+    restage = _env_flag("HYDRAGNN_RESTAGE_PER_CHUNK", training, "restage_per_chunk")
+    if guard is not None and guard.last_good is None:
+        guard.commit(state)
+    epoch0 = start_epoch
+    while epoch0 < num_epoch:
+        n = min(fit_chunk, num_epoch - epoch0)
+        if restage and epoch0 > 0:
+            train_loader.set_epoch(epoch0)
+            # in place: the chunk's graphs are bound to the stack's addresses
+            staged = trainer.restage(staged, list(train_loader))
+        trainer.final_state_saved = False
+        t0 = time.time()
+        state, best_state, sched, series = trainer.fit_staged(
+            state, staged, n, staged_val=staged_val, staged_test=staged_test, sched=sched,
+            best_state=best_state, pad_to=fit_chunk)
+        chunk_time = time.time() - t0
+        host = series["sched"]
+        for i in range(n):
+            if np.isnan(series["train_loss"][i]):
+                continue
+            # the chunk is one dispatch: chunk_time / n is each epoch's share
+            log_epoch(epoch0 + i, series["train_loss"][i], series["val_loss"][i],
+                      series["test_loss"][i], series["train_tasks"][i], chunk_time / n,
+                      {"train_collate_s": 0.0, "epoch_s": chunk_time / n,
+                       "lr": float(series["lr"][i]), "chunk": epoch0})
+        if guard is not None:
+            # a trailing NaN row with no early stop: the chunk diverged
+            if not bool(host["stopped"]) and not np.isfinite(series["train_loss"][n - 1]):
+                print_distributed(verbosity, f"Chunk at epoch {epoch0}: non-finite loss — "
+                                             "restoring last-good state with halved LR")
+                state = guard.on_bad_epoch(state)
+                continue
+            guard.commit(state)
+        if ckpt is not None:
+            bv = float(host["best_val"])
+            if np.isfinite(bv) and bv < best_saved:
+                save_model(best_state, ckpt.name, ckpt.path)
+                best_saved = bv
+                ckpt.best = bv  # the resume meta carries the best on disk
+        epoch0 += n
+        if resume_every > 0:
+            mirror_sched(host, scheduler, early, series["lr"][n - 1])
+            save_resumable(epoch0 - 1, sched=host)
+        if bool(host["stopped"]):
+            ep_stop = epoch0 - n + int(np.argmax(series["stopped"]))
+            print_distributed(verbosity, f"Early stopping at epoch {ep_stop}")
+            break
+        # the next chunk is indivisible: it needs a whole chunk's time
+        if not check_remaining(chunk_time):
+            print_distributed(verbosity, "Stopping: not enough job wall-clock time left")
+            break
     return state

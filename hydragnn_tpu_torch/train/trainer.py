@@ -38,12 +38,29 @@ of a stack kept on the card: no copy to it and no readback inside the
 epoch; the microbatch order is drawn on the host from a ``torch.Generator``
 and sent once, and the per-microbatch rows come back once.
 
+:meth:`Trainer.fit_staged` (JAX ``fit_staged``) runs several epochs over
+staged stacks with the plateau learning rate, early stopping and the best
+state on the device (``steps.CapturedSteps.fit_dispatch``): every epoch's
+order is drawn up front and sent in one copy, the epochs' replays are
+queued with no host sync (:meth:`Trainer.fit_dispatch`), and the series
+comes back in one readback (:meth:`Trainer.fit_read`).
+
+With the divergence guard (``Training.divergence_guard``,
+``train/guard.py``) a streaming epoch takes one step a dispatch, copies
+the state before each step into the guard's buffers, reads the step's
+``finite`` flag back, and on a bad step puts the copy back in place and
+leaves the batch out of the epoch's mean. The fault hooks
+(``utils/faults.py``: ``nan_at_step`` poisons the batch's ``x``,
+``slow_step``, ``kill_at_step``) sit where the JAX trainer has them, on
+the host step count ``_host_step``; a chunk calls ``kill_at_step`` for
+each step it ran, after its readback.
+
 Not ported yet, and refused where a config or the environment asks for
-them: ``fit_staged`` (``ROADMAP.md``, queue 1, item 5); the divergence
-guard's host side; ``freeze_conv`` and the optimizers other than Adam and
-AdamW (item 7); meshes (item 8).
+them: ``freeze_conv`` and the optimizers other than Adam and AdamW
+(``ROADMAP.md``, queue 1, item 7); meshes (item 8).
 """
 
+import dataclasses
 import os
 import time
 
@@ -52,10 +69,20 @@ import torch
 
 from hydragnn_tpu_torch.graph.batch import GraphBatch, stack_batches
 from hydragnn_tpu_torch.models.create import resolve_precision
-from hydragnn_tpu_torch.train.common import TrainState, _env_int, _nbatch, guard_enabled
-from hydragnn_tpu_torch.train.optimizer import select_optimizer
+from hydragnn_tpu_torch.train.capture import copy_state, state_tensors
+from hydragnn_tpu_torch.train.common import (
+    FIT_SCHED_FIELDS,
+    SchedState,
+    TrainState,
+    _env_int,
+    _nbatch,
+    guard_enabled,
+)
+from hydragnn_tpu_torch.train.guard import DivergenceGuard
+from hydragnn_tpu_torch.train.optimizer import ensure_optimizer_state, select_optimizer
 from hydragnn_tpu_torch.train.predict import PredictMixin
 from hydragnn_tpu_torch.train.steps import CapturedSteps, Staged
+from hydragnn_tpu_torch.utils import faults
 
 
 class Trainer(PredictMixin):
@@ -69,6 +96,8 @@ class Trainer(PredictMixin):
         self.freeze_conv = freeze_conv
         self.precision = resolve_precision(model, training_config)
         self.guarded = guard_enabled(training_config)
+        self.guard = DivergenceGuard(training_config) if self.guarded else None
+        self._host_step = 0  # optimizer steps dispatched: the fault hooks' clock
         self.steps_per_dispatch = _env_int("HYDRAGNN_STEPS_PER_DISPATCH",
                                            int(training_config.get("steps_per_dispatch", 1)))
         self.device_prefetch = _env_int("HYDRAGNN_DEVICE_PREFETCH",
@@ -80,6 +109,8 @@ class Trainer(PredictMixin):
         self.collate_s = 0.0  # host seconds making batches, summed over passes
         self._steps = None
         self._copy_stream = None
+        self._fit_pending = None
+        self.fit_readbacks = 0  # chunks read back (one readback each)
 
     def init_state(self, example_batch: GraphBatch) -> TrainState:
         """The state to train from: the model as built (its weights drawn
@@ -267,18 +298,41 @@ class Trainer(PredictMixin):
 
     def train_epoch(self, state: TrainState, loader):
         """One pass of training steps over ``loader``; returns ``(state,
-        mean loss, per-task mean losses)``, weighted by graphs."""
-        if self.guarded:
-            raise NotImplementedError(
-                "the divergence guard's host side (skip and restore) is not ported yet: "
-                "see ROADMAP.md, queue 1, item 7")
+        mean loss, per-task mean losses)``, weighted by graphs. Guarded,
+        one step a dispatch, each checked (the module's docstring)."""
+        guard = self.guard
+        # the guard must isolate one step to skip it: guarded runs take K = 1
+        K = 1 if guard is not None else max(1, self.steps_per_dispatch)
+        if guard is not None and guard.last_good is None:
+            guard.commit(state)
         acc = None
-        for payload, count in self._dispatches(loader, max(1, self.steps_per_dispatch)):
+        for payload, count in self._dispatches(loader, K):
             if count > 1:
+                for s in range(self._host_step, self._host_step + count):
+                    faults.slow_step(s)
                 state, metrics = self.train_multi(state, payload)
+                acc = self._acc_add(acc, metrics, multi=True)
+                first = self._host_step
+                self._host_step += count
+                for s in range(first, self._host_step):
+                    faults.kill_at_step(s)
+                continue
+            if faults.nan_at_step(self._host_step):
+                payload = dataclasses.replace(payload, x=payload.x * float("nan"))
+            prev = None if guard is None else guard.snapshot(state)
+            faults.slow_step(self._host_step)
+            state, metrics = self.train_step(state, payload)
+            # the guard's documented cost: one scalar read back a step
+            if guard is not None and not bool(metrics["finite"]):
+                # a poisoned update: put the copy back (or last-good, with
+                # the rate lowered, after a streak); its metrics stay out
+                state = guard.on_bad_step(state, prev)
             else:
-                state, metrics = self.train_step(state, payload)
-            acc = self._acc_add(acc, metrics, multi=count > 1)
+                if guard is not None:
+                    guard.bad_streak = 0
+                acc = self._acc_add(acc, metrics)
+            faults.kill_at_step(self._host_step)
+            self._host_step += 1
         loss, tasks = self._acc_read(acc)
         return state, loss, tasks
 
@@ -299,6 +353,19 @@ class Trainer(PredictMixin):
         """Stack same-shape collated batches and keep them on the card
         (JAX ``stage_batches``); raises ``ValueError`` on ragged batches."""
         return Staged(stack_batches(batches).to(self.device), self.model.num_heads)
+
+    def restage(self, staged: Staged, batches) -> Staged:
+        """Stage ``batches`` into ``staged``'s own tensors, in place (JAX
+        ``restage_per_chunk``): the programs bound to the stack keep their
+        graphs and no second stack is held. Raises ``ValueError`` when the
+        new stack's shapes differ from the staged one's."""
+        new = stack_batches(batches)
+        if new.shape_key() != staged.stack.shape_key():
+            raise ValueError("restage: the batches' shapes differ from the staged stack's")
+        with torch.no_grad():
+            for dst, src in zip(staged.stack.leaves()[1], new.leaves()[1]):
+                dst.copy_(src)
+        return staged
 
     @staticmethod
     def _rows_mean(rows):
@@ -337,3 +404,99 @@ class Trainer(PredictMixin):
         n = self._staged_count(staged)
         self.programs(state).eval_epoch(staged, n)
         return self._rows_mean(staged.rows[:n])
+
+    # ---- whole-run chunks (JAX fit_staged) -----------------------------------
+
+    def fit_staged(self, state: TrainState, staged_train: Staged, num_epoch: int,
+                   staged_val: Staged = None, staged_test: Staged = None, shuffle: bool = True,
+                   sched: SchedState = None, best_state: TrainState = None, pad_to: int = None):
+        """``num_epoch`` epochs over staged stacks with the plateau rate,
+        early stopping, the best state and the validation and test passes
+        on the device, and one readback (JAX ``fit_staged``): the queueing
+        of :meth:`fit_dispatch`, then :meth:`fit_read`. ``sched`` and
+        ``best_state`` carry a run across chunks; ``pad_to`` pads the
+        chunk with inert epochs, so that a short last chunk replays the
+        programs the others captured. ``staged_val``/``staged_test`` None:
+        the training loss stands for them (``HYDRAGNN_VALTEST=0``).
+
+        Returns ``(state, best_state, sched, series)``; ``series`` holds
+        numpy arrays over the epochs, ``train_loss``, ``val_loss``,
+        ``test_loss``, ``lr``, ``stopped`` and ``train_tasks [E, T]``
+        (NaN rows: epochs skipped after the stop), and ``sched``, the
+        ``fit_sched`` section after the chunk. The state is updated in
+        place; ``best_state`` and ``sched`` are the trainer's own buffers,
+        which the next chunk updates in place."""
+        state, best_state, sched = self.fit_dispatch(
+            state, staged_train, num_epoch, staged_val, staged_test, shuffle, sched,
+            best_state, pad_to)
+        return state, best_state, sched, self.fit_read(state)
+
+    def fit_dispatch(self, state: TrainState, staged_train: Staged, num_epoch: int,
+                     staged_val: Staged = None, staged_test: Staged = None,
+                     shuffle: bool = True, sched: SchedState = None,
+                     best_state: TrainState = None, pad_to: int = None):
+        """Queue a chunk (:meth:`fit_staged`'s arguments) with no host sync
+        inside it: every epoch's order drawn from ``perm_generator`` (or in
+        order) and sent in one copy, then ``max(num_epoch, pad_to)`` epochs
+        of replays. Returns ``(state, best_state, sched)``; read the series
+        with :meth:`fit_read`."""
+        n_use = self._staged_count(staged_train)
+        n_sched = max(int(num_epoch), int(pad_to or 0))
+        if shuffle:
+            perms = torch.stack([torch.randperm(staged_train.nb, generator=self.perm_generator)
+                                 [:n_use] for _ in range(n_sched)])
+        else:
+            perms = torch.arange(n_use, dtype=torch.int64).repeat(n_sched, 1)
+        if self.device.type == "cuda":
+            perms = perms.pin_memory()
+        steps = self.programs(state)
+        fit = steps.fit_buffers(state)
+        if sched is None:
+            fit.sched.reset_()
+            fit.epochs_done = 0
+        elif sched is not fit.sched:
+            fit.sched.load_(sched)
+            fit.epochs_done = int(sched.epoch)
+        if best_state is None:
+            copy_state(fit.best, fit.state)
+            fit.best_state.step = state.step
+        elif best_state is not fit.best_state:
+            ensure_optimizer_state(best_state.optimizer)
+            copy_state(fit.best, state_tensors(best_state.model, best_state.optimizer))
+            fit.best_state.step = best_state.step
+        val_n = None if staged_val is None else self._staged_count(staged_val)
+        test_n = None if staged_test is None else self._staged_count(staged_test)
+        steps.fit_dispatch(staged_train, n_use, perms, num_epoch, staged_val, val_n, staged_test,
+                           test_n)
+        # the pinned order stays referenced until the readback
+        self._fit_pending = (perms, int(num_epoch), n_use, staged_train.rows.shape[1] - 2)
+        return state, fit.best_state, fit.sched
+
+    def fit_read(self, state: TrainState) -> dict:
+        """The queued chunk's series: its one readback (see
+        :meth:`fit_staged`). Advances ``state.step`` and the host step
+        count by the steps the chunk ran, and calls ``kill_at_step`` for
+        each."""
+        _, num_epoch, n_use, num_tasks = self._fit_pending
+        self._fit_pending = None
+        fit = self._steps.fit
+        # the chunk's one readback (owned: on the CPU .cpu() is the buffer itself)
+        host = fit.series.cpu().numpy().copy()
+        self.fit_readbacks += 1
+        rows, tail = host[:num_epoch], host[-1]
+        done = int(tail[5])
+        ran = (done - fit.epochs_done) * n_use
+        fit.epochs_done = done
+        fit.best_state.step = int(tail[7])
+        state.step += ran
+        first = self._host_step
+        self._host_step += ran
+        for s in range(first, self._host_step):
+            faults.kill_at_step(s)
+        dtypes = (np.float32, np.int32, np.float32, np.int32, np.bool_, np.int32, np.float32)
+        return {
+            "train_loss": rows[:, 0], "val_loss": rows[:, 1], "test_loss": rows[:, 2],
+            "lr": rows[:, 3], "stopped": rows[:, 4] > 0.5,
+            "train_tasks": rows[:, 5 : 5 + num_tasks],
+            "sched": {k: np.asarray(v, dt) for k, v, dt in zip(FIT_SCHED_FIELDS, tail, dtypes)},
+        }

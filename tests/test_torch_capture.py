@@ -67,7 +67,6 @@ from hydragnn_tpu_torch.models import create_model_config, load_flax_variables
 from hydragnn_tpu_torch.models.bridge import load_optax_adam_state
 from hydragnn_tpu_torch.serve import InferenceServer, ModelRegistry, plan_from_samples
 from hydragnn_tpu_torch.train import Trainer, capture_counts
-from hydragnn_tpu_torch.train.epoch_driver import train_validate_test
 
 from test_torch_pna import arch
 from test_torch_run_training import _in_dir, _loaders, _scalars, raw_dirs  # noqa: F401
@@ -281,12 +280,6 @@ def pytest_predict_falls_back_as_jax_does(monkeypatch):
     monkeypatch.setenv("HYDRAGNN_PREDICT_STAGE_BUDGET", "lots")
     with pytest.raises(ValueError, match="byte count"):
         trainer.predict(state, hosts)
-
-
-def pytest_fit_chunk_epochs_still_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_validate_test(None, None, None, None, None,
-                            {"Training": {"num_epoch": 1, "fit_chunk_epochs": 2}}, "x")
 
 
 # ---- run_training in the new modes -------------------------------------------------

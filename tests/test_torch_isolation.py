@@ -34,7 +34,9 @@ def _port_files():
                 "train/epoch_driver.py", "train/checkpoint.py", "train/msgpack_codec.py",
                 "train/scheduler.py", "train/predict.py", "data/loaders.py", "data/raw.py",
                 "data/lsms.py", "data/radius_graph.py", "data/transforms.py",
-                "data/serialized.py", "data/split.py", "utils/config.py"):
+                "data/serialized.py", "data/split.py", "utils/config.py",
+                "analysis/guards.py", "utils/faults.py", "utils/retry.py",
+                "parallel/distributed.py", "train/guard.py"):
         assert REPO / "hydragnn_tpu_torch" / new in files
     return files
 
