@@ -58,6 +58,13 @@ warm-ups alike (``train.capture_counts``).
    packed at the smallest pads that hold them (:func:`tight_pack`; the
    bucket's list widths). One full batch of the largest bucket,
    from all the graphs, is broken down on the device.
+   Then the rest of the single-replica server
+   (:func:`phase_serve_tenancy`): two tenants on one server with the
+   response cache, the cost ledger, the ensemble scorer (PNA at this
+   width, ``fused``, 4 versions, K = 4), a tracer and ``/metrics``
+   scraped mid-burst, GIN flooding past its quota alongside the burst,
+   each tenant's device time from timed replays; and GAT's ``dropout``
+   scores against a plain reference (:func:`gat_dropout_scores`).
 5. Train: bench.py's MXU-scale PNA row (as in phase 4, at 2 conv layers,
    ``FIVE_TRAIN_LAYERS``; seeded targets, a
    graph target ``[1]`` and a node target ``[n, 1]`` per its
@@ -194,10 +201,12 @@ import copy
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -212,6 +221,7 @@ from hydragnn_tpu_torch.benchmarks.model_bench import (
     bench_model,
     make_graphs,
 )
+from hydragnn_tpu_torch.data import GraphData
 from hydragnn_tpu_torch.data.layout import collate_for_layout, sample_triplets
 from hydragnn_tpu_torch.graph import collate_graphs, compute_triplets, pack_triplets, pad_sizes_for
 from hydragnn_tpu_torch.models import create_model_config
@@ -226,9 +236,15 @@ from hydragnn_tpu_torch.ops import (
 from hydragnn_tpu_torch.ops.dense_agg import attach_neighbor_lists
 from hydragnn_tpu_torch.ops.fused_mp import egnn_tolerance
 from hydragnn_tpu_torch.ops.segment_kernels import atomic_tolerance
+from hydragnn_tpu_torch.obs import RunEventLog, Tracer, build_traces, load_span_events
 from hydragnn_tpu_torch.serve import (
+    CostLedger,
     InferenceServer,
     ModelRegistry,
+    ResponseCache,
+    TenantManager,
+    TenantOverQuota,
+    UncertaintyScorer,
     plan_from_samples,
 )
 from hydragnn_tpu_torch.train import (
@@ -240,6 +256,7 @@ from hydragnn_tpu_torch.train import (
     set_learning_rate,
     steps as train_steps,
 )
+from hydragnn_tpu_torch.train.capture import ProgramSet
 from hydragnn_tpu_torch.utils.timing import call_ms, device_ms
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -1102,6 +1119,572 @@ def breakdown(family, mode, model, plan, graphs, device, card, iters=5):
         "clocks": clocks_line(),
         "card": card,
     }})
+
+
+# ---- phase 4, continued: the rest of the single-replica server -------------
+
+TENANCY_K = 4  # PNA versions registered: the ensemble's members, the scorer's K
+TENANCY_FLOOD = 400  # the flooding tenant's graphs at most, sent while the screening runs
+TENANCY_FLOOD_GAP_S = 0.0005  # between two flood submits: faster than a flush
+TENANCY_FLOOD_QUOTA = 8
+TENANCY_FLOOD_NODES = 6  # small molecules, each unique (no cache hit)
+TENANCY_ENSEMBLE_GRAPHS = 16  # the ensemble held against the CPU on these
+GAT_SCORE_GRAPHS = 32
+
+
+def parse_prometheus(text):
+    """``{series: value}`` of a Prometheus text; raises on a line that is
+    neither a comment nor ``name{labels} value``."""
+    pattern = re.compile(r'^[a-z_]+(\{[a-z_]+="[^"]*"(,[a-z_]+="[^"]*")*\})? '
+                         r"(-?[0-9.e+-]+|nan|inf)$")
+    series = {}
+    for line in text.splitlines():
+        if not line or line.startswith(("# HELP ", "# TYPE ")):
+            continue
+        if not pattern.match(line):
+            raise AssertionError(f"/metrics: unparseable line {line!r}")
+        name, value = line.rsplit(" ", 1)
+        series[name] = float(value)
+    return series
+
+
+def hold_variance(got, samples):
+    """``got`` (one request's variance) against the population variance of
+    the reference ``samples`` (its K member outputs). Each sample carries
+    at most ``eps = atol * s + rtol * max_k |o_k|`` of error (the serve
+    phase's rtol and atol, ``s`` the head's largest output), which moves a
+    variance by at most ``4 eps sqrt(var) + 4 eps^2``. Returns the worst
+    share of that bound used."""
+    stack = np.stack(samples).astype(np.float64)
+    want = stack.var(axis=0)
+    s = float(np.abs(stack).max()) or 1.0
+    eps = SERVE_ATOL * s + SERVE_RTOL * np.abs(stack).max(axis=0)
+    allowed = 4 * eps * np.sqrt(want) + 4 * eps * eps
+    return float((np.abs(np.asarray(got, np.float64) - want) / allowed).max())
+
+
+def burst(server, graphs, threads, tenant=None, tracer=None, halfway=None):
+    """Submit ``graphs`` from ``threads`` threads; returns the futures, the
+    submit times and the traces. ``halfway`` is set once half were
+    submitted."""
+    futures, submitted = [None] * len(graphs), [0.0] * len(graphs)
+    traces = [None if tracer is None else tracer.start(tenant=tenant) for _ in graphs]
+    count, lock = [0], threading.Lock()
+
+    def submit(indices):
+        for i in indices:
+            submitted[i] = time.monotonic()
+            futures[i] = server.submit(graphs[i], tenant=tenant, trace=traces[i])
+            with lock:
+                count[0] += 1
+                if halfway is not None and count[0] * 2 >= len(graphs):
+                    halfway.set()
+
+    workers = [threading.Thread(target=submit, args=(range(k, len(graphs), threads),))
+               for k in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(600)
+        if w.is_alive():
+            raise RuntimeError("a submitting thread did not finish")
+    return futures, submitted, traces
+
+
+def latency_ms(futures, submitted):
+    lat = np.asarray([f.done_at - s for f, s in zip(futures, submitted)]) * 1e3
+    return {"p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99))}
+
+
+def hold_responses(futures, graphs, plan, models):
+    """Every response against a CPU copy of its model version (``models``:
+    ``{name: module}``), run on the graphs of its batch at the pads they
+    need (:func:`tight_pack`); returns the largest error."""
+    cpu = {name: copy.deepcopy(m).cpu() for name, m in models.items()}
+    by_batch = {}
+    for i, f in enumerate(futures):
+        by_batch.setdefault((f.model_name, f.batch_seq), []).append(i)
+    worst = 0.0
+    with torch.inference_mode():
+        for (name, _), idx in by_batch.items():
+            model = cpu[name]
+            batch, coords = tight_pack(plan, [graphs[i] for i in idx], plan.admit(graphs[idx[0]])[0])
+            outs = [o.numpy() for o in model(batch)]
+            for i, (g, off, n) in zip(idx, coords):
+                answer = futures[i].result(0)
+                for ihead, kind in enumerate(model.output_type):
+                    want = outs[ihead][g] if kind == "graph" else outs[ihead][off : off + n]
+                    got = answer[ihead]
+                    if got.shape != want.shape or not np.isfinite(got).all():
+                        raise AssertionError(f"tenancy: bad response {name} {i} head {ihead}")
+                    np.testing.assert_allclose(got, want, rtol=SERVE_RTOL, atol=SERVE_ATOL)
+                    worst = max(worst, float(np.abs(got - want).max()))
+    return worst
+
+
+def ensemble_check(server, scorer, entry, plan, graphs, device):
+    """The scorer's captured variances on one packed batch against the same
+    members run eagerly on the card, and against the CPU ensemble on the
+    same graphs (:func:`hold_variance`; the worst share of the bound)."""
+    take, bucket = largest_take(plan, graphs, b=plan.admit(graphs[0])[0])
+    take = take[:TENANCY_ENSEMBLE_GRAPHS]
+    batch, coords = plan.pack(take, bucket)
+    captured = [v.cpu().numpy() for v in scorer.dispatch(entry, batch)]
+    members = [server.registry.get(entry.name, v).model for v in scorer._member_versions(entry)]
+    with torch.inference_mode():
+        eager = [[o.float().cpu().numpy() for o in m(batch.to(device))] for m in members]
+        tight, tcoords = tight_pack(plan, take, bucket)
+        cpu = [[o.numpy() for o in copy.deepcopy(m).cpu()(tight)] for m in members]
+    worst = {"vs_eager_card": 0.0, "vs_cpu": 0.0}
+    max_var = 0.0
+    for ihead, kind in enumerate(entry.output_type):
+        for (g, off, n), (tg, toff, tn) in zip(coords, tcoords):
+            pick = (lambda a: a[g]) if kind == "graph" else (lambda a: a[off : off + n])
+            tpick = (lambda a: a[tg]) if kind == "graph" else (lambda a: a[toff : toff + tn])
+            got = pick(captured[ihead])
+            max_var = max(max_var, float(got.max()))
+            worst["vs_eager_card"] = max(worst["vs_eager_card"], hold_variance(
+                got, [pick(e[ihead]) for e in eager]))
+            worst["vs_cpu"] = max(worst["vs_cpu"], hold_variance(
+                got, [tpick(c[ihead]) for c in cpu]))
+    if max(worst.values()) > 1.0 or not max_var > 0:
+        raise AssertionError(f"tenancy: ensemble variances {worst}, max var {max_var}")
+    return dict(worst, max_var=max_var, graphs=len(take), bucket=bucket)
+
+
+def scorer_timing(server, scorer, entry, plan, graphs, device):
+    """ms per dispatch and device ms of the scorer's replay and of the
+    forward's, on the largest batch."""
+    take, b = largest_take(plan, graphs)
+    batch = plan.pack(take, b)[0]
+    fwd = lambda: server._compiled(entry, batch, b)  # noqa: E731
+    score = lambda: scorer.dispatch(entry, batch)  # noqa: E731
+    ms = call_ms([fwd, score], device)
+    dev = [device_ms(fwd, device), device_ms(score, device)]
+    ratio = None if dev[0] is None else median(dev[1]) / median(dev[0])
+    return {"bucket": b, "graphs": len(take), "forward_ms": ms[0], "scorer_ms": ms[1],
+            "forward_device_ms": dev[0], "scorer_device_ms": dev[1], "device_ratio": ratio}
+
+
+def time_dispatches(server, device):
+    """CUDA events around each forward and scoring replay the server's
+    batcher makes (``_compiled`` and ``_scored`` with ``run``): returns the
+    list of ``(model, bucket, start, end)`` it fills (the bucket on a
+    forward, None on a scoring call), the ``{(model, bucket): (entry,
+    batch)}`` of the batches it saw, and the function that takes the
+    wrappers off. A span holds the replay, its batch's copies to the card
+    and the host's stalls between them. Nothing is timed on the CPU."""
+    marks, seen = [], {}
+    if device.type != "cuda":
+        return marks, seen, lambda: None
+    compiled, scored = server._compiled, server._scored
+
+    def timed(fn, run_at):  # run_at: where ``run`` sits after the batch
+        def run(entry, batch, *args, **kwargs):
+            if not (args[run_at] if len(args) > run_at else kwargs.get("run", True)):
+                return fn(entry, batch, *args, **kwargs)
+            bucket = args[0] if fn is compiled else None
+            if bucket is not None:
+                seen.setdefault((entry.name, bucket), (entry, batch))
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(entry, batch, *args, **kwargs)
+            end.record()
+            marks.append((entry.name, bucket, start, end))
+            return out
+        return run
+
+    server._compiled = timed(compiled, 1)  # (entry, batch, bucket, run)
+    server._scored = timed(scored, 0)  # (entry, batch, run)
+
+    def untime():
+        del server._compiled, server._scored
+
+    return marks, seen, untime
+
+
+def tenant_device_time(server, marks, seen, tenant_of, device):
+    """Each tenant's device time under the flood: each of its batches
+    priced at the device time of one forward and one scoring replay of its
+    (model, bucket), taken with :func:`device_ms` on the idle card after
+    the burst (a replay's work does not depend on what waits on the host),
+    and its share. Beside them, the CUDA-event spans around the batcher's
+    calls during the burst, which also hold the host's stalls, and the
+    order in which the batcher dispatched the batches (one letter a batch,
+    the tenant's first)."""
+    if not marks:
+        return None
+    torch.cuda.synchronize()
+    replay_ms = {}
+    for (name, bucket), (entry, batch) in seen.items():
+        fwd = device_ms(lambda: server._compiled(entry, batch, bucket), device, iters=5, repeats=3)
+        score = device_ms(lambda: server._scored(entry, batch), device, iters=5, repeats=3)
+        replay_ms[(name, bucket)] = median(fwd) + median(score)
+    tenants = sorted(set(tenant_of.values()))
+    ms, spans, batches = ({t: 0.0 for t in tenants}, {t: 0.0 for t in tenants},
+                          {t: 0 for t in tenants})
+    order = []
+    for name, bucket, start, end in marks:
+        tenant = tenant_of[name]
+        spans[tenant] += start.elapsed_time(end)
+        if bucket is not None:
+            ms[tenant] += replay_ms[(name, bucket)]
+            batches[tenant] += 1
+            order.append(tenant[0])
+    total = sum(ms.values())
+    return {"batches": batches, "dispatch_order": "".join(order), "device_ms": ms,
+            "device_share": {t: v / total for t, v in ms.items()},
+            "replay_device_ms": {f"{n}:{b}": v for (n, b), v in replay_ms.items()},
+            "spans_ms": spans}
+
+
+def host_costs():
+    """Host microseconds of one ``note_batch`` and of tracing one batch of
+    64 riders (four spans each, and each trace's finish and flush into a
+    no-op sink)."""
+    ledger = CostLedger()
+    t0 = time.perf_counter()
+    for i in range(2000):
+        ledger.note_batch("screen", i % 3, 64, batch_seconds=0.001, flops=1e9)
+    note_us = (time.perf_counter() - t0) / 2000 * 1e6
+    tracer = Tracer(sample=1.0, emit=lambda *a, **k: None)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        traces = [tracer.start(tenant="screen") for _ in range(64)]
+        w0 = time.time()
+        for t in traces:
+            for name in ("queue_wait", "batch_form", "dispatch", "readback"):
+                t.record(name, w0, 0.001, bucket=0)
+        for t in traces:
+            t.finish("ok")
+    trace_us = (time.perf_counter() - t0) / 20 * 1e6
+    return {"note_batch_us": note_us, "tracing_us_per_batch_of_64": trace_us}
+
+
+def gat_dropout_scores(plan, graphs, device, card, size):
+    """GAT's ``dropout``-mode scores on ``GAT_SCORE_GRAPHS`` graphs in
+    ``segment`` mode. The scorer re-seeds its generator before each
+    replay, so two dispatches draw the same masks; their variances then
+    differ only by K1's atomics, which add in a run-dependent order (two
+    replays of the plain eval forward show it): each output within
+    ``eps = 1e-5 * (max |output| + 1)`` (K1's tolerance,
+    ``segment_kernels.atomic_tolerance``), each variance within ``4 eps
+    sqrt(var) + 4 eps^2``. Another seed's masks move the variances past
+    100 times that bound. The replay's variances are also held, within
+    the same bound, against a plain reference: a copy of the model in
+    ``train()`` mode run K times eagerly on the card from a generator
+    seeded as the scorer's, then ``torch.var(correction=0)``. Held too:
+    the variance drawn (> 0), the running statistics bit-unchanged, K1
+    launched K times a forward's a dispatch."""
+    cfg = arch(size, "GAT")
+    model = create_model_config(cfg, device=device, aggregation="segment", seed=0)
+    set_bn_stats(model, seed=0)
+    registry = ModelRegistry()
+    entry = registry.register("gat", model)
+    take, b = largest_take(plan, graphs)
+    take = take[:GAT_SCORE_GRAPHS]
+    batch = plan.pack(take, b)[0]
+    before = [b.clone() for b in model.buffers()]
+    scorer = UncertaintyScorer("dropout", samples=TENANCY_K, seed=0, registry=registry,
+                               device=device)
+    scorer.dispatch(entry, batch, run=False)  # the capture
+    reset_launch_counts()
+    first = [v.cpu() for v in scorer.dispatch(entry, batch)]
+    second = [v.cpu() for v in scorer.dispatch(entry, batch)]
+    counts = launch_counts()
+    scorer.release()
+    plain = copy.deepcopy(model).train()
+    gen = torch.Generator(device=device).manual_seed(0)
+    with torch.no_grad():
+        outs = [[o.float() for o in plain(batch, generator=gen)] for _ in range(TENANCY_K)]
+    reference = [torch.var(torch.stack([o[i] for o in outs]), dim=0, correction=0).cpu()
+                 for i in range(len(first))]
+    del plain, outs
+    other = UncertaintyScorer("dropout", samples=TENANCY_K, seed=1, registry=registry,
+                              device=device)
+    moved = [v.cpu() for v in other.dispatch(entry, batch)]
+    other.release()
+
+    def forward(b):
+        with torch.inference_mode():
+            return [o.float() for o in model(b)]
+
+    evals = ProgramSet(device).program("gat_eval", forward)
+    e1 = [o.cpu() for o in evals(batch)]
+    e2 = [o.cpu() for o in evals(batch)]
+
+    def over_bound(a, b, s):
+        eps = 1e-5 * (s + 1.0)
+        bound = 4 * eps * torch.sqrt(torch.maximum(a, b)) + 4 * eps * eps
+        return float(((a - b).abs() / bound).max())
+
+    scale = [float(o.abs().max()) for o in e1]
+    per_forward = launches_per_forward(cfg, "segment")
+    expected = {k: 2 * TENANCY_K * v for k, v in per_forward.items()}
+    result = {
+        "family": "GAT", "mode": "dropout", "graphs": len(take), "samples": TENANCY_K,
+        "bit_equal": all(torch.equal(a, b) for a, b in zip(first, second)),
+        "max_abs_diff": [float((a - b).abs().max()) for a, b in zip(first, second)],
+        "repeat_over_bound": max(over_bound(a, b, s) for a, b, s in zip(first, second, scale)),
+        "other_seed_over_bound": max(over_bound(a, b, s) for a, b, s in zip(first, moved, scale)),
+        "plain_reference_over_bound": max(over_bound(a, b, s)
+                                          for a, b, s in zip(first, reference, scale)),
+        "eval_replays_bit_equal": all(torch.equal(a, b) for a, b in zip(e1, e2)),
+        "eval_replays_max_abs_diff": [float((a - b).abs().max()) for a, b in zip(e1, e2)],
+        "max_var": [float(v.max()) for v in first], "output_scale": scale,
+        "running_stats_unchanged": all(torch.equal(a, b) for a, b in zip(before, model.buffers())),
+        "launches": counts, "card": card,
+    }
+    emit({"serve_tenancy_dropout": result})
+    if not (result["repeat_over_bound"] <= 1.0 and result["other_seed_over_bound"] > 100.0
+            and result["plain_reference_over_bound"] <= 1.0
+            and result["running_stats_unchanged"] and min(result["max_var"]) > 0) or (
+            device.type == "cuda" and counts != expected):
+        raise AssertionError(f"GAT dropout scores: {result}, expected launches {expected}")
+    return counts
+
+
+def phase_serve_tenancy(plan, graphs, device, card, size):
+    """Two tenants on one server with the response cache, the cost ledger,
+    the ensemble scorer, a tracer at rate 1 and ``/metrics``: PNA at
+    ``MXU_HEADLINE``'s width in ``fused`` mode with :data:`TENANCY_K`
+    versions (tenant ``screen``, weight 3), and GIN in ``fused`` mode
+    (tenant ``flood``, weight 1, quota :data:`TENANCY_FLOOD_QUOTA`). Held:
+    every response against the CPU; the captured ensemble against the same
+    members eagerly on the card and on the CPU; the scoring program's
+    launches K times the forward's per bucket, and the burst's launches
+    those of its batches; the flood, sent from its own thread while the
+    screening burst runs, shed past its quota while ``screen`` is all
+    served, with each tenant's device time (its batches priced at their
+    replays' device time, :func:`tenant_device_time`); a permuted resubmit
+    answered from the cache with no dispatch; the bill's rows summing to
+    the replica-seconds; four spans per traced request; ``compiles_total``
+    two per bucket and model, and two per bucket more for a promote; no
+    scorer error. Then the scorer's times beside the forward's, the
+    latency of the scorer alone, of the cache and the ledger alone and of
+    a bare server (no flood), and of cache hits, the host cost of the
+    ledger and of tracing, and GAT's dropout scores
+    (:func:`gat_dropout_scores`)."""
+    t_run = time.perf_counter()
+    pna_cfg, gin_cfg = arch(size, "PNA"), arch(size, "GIN")
+    registry = ModelRegistry()
+    for v in range(TENANCY_K):
+        model = create_model_config(pna_cfg, device=device, aggregation="fused", seed=v)
+        set_bn_stats(model, seed=v)
+        registry.register("pna", model)
+    registry.register("gin", create_model_config(gin_cfg, device=device, aggregation="fused"))
+    tenants = TenantManager.from_specs([
+        {"name": "screen", "model": "pna", "weight": 3.0},
+        {"name": "flood", "model": "gin", "weight": 1.0, "quota": TENANCY_FLOOD_QUOTA},
+    ])
+    out_dir = _build.REPO_ROOT / "build" / "chip_smoke" / "tenancy"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    events = out_dir / "events.jsonl"
+    if events.exists():
+        events.unlink()
+    log = RunEventLog(str(events))
+    tracer = Tracer(sample=1.0, emit=log.emit)
+    costs = CostLedger(emit=log.emit)
+    scorer = UncertaintyScorer("ensemble", samples=TENANCY_K, registry=registry, device=device)
+    server = InferenceServer(registry, plan, queue_capacity=4 * len(graphs), tenants=tenants,
+                             cache=ResponseCache(), costs=costs, scorer=scorer,
+                             observability_port=0, device=device)
+    server.start()
+    try:
+        compiles = {"after_warmup": server.metrics.snapshot()["compiles_total"]}
+        flood_graphs = make_graphs(TENANCY_FLOOD, TENANCY_FLOOD_NODES, degree=4, seed=7)
+
+        marks, seen, untime = time_dispatches(server, device)
+        reset_launch_counts()
+        # the flood alongside the screening burst, from its own thread: past
+        # its quota it is shed at submit, while the screening is all served
+        flood, shed, screened = [], [0], threading.Event()
+
+        def flooder():
+            for g in flood_graphs:
+                if screened.is_set():
+                    break
+                try:
+                    flood.append((g, server.submit(g, tenant="flood")))
+                except TenantOverQuota:
+                    shed[0] += 1
+                time.sleep(TENANCY_FLOOD_GAP_S)
+
+        flooding = threading.Thread(target=flooder)
+        flooding.start()
+        halfway = threading.Event()
+        scrape = {}
+
+        def scrape_metrics():
+            halfway.wait(600)
+            host, port = server.observability_address
+            with urllib.request.urlopen(f"http://{host}:{port}/metrics", timeout=60) as r:
+                scrape["series"] = parse_prometheus(r.read().decode())
+            with urllib.request.urlopen(f"http://{host}:{port}/healthz", timeout=60) as r:
+                scrape["health"] = json.loads(r.read())
+
+        scraper = threading.Thread(target=scrape_metrics)
+        scraper.start()
+        t0 = time.monotonic()
+        futures, submitted, traces = burst(server, graphs, 4, tenant="screen", tracer=tracer,
+                                           halfway=halfway)
+        answers = [f.result(600) for f in futures]
+        wall = max(f.done_at for f in futures) - t0
+        screened.set()
+        flooding.join(120)
+        shed = shed[0]
+        for _, f in flood:
+            f.result(600)
+        for t in traces:
+            t.finish("ok")
+        scraper.join(120)
+        counts = launch_counts()
+        untime()
+        shares = tenant_device_time(server, marks, seen, {"pna": "screen", "gin": "flood"}, device)
+        snap = server.metrics.snapshot()
+        compiles["after_burst"] = snap["compiles_total"]
+        on = latency_ms(futures, submitted)
+
+        # launches: each batch one forward and one scoring replay (K members
+        # for PNA, GIN's one version alone)
+        pna_batches = len({f.batch_seq for f in futures})
+        gin_batches = len({f.batch_seq for _, f in flood})
+        per = {"pna": launches_per_forward(pna_cfg, "fused"), "gin": launches_per_forward(gin_cfg, "fused")}
+        expected = {k: pna_batches * (1 + TENANCY_K) * per["pna"][k] + gin_batches * 2 * per["gin"][k]
+                    for k in KERNELS}
+        entry = registry.get("pna")
+        fwd_prog = server._programs.programs[f"serve:pna:v{entry.version}"]
+        score_prog = scorer.program(entry)
+        per_bucket = []
+        for key, graph in fwd_prog.graphs.items():
+            if graph is not None:  # on the card: one replay's launches of each
+                scored = score_prog.graphs[key].launches
+                per_bucket.append({k: scored[k] == TENANCY_K * v for k, v in graph.launches.items()})
+        if device.type == "cuda" and (counts != expected or not per_bucket
+                                      or not all(all(b.values()) for b in per_bucket)):
+            raise AssertionError(f"tenancy: launches {counts}, expected {expected}; "
+                                 f"scored/forward per bucket {per_bucket}")
+
+        worst = hold_responses(futures, graphs, plan, {"pna": entry.model,
+                                                       "gin": registry.get("gin").model})
+        worst = max(worst, hold_responses([f for _, f in flood], [g for g, _ in flood], plan,
+                                          {"gin": registry.get("gin").model}))
+        ensemble = ensemble_check(server, scorer, entry, plan, graphs, device)
+
+        # the cache: the same molecules with their atoms permuted, no dispatch
+        batches = server.metrics.snapshot()["batches_total"]
+        perm_graphs = []
+        for i, g in enumerate(graphs):
+            perm = np.random.default_rng(100 + i).permutation(g.num_nodes)
+            inv = np.argsort(perm)
+            perm_graphs.append(GraphData(x=g.x[perm], pos=g.pos[perm], edge_index=inv[g.edge_index],
+                                         edge_attr=g.edge_attr))
+        hits, hit_submitted, _ = burst(server, perm_graphs, 4, tenant="screen")
+        for f, want in zip(hits, answers):
+            got = f.result(60)
+            if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError("tenancy: a cache hit differs from the cached answer")
+        hit_dispatches = server.metrics.snapshot()["batches_total"] - batches
+        bill = costs.bill()
+        rows = sum(r["device_s"] for r in bill["tenants"].values())
+
+        # the spans: every traced request has its four
+        log.close()
+        built = build_traces(load_span_events(str(events)))
+        four = all({s["name"] for s in t["spans"]} >= {"queue_wait", "batch_form", "dispatch",
+                                                       "readback"} for t in built.values())
+
+        timing = scorer_timing(server, scorer, entry, plan, graphs, device)
+        # a promote: v4 pinned, v5 registered and warmed through the batcher
+        # (its forward and the new member set's scoring program per bucket),
+        # then promoted, which drops pna's cached answers
+        registry.promote("pna", entry.version)
+        model = create_model_config(pna_cfg, device=device, aggregation="fused", seed=TENANCY_K)
+        set_bn_stats(model, seed=TENANCY_K)
+        registry.register("pna", model)
+        warmed = server.warm_version("pna", version=TENANCY_K + 1)
+        registry.promote("pna", TENANCY_K + 1)
+        cached_after = server.cache.stats()["entries"]
+        compiles["after_promote"] = server.metrics.snapshot()["compiles_total"]
+        scorer_errors = server.metrics.snapshot()["scorer_errors"]
+    finally:
+        server.stop()
+
+    # the latency of each part alone, with no flood: the same PNA versions
+    # on a server with the scorer only, with the cache and the ledger only,
+    # and with neither
+    alone_reg = ModelRegistry()
+    for v in range(1, TENANCY_K + 1):
+        alone_reg.register("pna", registry.get("pna", v).model)
+    alone = {}
+    for name, extras in (
+            ("scorer_only", dict(scorer=UncertaintyScorer(
+                "ensemble", samples=TENANCY_K, registry=alone_reg, device=device))),
+            ("cache_and_ledger_only", dict(cache=ResponseCache(), costs=CostLedger())),
+            ("bare", {})):
+        plain = InferenceServer(alone_reg, plan, queue_capacity=len(graphs), device=device,
+                                **extras)
+        with plain:
+            off_futures, off_submitted, _ = burst(plain, graphs, 4)
+            for f in off_futures:
+                f.result(600)
+            if plain.metrics.snapshot()["scorer_errors"]:
+                raise AssertionError(f"tenancy: scorer errors on the {name} server")
+        if plain.scorer is not None:
+            plain.scorer.release()
+        alone[name] = latency_ms(off_futures, off_submitted)
+
+    b = plan.num_buckets
+    result = {
+        "requests": len(graphs), "flood_sent": len(flood) + shed,
+        "flood_quota": TENANCY_FLOOD_QUOTA,
+        "flood_shed": shed, "batches": {"pna": pna_batches, "gin": gin_batches},
+        "launches": counts, "scored_launches_k_times_forward": per_bucket,
+        "max_abs_err_vs_cpu": worst, "ensemble": ensemble,
+        "latency_all_on_with_flood": on, "latency_alone": alone,
+        "latency_cache_hits": latency_ms(hits, hit_submitted), "cache_hit_dispatches": hit_dispatches,
+        "graphs_per_s": len(graphs) / wall,
+        "cost_share": {t: r["cost_share"] for t, r in bill["tenants"].items()},
+        "flood_device_time": shares,
+        "bill": bill, "bill_rows_plus_idle_minus_replica_s": rows + bill["idle_s"] - bill["replica_s"],
+        "traces": len(built), "four_spans_each": four,
+        "scrape": {"series": len(scrape.get("series", {})),
+                   "scorer_errors_total": scrape.get("series", {}).get(
+                       "hydragnn_serve_scorer_errors_total"),
+                   "health_status": scrape.get("health", {}).get("status")},
+        "compiles_total": compiles, "warm_version": warmed, "cache_entries_after_promote": cached_after,
+        "scorer_errors": scorer_errors, "scorer_timing": timing, "host": host_costs(),
+        "card": card,
+    }
+    problems = []
+    if not (0 < shed and len(flood) + shed <= TENANCY_FLOOD):
+        problems.append("the flood was not shed")
+    if shares is not None and not (shares["batches"]["flood"] == gin_batches
+                                   and shares["batches"]["screen"] == pna_batches):
+        problems.append(f"device spans {shares['batches']} for batches {result['batches']}")
+    if hit_dispatches != 0:
+        problems.append("cache hits dispatched")
+    if abs(result["bill_rows_plus_idle_minus_replica_s"]) > 1e-5:
+        problems.append("the bill's rows do not sum to the replica-seconds")
+    if len(built) != len(graphs) or not four:
+        problems.append("traced requests without their four spans")
+    if "series" not in scrape or result["scrape"]["health_status"] != "ok":
+        problems.append("the /metrics scrape failed")
+    want = {"after_warmup": 2 * 2 * b, "after_burst": 2 * 2 * b, "after_promote": 2 * 2 * b + 2 * b}
+    if compiles != want or not warmed["verified"]:
+        problems.append(f"compiles_total {compiles}, expected {want}")
+    if cached_after != len(flood):  # gin's answers stay, pna's went
+        problems.append("the promote left pna's cached answers")
+    if scorer_errors or snap["errors_total"] or any(f.uncertainty is None for f in futures):
+        problems.append("scorer errors or unscored responses")
+    result["problems"] = problems
+    emit({"serve_tenancy": result})
+    if problems:
+        raise AssertionError(f"serve tenancy: {problems}")
+    counts_gat = gat_dropout_scores(plan, graphs, device, card, size)
+    result["run_s"] = time.perf_counter() - t_run
+    print(f"serve tenancy run_s {result['run_s']:.1f}", flush=True)
+    return {k: counts[k] + counts_gat[k] for k in KERNELS}
 
 
 # ---- phase 5 ----------------------------------------------------------------
@@ -2712,6 +3295,8 @@ def main(argv=None):
     for result in served:
         add(result["launches"])
     lap("serve (GAT, MFC, CGCNN, DimeNet)")
+    add(phase_serve_tenancy(plan, graphs[:SERVE_REQUESTS], device, card, size))
+    lap("serve (tenants, cache, costs, scorer, tracing)")
 
     set_targets(graphs, seed=1)
     set_targets(cg_graphs, seed=1)

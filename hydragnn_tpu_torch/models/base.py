@@ -28,6 +28,10 @@ convs' dense branch, which every ported stack has; a stack without one
 (``dense_branch`` False) raises on it. A conv with a stochastic layer
 (GAT's attention dropout, ``stochastic``) draws it in ``train()`` mode
 from the ``generator`` passed to ``forward``; eval is deterministic.
+``forward(sample=True)`` runs the training branch in any mode without
+changing the module: the stochastic layers draw and BatchNorm takes the
+batch's statistics, but the running statistics stay as they are (one
+sample of the uncertainty scorer's ``dropout`` mode, ``serve/quality.py``).
 """
 
 import math
@@ -265,17 +269,20 @@ class HydraBase(nn.Module):
         return self
 
     @staticmethod
-    def _conv(conv, x, pos, batch, generator):
+    def _conv(conv, x, pos, batch, generator, sample):
         if getattr(conv, "stochastic", False):
-            return conv(x, pos, batch, generator=generator)
+            return conv(x, pos, batch, generator=generator, sample=sample)
         return conv(x, pos, batch)
 
-    def forward(self, batch: GraphBatch, generator: Optional[torch.Generator] = None):
+    def forward(self, batch: GraphBatch, generator: Optional[torch.Generator] = None,
+                sample: bool = False):
         """Per-head outputs: graph heads ``[G, dim]``, node heads
         ``[N, dim]`` (padding rows zero for ``mlp`` heads); ``dim`` has one
         more column, the log-variance, under ``loss_nll``. ``generator``:
-        the draws of a stochastic conv in ``train()`` mode (on the model's
-        device)."""
+        the draws of a stochastic conv in ``train()`` mode or with
+        ``sample`` (on the model's device). ``sample``: the training
+        branch without its update of the running statistics (the module's
+        docstring)."""
         batch = batch.to(next(self.parameters()).device)
         if "nbr_idx" in batch.extras and not self.dense_branch:
             raise NotImplementedError(
@@ -284,11 +291,13 @@ class HydraBase(nn.Module):
                 "ROADMAP.md, queue 1"
             )
         batch = self.prepare_batch(batch)
+        batch_stats = self.training or sample
         x, pos = batch.x, batch.pos
         for i in range(self.num_conv_layers):
-            c, pos = self._conv(getattr(self, f"encoder_conv_{i}"), x, pos, batch, generator)
+            c, pos = self._conv(getattr(self, f"encoder_conv_{i}"), x, pos, batch, generator,
+                                sample)
             if self.conv_use_batchnorm:
-                c = getattr(self, f"encoder_bn_{i}")(c, batch.node_mask)
+                c = getattr(self, f"encoder_bn_{i}")(c, batch.node_mask, batch_stats)
             x = self.act(c)
 
         x_graph = global_mean_pool(x, batch.node_graph, batch.n_node, batch.num_graphs)
@@ -302,8 +311,8 @@ class HydraBase(nn.Module):
                 h, p = x, pos
                 for il in range(self.node_conv_layers[ihead]):
                     c, p = self._conv(getattr(self, f"head_{ihead}_conv_{il}"), h, p, batch,
-                                      generator)
-                    c = getattr(self, f"head_{ihead}_bn_{il}")(c, batch.node_mask)
+                                      generator, sample)
+                    c = getattr(self, f"head_{ihead}_bn_{il}")(c, batch.node_mask, batch_stats)
                     h = self.act(c)
                 outputs.append(h)
             else:

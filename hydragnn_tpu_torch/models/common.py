@@ -159,7 +159,11 @@ class MaskedBatchNorm(nn.Module):
     Training: the masked batch mean and biased variance (two-pass,
     centred) normalise, and the running estimates take the unbiased
     variance, ``running = (1 - MOMENTUM) running + MOMENTUM batch`` under
-    ``no_grad``, once per forward. Eval: the running statistics. The
+    ``no_grad``, once per forward. Eval: the running statistics.
+    ``batch_stats=True`` normalises with the batch's statistics in any
+    mode and updates the running ones only in ``train()`` mode (the
+    uncertainty scorer's sampling branch, which throws the update away as
+    the JAX package does). The
     ``axis_name`` branch (statistics over a mesh axis) waits for
     parallelism (``ROADMAP.md``)."""
 
@@ -181,20 +185,23 @@ class MaskedBatchNorm(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, batch_stats: Optional[bool] = None):
         in_dtype = x.dtype
         x = x.to(torch.float32)
-        if self.training:
+        if batch_stats is None:
+            batch_stats = self.training
+        if batch_stats:
             m = mask.to(torch.float32)[:, None]
             count = torch.clamp(m.sum(), min=1.0)
             mean = (x * m).sum(0) / count
             centered = (x - mean) * m
             var = (centered * centered).sum(0) / count
-            with torch.no_grad():
-                unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
-                mom = self.MOMENTUM
-                self.running_mean.copy_((1.0 - mom) * self.running_mean + mom * mean)
-                self.running_var.copy_((1.0 - mom) * self.running_var + mom * unbiased)
+            if self.training:
+                with torch.no_grad():
+                    unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
+                    mom = self.MOMENTUM
+                    self.running_mean.copy_((1.0 - mom) * self.running_mean + mom * mean)
+                    self.running_var.copy_((1.0 - mom) * self.running_var + mom * unbiased)
         else:
             mean, var = self.running_mean, self.running_var
         y = (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias

@@ -6,7 +6,8 @@ edge ``j->i`` ``sum_c att * leaky_relu(x_l[j] + x_r[i], 0.05)``, a softmax
 over each receiver's edges and its self-loop, the weighted sum of ``x_l``,
 then heads concatenated (hidden layers) or averaged (the last layer), plus
 ``bias``. Attention dropout (``dropout``, 0.25) acts on the softmax's
-numerator terms in ``train()`` mode, drawn from the forward's
+numerator terms in ``train()`` mode (or with the forward's ``sample``),
+drawn from the forward's
 ``torch.Generator``; the denominator keeps them undropped, as in the JAX
 package (the ``1/(1-p)`` scale commutes with the division).
 
@@ -74,15 +75,15 @@ class GATv2Conv(nn.Module):
             for p in (self.b_l, self.b_r, self.bias):
                 p.zero_()
 
-    def _drop(self, x, generator):
-        if not self.training or self.dropout == 0.0:
+    def _drop(self, x, generator, sample):
+        if not (self.training or sample) or self.dropout == 0.0:
             return x
         return attention_dropout(x, self.dropout, generator)
 
     def _logits(self, x_j, x_i):
         return (F.leaky_relu(x_j + x_i, self.negative_slope) * self.att).sum(dim=-1)
 
-    def forward(self, x, pos, batch, generator=None):
+    def forward(self, x, pos, batch, generator=None, sample=False):
         n = x.shape[0]
         h, c = self.heads, self.out_dim
         x_l = (matmul(x, self.w_l) + self.b_l).reshape(n, h, c)
@@ -102,7 +103,7 @@ class GATv2Conv(nn.Module):
             amax = torch.maximum(alpha_n.amax(dim=1), alpha_s)[:, None]
             ex_n = torch.where(nmask[..., None], torch.exp(alpha_n - amax), 0.0)
             ex_s = torch.where(batch.node_mask[:, None], torch.exp(alpha_s - amax[:, 0]), 0.0)
-            exd = self._drop(torch.cat([ex_n, ex_s[:, None]], dim=1), generator)
+            exd = self._drop(torch.cat([ex_n, ex_s[:, None]], dim=1), generator, sample)
             f32 = torch.float32
             num = torch.einsum("nkh,nkhc->nhc", exd[:, :k].to(f32), xl_j.to(f32)).to(x_l.dtype)
             num = num + exd[:, k][..., None] * x_l
@@ -117,7 +118,7 @@ class GATv2Conv(nn.Module):
             xl_s = x_l.index_select(0, send)
             alpha = self._logits(xl_s, x_r.index_select(0, recv))  # [E+N, H]
             ex = segment_softmax_unnorm(alpha, recv, n, mask=emask)
-            exd = self._drop(ex, generator)
+            exd = self._drop(ex, generator, sample)
             # the numerator and the denominator in one sum: [E+N, H, C+1]
             packed = torch.cat([xl_s * exd[..., None], ex[..., None]], dim=-1)
             s = segment_sum(packed.reshape(packed.shape[0], h * (c + 1)), recv, n)

@@ -20,15 +20,28 @@ version that served before it. Promoting the active version again
 changes nothing. :meth:`ModelRegistry.promote_checkpoint` pins the active
 version, loads the candidate strictly, and only then registers and
 promotes it: a corrupt candidate raises with the registry as it was.
-:meth:`ModelRegistry.describe` summarises the entries. The candidate
-channel and activation listeners wait for the canary (``ROADMAP.md``,
-queue 1, item 5).
+:meth:`ModelRegistry.describe` summarises the entries.
+:meth:`ModelRegistry.add_activation_listener` hangs a callback on every
+effective promote or rollback (the response cache's invalidation): it runs
+after the change, outside the registry's lock, and its exceptions are
+swallowed.
+
+Publication channel: :class:`CandidateChannel` is a file-backed queue of
+candidate checkpoint snapshots under one root directory, laid out as the
+JAX package lays it out, so that either package reads what the other
+published and pinned (:func:`publish_candidate`; a tenant spec with a
+``channel`` loads the pinned version). The canary controller that consumes
+it is not ported yet (``ROADMAP.md``, queue 1, item 5).
 """
 
 import dataclasses
+import glob
 import json
 import os
+import re
+import shutil
 import threading
+import time
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -64,6 +77,23 @@ class ModelRegistry:
         # the activation stack per name: [..., previous, active]; empty
         # (never promoted): the latest registered version serves
         self._active: Dict[str, List[int]] = {}
+        # fn(name, new active version) after every effective promote or
+        # rollback; added at server construction, called outside the lock
+        self._listeners: List = []
+
+    def add_activation_listener(self, fn):
+        """Run ``fn(name, version)`` after each effective promote or
+        rollback, outside the registry's lock (a listener may call back
+        into the registry); its exceptions are swallowed, so that an
+        observer never fails an activation."""
+        self._listeners.append(fn)
+
+    def _notify_activation(self, name: str, version: int):
+        for fn in list(self._listeners):
+            try:
+                fn(name, version)
+            except Exception:
+                pass
 
     def register(self, name: str, model: nn.Module, source: str = "memory") -> ModelEntry:
         """Freeze ``model`` (eval mode) as the next version of ``name``."""
@@ -138,6 +168,7 @@ class ModelRegistry:
         version-less :meth:`get` calls. Promoting the active version again
         leaves the activation stack as it is. Raises ``KeyError`` for
         unknown names/versions, with the registry unchanged."""
+        changed = False
         with self._lock:
             history = self._entries.get(name)
             if not history:
@@ -154,7 +185,10 @@ class ModelRegistry:
                 stack.append(history[-1].version)
             if stack[-1] != version:
                 stack.append(version)
-            return entry
+                changed = True
+        if changed:
+            self._notify_activation(name, version)
+        return entry
 
     def rollback(self, name: str) -> ModelEntry:
         """Re-activate the version that served before the last effective
@@ -165,7 +199,9 @@ class ModelRegistry:
                 raise ValueError(f"model {name!r} has no previous promoted version to roll back to")
             stack.pop()
             version = stack[-1]
-            return next(e for e in self._entries[name] if e.version == version)
+            entry = next(e for e in self._entries[name] if e.version == version)
+        self._notify_activation(name, version)
+        return entry
 
     def promote_checkpoint(self, checkpoint_name: str, arch_config: Optional[dict] = None,
                            path: str = "./logs/", name: Optional[str] = None,
@@ -207,3 +243,156 @@ class ModelRegistry:
                     "source": serving.source,
                 }
             return out
+
+
+# ---- candidate publication channel -------------------------------------------
+
+
+def _write_json(path: str, obj: Dict):
+    """Atomic JSON write (tmp + rename): a reader never sees a torn file."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+    os.replace(tmp, path)
+
+
+def _read_json(path: str) -> Optional[Dict]:
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None  # missing or mid-rename: the caller polls again
+
+
+class CandidateChannel:
+    """File-backed train -> serve candidate queue under one root (the JAX
+    package's layout)::
+
+        <root>/candidates/cand-<seq:06d>.json   # manifest (commit point)
+        <root>/versions/v<seq:06d>/<ck>/<ck>.pk # checkpoint snapshot
+        <root>/promoted.json                    # {active_seq, base_seq}
+
+    :meth:`publish` copies the checkpoint (and its ``config.json``) into
+    the sequence's version directory, the ``<path>/<name>/<name>.pk``
+    layout the strict loader reads, before it writes the manifest: the
+    atomic manifest write is the commit point, so a consumer never sees a
+    manifest whose snapshot is incomplete. One publisher, any number of
+    consumers."""
+
+    def __init__(self, root: str):
+        self.root = root
+        self._cand_dir = os.path.join(root, "candidates")
+        self._ver_dir = os.path.join(root, "versions")
+
+    def manifest_path(self, seq: int) -> str:
+        return os.path.join(self._cand_dir, f"cand-{int(seq):06d}.json")
+
+    def version_dir(self, seq: int) -> str:
+        """The snapshot directory of ``seq``: the ``path`` of a strict
+        checkpoint load."""
+        return os.path.join(self._ver_dir, f"v{int(seq):06d}")
+
+    def publish(self, checkpoint: str, path: str, **meta) -> Dict:
+        """Snapshot ``<path>/<checkpoint>/<checkpoint>.pk`` (and its
+        ``config.json`` when present) as the next candidate and commit its
+        manifest; ``meta`` (epoch, val_loss, ...) rides along."""
+        seq = self.latest_seq() + 1
+        src = os.path.join(path, checkpoint)
+        src_pk = os.path.join(src, f"{checkpoint}.pk")
+        if not os.path.exists(src_pk):
+            raise FileNotFoundError(f"cannot publish {checkpoint!r}: {src_pk} does not exist")
+        dst = os.path.join(self.version_dir(seq), checkpoint)
+        # a crashed publish may have left a manifest-less directory under
+        # this seq: nothing can be reading it
+        if os.path.isdir(dst):
+            shutil.rmtree(dst)
+        os.makedirs(dst, exist_ok=True)
+        tmp = os.path.join(dst, f".{checkpoint}.pk.tmp")
+        shutil.copyfile(src_pk, tmp)
+        os.replace(tmp, os.path.join(dst, f"{checkpoint}.pk"))
+        cfg = os.path.join(src, "config.json")
+        if os.path.exists(cfg):
+            shutil.copyfile(cfg, os.path.join(dst, "config.json"))
+        manifest = {
+            "seq": seq,
+            "checkpoint": checkpoint,
+            "path": os.path.abspath(self.version_dir(seq)),
+            "source_path": os.path.abspath(path),
+            "ts": time.time(),
+        }
+        manifest.update(meta)
+        _write_json(self.manifest_path(seq), manifest)
+        return manifest
+
+    def _seqs(self) -> List[int]:
+        out = []
+        for p in glob.glob(os.path.join(self._cand_dir, "cand-*.json")):
+            m = re.search(r"cand-(\d+)\.json$", p)
+            if m:
+                out.append(int(m.group(1)))
+        return sorted(out)
+
+    def latest_seq(self) -> int:
+        seqs = self._seqs()
+        return seqs[-1] if seqs else 0
+
+    def read(self, seq: int) -> Optional[Dict]:
+        return _read_json(self.manifest_path(seq))
+
+    def pending(self, after_seq: int = 0) -> List[Dict]:
+        """Committed manifests with ``seq > after_seq``, oldest first."""
+        out = []
+        for seq in self._seqs():
+            if seq <= after_seq:
+                continue
+            man = self.read(seq)
+            if man is not None:
+                out.append(man)
+        return out
+
+    def record_promotion(self, seq: int):
+        """Pin ``seq`` as the active published version; the previously
+        active one becomes the rollback base. Both survive :meth:`gc`."""
+        pins = _read_json(os.path.join(self.root, "promoted.json")) or {}
+        _write_json(os.path.join(self.root, "promoted.json"),
+                    {"active_seq": int(seq), "base_seq": pins.get("active_seq"),
+                     "ts": time.time()})
+
+    def pinned(self) -> set:
+        pins = _read_json(os.path.join(self.root, "promoted.json")) or {}
+        return {int(s) for s in (pins.get("active_seq"), pins.get("base_seq"))
+                if s is not None}
+
+    def gc(self, keep_last: int) -> List[int]:
+        """Remove the published versions outside the newest ``keep_last``,
+        never the pinned active and base versions: the manifest first
+        (consumers discover through it), then the snapshot. Returns the
+        removed seqs."""
+        if keep_last < 1:
+            raise ValueError("keep_last must be >= 1")
+        seqs = self._seqs()
+        keep = set(seqs[-keep_last:]) | self.pinned()
+        removed = []
+        for seq in seqs:
+            if seq in keep:
+                continue
+            try:
+                os.remove(self.manifest_path(seq))
+            except OSError:
+                continue  # already removed by a racing gc
+            shutil.rmtree(self.version_dir(seq), ignore_errors=True)
+            removed.append(seq)
+        return removed
+
+
+def publish_candidate(root: str, checkpoint: str, path: str,
+                      keep_last: Optional[int] = None, **meta) -> Dict:
+    """Publish into the channel at ``root`` (snapshot + manifest), then
+    collect old versions when ``keep_last`` is given. Returns the
+    manifest."""
+    channel = CandidateChannel(root)
+    manifest = channel.publish(checkpoint, path, **meta)
+    if keep_last is not None:
+        channel.gc(keep_last)
+    return manifest

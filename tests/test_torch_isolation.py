@@ -36,7 +36,10 @@ def _port_files():
                 "data/lsms.py", "data/radius_graph.py", "data/transforms.py",
                 "data/serialized.py", "data/split.py", "utils/config.py",
                 "analysis/guards.py", "utils/faults.py", "utils/retry.py",
-                "parallel/distributed.py", "train/guard.py"):
+                "parallel/distributed.py", "train/guard.py", "utils/envparse.py",
+                "obs/__init__.py", "obs/metrics.py", "obs/events.py", "obs/http.py",
+                "obs/trace.py", "obs/drift.py", "serve/http.py", "serve/cache.py",
+                "serve/tenants.py", "serve/costs.py", "serve/quality.py"):
         assert REPO / "hydragnn_tpu_torch" / new in files
     return files
 
@@ -75,6 +78,7 @@ def pytest_importing_the_port_loads_no_jax():
         "import hydragnn_tpu_torch.train, hydragnn_tpu_torch.benchmarks.model_bench\n"
         "import hydragnn_tpu_torch.ops.dense_agg, hydragnn_tpu_torch.ops.autotune\n"
         "import hydragnn_tpu_torch.train.driver, hydragnn_tpu_torch.data.loaders\n"
+        "import hydragnn_tpu_torch.obs, hydragnn_tpu_torch.serve.quality\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'hydragnn_tpu')]\n"
         "assert not bad, bad\n"
     )
