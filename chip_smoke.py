@@ -65,6 +65,29 @@ warm-ups alike (``train.capture_counts``).
    scraped mid-burst, GIN flooding past its quota alongside the burst,
    each tenant's device time from timed replays; and GAT's ``dropout``
    scores against a plain reference (:func:`gat_dropout_scores`).
+   Then the serving fleet (:func:`phase_fleet`): two replica processes of
+   ``python -m hydragnn_tpu_torch.serve.fleet`` on the one card (PNA at this
+   width, ``fused``; v2 checkpoints the phase writes from ``TrainState``s
+   of seeded weights), a ``FleetRouter`` in this process under
+   closed-loop clients sending the 64 graphs: the router's cost over a
+   direct ``predict``, requests a second through 2 replicas and through 1
+   at each client count of :data:`FLEET_SWEEP`, then under
+   :data:`FLEET_CLIENTS` clients a SIGKILL of replica 1 healed at incarnation 1,
+   a hot-swap to ``v2`` (each replica compiling one program a bucket, then
+   none; no micro-batch mixing versions), a corrupt candidate rolled back
+   with ``v2`` serving, a ``CanaryController`` rejecting a far candidate
+   on its MAE gate and promoting a close one (each on its own canary
+   process, which the router never sees), one ``FleetAutoscaler`` tick
+   adding a replica, and a drift alert raised and cleared on the new
+   replica's shifted inputs (``HYDRAGNN_FAULT_SHIFT_INPUTS``). No request
+   may be lost; every answer is held against this process's forward of
+   its version on the card (the lease names the checkpoint behind each
+   replica's version) within K1's and K3's atomic tolerance; every
+   replica and canary process must have launched K3 and K1 one forward's
+   worth for each of its micro-batches and captures (its final lease);
+   every event stream passes ``validate_events``. Last, the CLI (``python -m
+   hydragnn_tpu_torch.serve.fleet --spec --dir --replicas 2``) serves both
+   replicas' answers and exits 0 on SIGTERM. One ``{"fleet": ...}`` line.
 5. Train: bench.py's MXU-scale PNA row (as in phase 4, at 2 conv layers,
    ``FIVE_TRAIN_LAYERS``; seeded targets, a
    graph target ``[1]`` and a node target ``[n, 1]`` per its
@@ -187,12 +210,15 @@ warm-ups alike (``train.capture_counts``).
    ``library_device_ms``; for K2 and K6, which no one PyTorch call
    computes, ``reference_device_ms``: K1's at the same receivers shape,
    which streams the same ``[E, D]`` bytes; ``launches`` counts phases 4,
-   5 and 6), and as the last line ``{"ok": true, "device": {"platform":
+   5 and 6 in this process and, for the fleet, its replica and canary
+   processes, each from its final lease), and as the last line ``{"ok": true, "device": {"platform":
    "gpu", ...}}``.
 
 ``--cpu-rehearsal`` runs phases 3-6 at a tiny size on the CPU through the
-plain versions, to check the script's control flow without a card. It
-times nothing on a device and never prints the success line.
+plain versions (the fleet's replicas with ``"device": "cpu"``), to check
+the script's control flow without a card. It times nothing on a device and
+never prints the success line. ``--only-fleet`` runs phases 1, 2 and the
+fleet alone, and prints no success line either.
 """
 
 import argparse
@@ -201,7 +227,11 @@ import copy
 import dataclasses
 import json
 import os
+import pathlib
+import pickle
 import re
+import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -236,17 +266,29 @@ from hydragnn_tpu_torch.ops import (
 from hydragnn_tpu_torch.ops.dense_agg import attach_neighbor_lists
 from hydragnn_tpu_torch.ops.fused_mp import egnn_tolerance
 from hydragnn_tpu_torch.ops.segment_kernels import atomic_tolerance
+from hydragnn_tpu_torch import coord
 from hydragnn_tpu_torch.obs import RunEventLog, Tracer, build_traces, load_span_events
+from hydragnn_tpu_torch.obs.drift import load_quality_events
+from hydragnn_tpu_torch.obs.events import validate_events
 from hydragnn_tpu_torch.serve import (
+    AutoscalePolicy,
+    CanaryController,
+    CanaryGates,
+    CandidateChannel,
     CostLedger,
+    FleetAutoscaler,
+    FleetRouter,
     InferenceServer,
     ModelRegistry,
     ResponseCache,
+    ServerOverloaded,
+    ServingFleet,
     TenantManager,
     TenantOverQuota,
     UncertaintyScorer,
     plan_from_samples,
 )
+from hydragnn_tpu_torch.serve import fleet as fleet_mod
 from hydragnn_tpu_torch.train import (
     Trainer,
     capture_counts,
@@ -257,6 +299,9 @@ from hydragnn_tpu_torch.train import (
     steps as train_steps,
 )
 from hydragnn_tpu_torch.train.capture import ProgramSet
+from hydragnn_tpu_torch.train.checkpoint import save_model
+from hydragnn_tpu_torch.train.common import TrainState
+from hydragnn_tpu_torch.utils import faults
 from hydragnn_tpu_torch.utils.timing import call_ms, device_ms
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -1685,6 +1730,645 @@ def phase_serve_tenancy(plan, graphs, device, card, size):
     result["run_s"] = time.perf_counter() - t_run
     print(f"serve tenancy run_s {result['run_s']:.1f}", flush=True)
     return {k: counts[k] + counts_gat[k] for k in KERNELS}
+
+
+# ---- phase 4: the serving fleet ---------------------------------------------
+
+FLEET_REPLICAS = 2
+FLEET_CLIENTS = 3  # the closed-loop clients through the kill, the swaps, the canary and drift
+FLEET_SWEEP = (3, 12, 24)  # the clients of the throughput windows, each at 2 replicas and at 1
+FLEET_DEADLINE_S = 30.0  # each routed request's deadline
+FLEET_WAIT_S = 240.0  # the longest wait for a boot, a heal, a promote or a decision
+FLEET_WINDOW_S = 3.0  # each throughput window
+FLEET_OVERHEAD_REQUESTS = 32  # sequential requests: the router against a direct predict
+FLEET_CANARY_NOISE = 1e-4  # the close candidate: v2's weights times (1 + this * N(0, 1))
+FLEET_SHIFT = 3.0  # HYDRAGNN_FAULT_SHIFT_INPUTS's scale on the autoscaled replica
+# every replica's drift knobs: a window of 64 requests drawn from the 64
+# graphs scores PSI ~0.3 and KS ~0.2 against a clean one (the count features
+# have 64 values a window); a 3x shift scores KS 1
+FLEET_DRIFT = {"WINDOW": 64, "PSI": 1.0, "KS": 0.5, "RAISE": 2, "CLEAR": 2, "BINS": 64}
+
+
+class _LeaseWatch(threading.Thread):
+    """Reads every lease of a coordination directory each 20 ms: the first
+    serving write of each (kind, member, incarnation), the longest gap
+    between two writes of a serving lease, and the checkpoint behind each
+    (replica, version) a lease reports active."""
+
+    def __init__(self, coord_dir, fleet):
+        super().__init__(name="chip-smoke-lease-watch", daemon=True)
+        self.coord_dir, self.fleet = coord_dir, fleet
+        self.first_serving, self.spawned, self.last, self.sources = {}, {}, {}, {}
+        self.gap = (0.0, None)
+        self.halt = threading.Event()
+
+    def run(self):
+        while not self.halt.wait(0.02):
+            for h in list(self.fleet._replicas.values()):
+                if h.proc is not None:
+                    self.spawned.setdefault((h.rid, h.incarnation), h.spawned_ts)
+            for kind in (fleet_mod.REPLICA, fleet_mod.CANARY):
+                for path in sorted((self.coord_dir / f"{kind}s").glob(f"{kind}-*.json")):
+                    lease = coord.read_json(str(path))
+                    if not lease or "ts" not in lease or "replica" not in lease:
+                        continue
+                    key = (kind, int(lease["replica"]), int(lease.get("gen", 0)))
+                    ts = float(lease["ts"])
+                    if lease.get("state") == "serving" and not lease.get("done"):
+                        self.first_serving.setdefault(key, ts)
+                        prev = self.last.get(key)
+                        if prev is not None and ts - prev > self.gap[0]:
+                            self.gap = (ts - prev, f"{kind} {key[1]} incarnation {key[2]}")
+                        self.last[key] = ts
+                    active = lease.get("active") or {}
+                    if kind == fleet_mod.REPLICA and active.get("version") is not None:
+                        self.sources[(key[1], int(active["version"]))] = active.get("source")
+
+    def boot_s(self):
+        """Spawn to serving lease, per replica and incarnation."""
+        first = self.first_serving
+        return {f"{rid}/{gen}": first[(fleet_mod.REPLICA, rid, gen)] - ts
+                for (rid, gen), ts in sorted(self.spawned.items())
+                if (fleet_mod.REPLICA, rid, gen) in first}
+
+
+class _PinnedRouter(FleetRouter):
+    """A router that sees one replica only: the 1-replica throughput
+    window, through the same discovery, admission and retry code."""
+
+    def __init__(self, coord_dir, rid, **kw):
+        super().__init__(coord_dir, **kw)
+        self.rid = rid
+
+    def live_replicas(self):
+        return [r for r in super().live_replicas() if r[0] == self.rid]
+
+
+class _FleetLoad:
+    """Closed-loop clients routing the fleet's graphs: each outcome with its
+    phase, router, number of active clients, times, graph, replica,
+    version, micro-batch and heads. Of its ``clients`` threads the first
+    ``active`` send; the others wait."""
+
+    def __init__(self, routers, graphs, clients, seed):
+        self.routers, self.graphs = routers, graphs
+        self.phase, self.route_by, self.active = "steady", "all", clients
+        self.records, self.failures = [], []
+        self.lock = threading.Lock()
+        self.halt = threading.Event()
+        self.threads = [threading.Thread(target=self._client, args=(k, seed + k), daemon=True)
+                        for k in range(clients)]
+
+    def _client(self, k, seed):
+        rng = np.random.default_rng(seed)
+        while not self.halt.is_set():
+            if k >= self.active:
+                self.halt.wait(0.01)
+                continue
+            i = int(rng.integers(len(self.graphs)))
+            phase, route_by, active = self.phase, self.route_by, self.active
+            router = self.routers[route_by]
+            tag = {"phase": phase, "route": route_by, "clients": active}
+            t0 = time.perf_counter()
+            try:
+                raw = router.route(self.graphs[i], deadline_s=FLEET_DEADLINE_S, raw=True)
+                rec = dict(tag, t0=t0, t1=time.perf_counter(), ok=True, graph=i,
+                           replica=raw["replica"], version=raw["version"],
+                           batch_seq=raw["batch_seq"],
+                           heads=[np.asarray(h, np.float32) for h in raw["heads"]])
+            except ServerOverloaded:
+                rec = dict(tag, t0=t0, t1=time.perf_counter(), ok=False)
+            except Exception as e:  # a lost request: the phase fails
+                with self.lock:
+                    self.failures.append(f"{phase}: {type(e).__name__}: {e}")
+                continue
+            with self.lock:
+                self.records.append(rec)
+
+    def start(self):
+        for t in self.threads:
+            t.start()
+        return self
+
+    def stop(self):
+        self.halt.set()
+        for t in self.threads:
+            t.join(FLEET_DEADLINE_S + 30)
+
+    def done(self, pred=lambda r: True):
+        with self.lock:
+            return [r for r in self.records if pred(r)]
+
+    def window(self, t0, t1):
+        """Requests a second answered in ``[t0, t1]``, and their latency."""
+        recs = self.done(lambda r: r["ok"] and t0 <= r["t1"] <= t1)
+        return len(recs) / (t1 - t0), _latency(recs)
+
+
+def _latency(records):
+    lat = sorted((r["t1"] - r["t0"]) * 1e3 for r in records if r["ok"])
+    if not lat:
+        return None
+    return {"n": len(lat), "p50": lat[len(lat) // 2],
+            "p99": lat[min(int(len(lat) * 0.99), len(lat) - 1)]}
+
+
+def _wait(pred, what, timeout=FLEET_WAIT_S, every=0.1):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        got = pred()
+        if got:
+            return got
+        time.sleep(every)
+    raise AssertionError(f"fleet: timed out after {timeout:.0f} s waiting for {what}")
+
+
+def _events(stream, kind):
+    """The ``kind`` records of one replica's quality events."""
+    return [r for r in load_quality_events(stream) if r.get("event") == kind]
+
+
+def _fleet_artifacts(workdir, graphs, cfg, device, size):
+    """The phase's v2 checkpoints, each from a ``TrainState`` (weights from a
+    seed, BatchNorm statistics from a numpy seed): ``v1`` (seed 0), ``v2``
+    (seed 1), ``broken`` (v2's file read through
+    ``HYDRAGNN_FAULT_CORRUPT_CANDIDATE``'s byte-flipped copy), the canary's
+    ``close`` (v2 with relative noise) and ``other`` (seed 2); the samples'
+    pickle and the fleet spec."""
+    ckdir = workdir / "ck"
+    models = {}
+    for name, seed in (("v1", 0), ("v2", 1), ("other", 2)):
+        model = create_model_config(cfg, device=device, aggregation="fused", seed=seed)
+        set_bn_stats(model, seed=seed)
+        models[name] = model
+    close = copy.deepcopy(models["v2"])
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    with torch.no_grad():
+        for p in close.parameters():
+            noise = torch.randn(p.shape, generator=gen).to(p.device)
+            p.mul_(1.0 + FLEET_CANARY_NOISE * noise)
+    models["close"] = close
+    for name, model in models.items():
+        save_model(TrainState(model=model, optimizer=select_optimizer(TRAIN_CONFIG, model)),
+                   name, path=str(ckdir))
+    real = str(ckdir / "v2" / "v2.pk")
+    old = os.environ.get("HYDRAGNN_FAULT_CORRUPT_CANDIDATE")
+    os.environ["HYDRAGNN_FAULT_CORRUPT_CANDIDATE"] = "all"
+    try:
+        flipped = faults.corrupt_candidate(real)
+    finally:
+        if old is None:
+            del os.environ["HYDRAGNN_FAULT_CORRUPT_CANDIDATE"]
+        else:
+            os.environ["HYDRAGNN_FAULT_CORRUPT_CANDIDATE"] = old
+    (ckdir / "broken").mkdir()
+    os.replace(flipped, ckdir / "broken" / "broken.pk")
+    samples = workdir / "samples.pkl"
+    with open(samples, "wb") as f:
+        pickle.dump(list(graphs), f)
+    plan_kw = {"max_batch_graphs": size["batch"], "num_buckets": 3}
+    spec = {"checkpoint": {"name": "v1", "path": str(ckdir)}, "arch": cfg, "model_name": "pna",
+            "samples": str(samples), "plan": plan_kw,
+            "server": {"max_wait_s": 0.005, "queue_capacity": 256}}
+    if device.type == "cpu":
+        spec["device"] = "cpu"  # absent: the replicas serve on the card or refuse to start
+    spec_path = workdir / "spec.json"
+    spec_path.write_text(json.dumps(spec))
+    return ckdir, str(spec_path), plan_kw
+
+
+def _fleet_references(ckdir, graphs, cfg, plan_kw, device):
+    """Every weights' answers to every graph (and ``close``'s to the graphs
+    shifted as the autoscaled replica shifts them) from an in-process
+    server on the phase's device and the replicas' plan; the forwards'
+    launches and the direct predict's latency (``v1``, one request at a
+    time)."""
+    registry = ModelRegistry()
+    for name in ("v1", "v2", "close", "other"):
+        registry.load_checkpoint(name, arch_config=cfg, path=str(ckdir), device=device)
+    plan = plan_from_samples(graphs, **plan_kw)
+    shifted = []
+    for g in graphs:
+        s = g.clone()
+        s.x, s.pos = s.x * FLEET_SHIFT, s.pos * FLEET_SHIFT
+        shifted.append(s)
+    reset_launch_counts()
+    with InferenceServer(registry, plan, queue_capacity=1024, device=device) as server:
+        futures = {name: [server.submit(g, model=name) for g in graphs]
+                   for name in ("v1", "v2", "close", "other")}
+        futures["close_shifted"] = [server.submit(g, model="close") for g in shifted]
+        refs = {name: [f.result(FLEET_WAIT_S) for f in fs] for name, fs in futures.items()}
+        direct = []
+        for g in graphs[:FLEET_OVERHEAD_REQUESTS]:
+            t0 = time.perf_counter()
+            server.predict(g, model="v1", timeout=FLEET_DEADLINE_S)
+            direct.append((t0, time.perf_counter()))
+    counts = launch_counts()
+    return refs, counts, plan.num_buckets, _latency([{"ok": True, "t0": a, "t1": b}
+                                                      for a, b in direct])
+
+
+def _device_work(coord_dir, cfg, device, problems):
+    """Each replica's and canary's final (``done``) lease under
+    ``coord_dir``: its micro-batches, its captures and its kernels'
+    launches, counted in its own process from 0. A batch replays one
+    forward and a capture runs one eager warm-up, so on the card each
+    process must have launched (batches + compiles) times one forward's
+    kernels (:func:`launches_per_forward`: K3 once a conv layer, K1 once),
+    and on the CPU none. A killed incarnation's lease is overwritten by
+    its successor's and is not read. Returns ``({member: its work},
+    {kernel: launches summed})``."""
+    per_forward = launches_per_forward(cfg, "fused")
+    rows, total = {}, {k: 0 for k in KERNELS}
+    for kind in (fleet_mod.REPLICA, fleet_mod.CANARY):
+        for path in sorted((coord_dir / f"{kind}s").glob(f"{kind}-*.json")):
+            lease = coord.read_json(str(path)) or {}
+            member = f"{kind} {lease.get('replica')} incarnation {lease.get('gen')}"
+            if not lease.get("done") or "launches" not in lease:
+                problems.append(f"{path.name}: no final lease with its device work")
+                continue
+            forwards = lease["batches"] + lease["compiles"]
+            want = {k: forwards * v if device.type == "cuda" else 0
+                    for k, v in per_forward.items()}
+            got = {k: int(lease["launches"].get(k, 0)) for k in KERNELS}
+            rows[member] = {"batches": lease["batches"], "compiles": lease["compiles"],
+                            "launches": {k: v for k, v in got.items() if v or want[k]}}
+            if got != want or lease["batches"] == 0:
+                problems.append(f"{member}: {lease['batches']} batches and {lease['compiles']} "
+                                f"compiles launched {got}, expected {want}")
+            for k in KERNELS:
+                total[k] += got[k]
+    return rows, total
+
+
+def _hold_answers(load, refs, sources, shifted_replica):
+    """Every answer against its version's in-process forward (the lease's
+    checkpoint behind the (replica, version) it names), within K1's and
+    K3's tolerance ``1e-5 * (max |answer| + 1)`` a head
+    (``segment_kernels.atomic_tolerance``); the autoscaled replica's
+    shifted requests against the shifted graphs' forward. Returns
+    ``(answers held, shifted among them, worst error over its tolerance,
+    {weights: answers})``."""
+    held = shifted = 0
+    worst = 0.0
+    by_weights = {}
+    for r in load.done(lambda r: r["ok"]):
+        source = sources.get((r["replica"], r["version"]))
+        if source is None:
+            raise AssertionError(f"fleet: no lease named replica {r['replica']}'s "
+                                 f"version {r['version']}")
+        name = os.path.basename(source)
+        cands = [refs[name][r["graph"]]]
+        if r["replica"] == shifted_replica and name == "close":
+            cands.append(refs["close_shifted"][r["graph"]])
+        ratios = []
+        for want in cands:
+            ratio = 0.0
+            for got, w in zip(r["heads"], want):
+                if got.shape != w.shape or not np.isfinite(got).all():
+                    ratio = np.inf
+                    break
+                tol = atomic_tolerance(torch.from_numpy(np.asarray(w, np.float32)))
+                ratio = max(ratio, float(np.abs(got - w).max()) / tol)
+            ratios.append(ratio)
+        best = min(ratios)
+        if best > 1.0:
+            raise AssertionError(f"fleet: replica {r['replica']} v{r['version']} ({name}) "
+                                 f"graph {r['graph']}: error {best:.3g} times the tolerance")
+        worst = max(worst, best)
+        held += 1
+        shifted += int(len(ratios) == 2 and ratios[1] < ratios[0])
+        by_weights[name] = by_weights.get(name, 0) + 1
+    return held, shifted, worst, by_weights
+
+
+def phase_fleet(graphs, device, card, size, workdir=None):
+    """The serving fleet on the card (module docstring, phase 4): two
+    replica processes of ``python -m hydragnn_tpu_torch.serve.fleet`` (PNA at
+    ``MXU_HEADLINE``'s width, ``fused``), a ``FleetRouter`` in this process
+    under :data:`FLEET_CLIENTS` closed-loop clients, through a steady state,
+    a SIGKILL, a hot-swap, a corrupt candidate, a canary that rejects one
+    candidate and promotes another, an autoscaler tick and a drift alert;
+    then the CLI's supervisor (:func:`_fleet_cli`).
+    Returns the kernel launches of every replica and canary process,
+    read from their final leases (:func:`_device_work`); this process's
+    reference forwards are reported apart."""
+    t_run = time.perf_counter()
+    workdir = pathlib.Path(workdir or _build.REPO_ROOT / "build" / "chip_smoke" / "fleet")
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    cfg = arch(size, "PNA")
+    saved_env = {k: os.environ.get(k) for k in ("HYDRAGNN_AGG", "PYTHONPATH")}
+    # the replicas, the canaries and this process's references run `fused`
+    os.environ["HYDRAGNN_AGG"] = "fused"
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(_build.REPO_ROOT), saved_env["PYTHONPATH"]) if p)
+    problems = []
+    try:
+        ckdir, spec_path, plan_kw = _fleet_artifacts(workdir, graphs, cfg, device, size)
+        refs, counts, num_buckets, direct = _fleet_references(ckdir, graphs, cfg, plan_kw, device)
+        if device.type == "cuda" and not (counts["fused_gather_moments"] and counts["segment_sum"]):
+            problems.append(f"the reference forwards launched {counts}")
+        # the rejected candidate must fail the MAE gate by a margin
+        gates = CanaryGates.from_env()
+        other_mae = []
+        for h in range(2):
+            live = np.concatenate([np.ravel(a[h]) for a in refs["v2"]]).astype(np.float64)
+            other = np.concatenate([np.ravel(a[h]) for a in refs["other"]]).astype(np.float64)
+            tol = max(gates.head_mae_tol, gates.head_mae_rel_tol * float(np.abs(live).mean()))
+            other_mae.append(float(np.abs(other - live).mean()) / tol)
+        if max(other_mae) < 2.0:
+            raise AssertionError(f"fleet: seed 2's weights sit within {max(other_mae):.2f}x the "
+                                 "canary's MAE gate of v2's: no rejection to show")
+        result = _run_fleet(workdir, ckdir, spec_path, graphs, cfg, refs, num_buckets, direct,
+                            gates, problems, device)
+        result["cli"] = _fleet_cli(workdir, spec_path, graphs, cfg, refs, problems, device)
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    launched = {k: result["launches"][k] + result["cli"]["launches"][k] for k in KERNELS}
+    result.update(card=card, launches=launched, reference_launches=counts,
+                  other_mae_over_gate=other_mae, wall_s=time.perf_counter() - t_run,
+                  problems=problems)
+    emit({"fleet": result})
+    if problems:
+        raise AssertionError(f"fleet: {problems}")
+    return launched
+
+
+def _fleet_cli(workdir, spec_path, graphs, cfg, refs, problems, device):
+    """The supervisor as users start it: ``python -m
+    hydragnn_tpu_torch.serve.fleet --spec --dir --replicas`` in its own
+    process, until both replicas serve; one routed answer per replica held
+    against ``v1``'s forward; SIGTERM, then a clean exit with every lease
+    released, and the replicas' device work (:func:`_device_work`)."""
+    coord_dir = workdir / "cli"
+    cmd = [sys.executable, "-m", "hydragnn_tpu_torch.serve.fleet", "--spec", spec_path,
+           "--dir", str(coord_dir), "--replicas", str(FLEET_REPLICAS)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd)
+    try:
+        _wait(lambda: (coord.read_json(str(coord_dir / "fleet.json")) or {}).get("live")
+              == FLEET_REPLICAS or proc.poll() is not None, "the CLI's replicas")
+        if proc.poll() is not None:
+            raise AssertionError(f"fleet: the CLI exited with {proc.returncode}")
+        out = {"serving_s": time.perf_counter() - t0}
+        router = FleetRouter(str(coord_dir), max_attempts=6, retry_base_delay_s=0.05)
+        seen = set()
+        for i in range(4 * FLEET_REPLICAS):
+            raw = router.route(graphs[i], deadline_s=FLEET_DEADLINE_S, raw=True)
+            seen.add(raw["replica"])
+            for got, want in zip(raw["heads"], refs["v1"][i]):
+                got = np.asarray(got, np.float32)
+                tol = atomic_tolerance(torch.from_numpy(np.asarray(want, np.float32)))
+                if got.shape != want.shape or float(np.abs(got - want).max()) > tol:
+                    problems.append(f"the CLI's replica {raw['replica']} answered graph {i} off")
+        out["replicas_answered"] = sorted(seen)
+        proc.send_signal(signal.SIGTERM)
+        out["exit_code"] = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+    leases = [coord.read_json(str(p)) for p in sorted((coord_dir / "replicas").glob("*.json"))]
+    out["leases_done"] = [bool(lease and lease.get("done")) for lease in leases]
+    if out["exit_code"] != 0 or len(seen) != FLEET_REPLICAS or not all(out["leases_done"]):
+        problems.append(f"the CLI: {out}")
+    out["device_work"], out["launches"] = _device_work(coord_dir, cfg, device, problems)
+    return out
+
+
+def _run_fleet(workdir, ckdir, spec_path, graphs, cfg, refs, num_buckets, direct, gates,
+               problems, device):
+    coord_dir = workdir / "coord"
+    env = {"HYDRAGNN_AGG": "fused", "PYTHONPATH": os.environ["PYTHONPATH"]}
+    env.update({f"HYDRAGNN_DRIFT_{k}": str(v) for k, v in FLEET_DRIFT.items()})
+    fleet = ServingFleet(str(coord_dir), FLEET_REPLICAS, spec_path=spec_path, env=env,
+                         log_dir=str(workdir / "log"))
+    watch = _LeaseWatch(coord_dir, fleet)
+    controller = load = None
+    out = {"config": "MXU_HEADLINE's width: PNA hidden %d, %d conv layers, fused, f32"
+                     % (cfg["hidden_dim"], cfg["num_conv_layers"]),
+           "replicas": FLEET_REPLICAS, "clients": FLEET_CLIENTS, "num_buckets": num_buckets,
+           "drift_knobs": FLEET_DRIFT}
+    try:
+        watch.start()
+        t0 = time.perf_counter()
+        fleet.start(wait_serving=True, timeout=FLEET_WAIT_S)
+        out["fleet_boot_s"] = time.perf_counter() - t0
+        if fleet.health()["live"] != FLEET_REPLICAS:
+            raise AssertionError(f"fleet: {fleet.health()} after {FLEET_WAIT_S} s")
+        router = FleetRouter(str(coord_dir), max_attempts=6, retry_base_delay_s=0.05)
+        # the router's own cost: sequential requests on an idle fleet against
+        # the in-process server's direct predict of the same graphs
+        seq = []
+        for g in graphs[:FLEET_OVERHEAD_REQUESTS]:
+            a = time.perf_counter()
+            router.route(g, deadline_s=FLEET_DEADLINE_S)
+            seq.append({"ok": True, "t0": a, "t1": time.perf_counter()})
+        routed = _latency(seq)
+        out["router_overhead_ms"] = {"routed": routed, "direct_predict": direct,
+                                     "p50_difference": routed["p50"] - direct["p50"]}
+        pinned = _PinnedRouter(str(coord_dir), 0, max_attempts=6, retry_base_delay_s=0.05)
+        load = _FleetLoad({"all": router, "one": pinned}, graphs,
+                          max(FLEET_SWEEP + (FLEET_CLIENTS,)), 100)
+        load.active = FLEET_SWEEP[0]
+        load.start()
+
+        # 1. steady state: at each client count, 2 replicas, then 1 (the
+        # pinned router); a second's settling before each window
+        out["requests_per_s"], out["steady_latency_ms"] = {}, {}
+        for clients in FLEET_SWEEP:
+            load.active = clients
+            for route_by, replicas in (("all", "2"), ("one", "1")):
+                load.route_by = route_by
+                time.sleep(1.0)
+                a = time.perf_counter()
+                time.sleep(FLEET_WINDOW_S)
+                rps, lat = load.window(a, time.perf_counter())
+                out["requests_per_s"].setdefault(str(clients), {})[replicas] = rps
+                out["steady_latency_ms"].setdefault(str(clients), {})[replicas] = lat
+        load.active, load.route_by = FLEET_CLIENTS, "all"
+        rps2 = out["requests_per_s"][str(FLEET_CLIENTS)]["2"]
+
+        # 2. SIGKILL replica 1 mid-load: detected, respawned at incarnation 1
+        load.phase = "kill"
+        os.kill(fleet.replica_pid(1), signal.SIGKILL)
+        t_kill = time.perf_counter()
+        _wait(lambda: fleet.metrics.snapshot()["replica_respawns_total"] >= 1, "the respawn")
+        out["kill"] = {"heal_s": time.perf_counter() - t_kill,
+                       "incarnation": fleet._replicas[1].incarnation,
+                       "last_recovery_seconds": fleet.metrics.snapshot()["last_recovery_seconds"]}
+        if fleet._replicas[1].incarnation != 1:
+            problems.append(f"replica 1 at incarnation {fleet._replicas[1].incarnation}")
+        time.sleep(1.0)
+
+        # 3. hot-swap promote to v2 under load
+        load.phase = "swap"
+        t_swap = time.perf_counter()
+        res = fleet.promote("v2", path=str(ckdir), arch_config=cfg, name="pna",
+                            timeout=FLEET_WAIT_S)
+        t_swapped = time.perf_counter()
+        out["promote_v2"] = {"status": res["status"], "propagated": res.get("propagated"),
+                             "s": t_swapped - t_swap,
+                             "compiles": {rid: {"first_pass": a.get("compiles"),
+                                                "later_passes": a.get("later_pass_compiles")}
+                                          for rid, a in res.get("acks", {}).items()}}
+        if res["status"] != "promoted" or not res.get("propagated"):
+            raise AssertionError(f"fleet: the v2 promote {res}")
+        if any(a.get("compiles") != num_buckets or a.get("later_pass_compiles") != 0
+               for a in res["acks"].values()):
+            problems.append(f"promote compiles {res['acks']}, expected {num_buckets} each, "
+                            "then 0")
+        time.sleep(1.0)
+
+        # 4. the corrupt candidate rolls back loudly; v2 keeps serving
+        load.phase = "corrupt"
+        res2 = fleet.promote("broken", path=str(ckdir), arch_config=cfg, name="pna",
+                             timeout=FLEET_WAIT_S)
+        out["promote_broken"] = {"status": res2["status"], "reason": res2.get("reason")}
+        if res2["status"] != "rolled_back" or "corrupt" not in (res2.get("reason") or ""):
+            problems.append(f"the corrupt candidate: {res2}")
+        time.sleep(1.0)
+
+        # 5. the canary: a far candidate rejected, a close one promoted
+        load.phase = "canary"
+        channel = CandidateChannel(str(workdir / "chan"))
+        controller = CanaryController(fleet, channel, spec_path, gates=gates, poll_s=0.05,
+                                      boot_timeout_s=FLEET_WAIT_S, promote_timeout_s=FLEET_WAIT_S)
+        controller.attach(router)
+        controller.start()
+        decisions = []
+        for name in ("other", "close"):
+            man = channel.publish(name, str(ckdir))
+            dec = controller.wait_decision(man["seq"], timeout=2 * FLEET_WAIT_S)
+            dec["latency_ratio"] = controller.metrics.snapshot().get("latency_ratio")
+            decisions.append(dec)
+        t_canary = time.perf_counter()
+        controller.stop()
+        out["canary"] = decisions
+        if decisions[0]["verdict"] != "rejected" or "head_mae" not in decisions[0]["reason"]:
+            problems.append(f"the far candidate: {decisions[0]}")
+        if decisions[1]["verdict"] != "promoted":
+            problems.append(f"the close candidate: {decisions[1]}")
+
+        # 6. one autoscaler tick under load adds a replica
+        load.phase = "autoscale"
+        w = FLEET_DRIFT["WINDOW"]
+        fleet.extra_env.update(HYDRAGNN_FAULT_SHIFT_INPUTS=f"{w}:{3 * w}@{FLEET_SHIFT}",
+                               HYDRAGNN_FAULT_SHIFT_REPLICA=str(FLEET_REPLICAS))
+        policy = AutoscalePolicy(min_replicas=1, max_replicas=FLEET_REPLICAS + 1,
+                                 capacity_rps=max(rps2 / 3.0, 1e-3))
+        scaler = FleetAutoscaler(fleet, router.autoscale_signals, policy=policy)
+        scaler.tick()
+        time.sleep(2.0)
+        decision = scaler.tick()
+        out["autoscale"] = decision
+        if fleet.target != FLEET_REPLICAS + 1:
+            raise AssertionError(f"fleet: the autoscaler's tick {decision}")
+        _wait(lambda: load.done(lambda r: r["ok"] and r["replica"] == FLEET_REPLICAS),
+              "an answer from the new replica")
+
+        # 7. drift on the new replica: its shifted windows raise, clean ones clear
+        load.phase = "drift"
+        stream = str(coord_dir / f"events-replica{FLEET_REPLICAS}.jsonl")
+
+        def statuses():
+            return {a["status"] for a in _events(stream, "drift_alert")}
+
+        _wait(lambda: statuses() == {"raised", "cleared"}, "the drift alert raised and cleared")
+        time.sleep(0.5)
+        load.stop()
+        t_end = time.perf_counter()
+
+        done = load.done()
+        ok = [r for r in done if r["ok"]]
+        retried = int(router.fleet_metrics.snapshot()["retries_total"])
+        out["requests"] = {"submitted": len(done) + len(load.failures), "succeeded": len(ok),
+                           "shed": len(done) - len(ok), "failed": len(load.failures),
+                           "retried": retried, "availability": len(ok) / max(len(done), 1)}
+        if load.failures:
+            problems.append(f"{len(load.failures)} lost requests: {load.failures[:3]}")
+        # steady: the windows at FLEET_CLIENTS clients, through 2 replicas and 1
+        out["latency_ms"] = {p: _latency(load.done(
+            lambda r, p=p: r["phase"] == p and (p != "steady" or r["clients"] == FLEET_CLIENTS)))
+            for p in ("steady", "kill", "swap", "canary", "drift")}
+        # no micro-batch mixes versions: one version per (replica, batch) in the swap
+        mixed = {}
+        for r in load.done(lambda r: r["ok"] and r["phase"] == "swap"):
+            mixed.setdefault((r["replica"], r["batch_seq"]), set()).add(r["version"])
+        if any(len(v) > 1 for v in mixed.values()):
+            problems.append("a micro-batch mixed versions")
+        held, shifted, worst, by_weights = _hold_answers(load, refs, watch.sources, FLEET_REPLICAS)
+        out["answers"] = {"held": held, "shifted_held": shifted, "by_weights": by_weights,
+                          "worst_error_over_tolerance": worst}
+        # the weights each stretch may answer from: v1 before the swap, v2
+        # (or the close candidate, once its swap starts) after it, then close
+        for r in load.done(lambda r: r["ok"]):
+            name = os.path.basename(watch.sources[(r["replica"], r["version"])])
+            allowed = ({"v1"} if r["t1"] < t_swap else {"v2", "close"}
+                       if t_swapped < r["t0"] < t_canary else {"close"}
+                       if r["t0"] > t_canary else {"v1", "v2", "close"})
+            if name not in allowed:
+                problems.append(f"a {r['phase']} answer from {name}")
+                break
+        if shifted < 2 * w:
+            problems.append(f"{shifted} shifted answers held, expected {2 * w} or more")
+        keys = ("feature", "head", "kind", "score", "status", "version")
+        out["drift"] = {
+            "replica": FLEET_REPLICAS, "windows": len(_events(stream, "drift_window")),
+            "alerts": [{k: a[k] for k in keys} for a in _events(stream, "drift_alert")],
+            # the others' alerts: a promote's reference holds the old version's answers
+            "other_replicas_alerts": {
+                p.name: [{k: a[k] for k in keys} for a in _events(str(p), "drift_alert")]
+                for p in sorted(coord_dir.glob("events-replica*.jsonl")) if str(p) != stream}}
+        fleet.emit("fleet_report", submitted=out["requests"]["submitted"],
+                   succeeded=len(ok), availability=round(out["requests"]["availability"], 6),
+                   shed=out["requests"]["shed"], retried=retried,
+                   p50_ms=out["latency_ms"]["steady"]["p50"],
+                   p99_ms=out["latency_ms"]["steady"]["p99"],
+                   kill_heal_s=round(out["kill"]["heal_s"], 3))
+        out["load_s"] = t_end - t0
+    finally:
+        if load is not None:
+            load.stop()
+        if controller is not None:
+            controller.stop()
+        fleet.stop()
+        watch.halt.set()
+        watch.join(5)
+    out["device_work"], out["launches"] = _device_work(coord_dir, cfg, device, problems)
+    out["boot_s"] = watch.boot_s()
+    out["canary_boot_s"] = {}
+    out["heartbeat_gap_max_s"] = {"s": watch.gap[0], "lease": watch.gap[1]}
+    # the whole event stream: the supervisor's (the controller emits there
+    # too), every replica's and every canary's
+    recs = validate_events(str(workdir / "log" / "events.jsonl"), require=[
+        "replica_lost", "replica_respawned", "fleet_degraded", "model_promoted",
+        "model_rollback", "canary_started", "canary_rejected", "canary_promoted",
+        "fleet_scaled", "fleet_report"])
+    for ev in recs:
+        if ev["event"] == "replica_respawned":
+            out["kill"]["downtime_s"] = ev["downtime_s"]
+        if ev["event"] == "canary_started":
+            key = str(ev["candidate"])
+            first = watch.first_serving.get((fleet_mod.CANARY, ev["candidate"], 0))
+            out["canary_boot_s"][key] = None if first is None else first - ev["ts"]
+    streams = sorted(coord_dir.glob("events-*.jsonl"))
+    for p in streams:
+        validate_events(str(p))
+    out["event_streams"] = [p.name for p in streams]
+    out["events"] = {k: sum(1 for r in recs if r["event"] == k) for k in sorted(
+        {r["event"] for r in recs})}
+    lost = [r for r in recs if r["event"] == "replica_lost"]
+    if [r["replica"] for r in lost] != [1] or lost[0]["reason"] != "exit_-9":
+        problems.append(f"replica_lost events {lost}")
+    return out
 
 
 # ---- phase 5 ----------------------------------------------------------------
@@ -3211,6 +3895,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="tiny size on the CPU through the plain versions; no success line")
+    ap.add_argument("--only-fleet", action="store_true",
+                    help="phases 1, 2 and the serving fleet (phase_fleet) only; no success line")
+    ap.add_argument("--workdir", default=None,
+                    help="the fleet phase's files (default build/chip_smoke/fleet)")
     ap.add_argument("--step1-bucket", action="store_true",
                     help="hold the last four stacks' step 1 on the plan's smallest bucket, not "
                          f"on the training batch's first {NEW_STEP1_GRAPHS} graphs (past the "
@@ -3226,6 +3914,11 @@ def main(argv=None):
         device, size = torch.device("cuda"), FULL
 
     graphs = make_graphs(size["graphs"], size["nodes"], size["degree"], seed=0)
+    if args.only_fleet:
+        add_fleet = phase_fleet(graphs[:SERVE_REQUESTS], device, card, size, args.workdir)
+        print(f"only the fleet: the replicas' and canaries' launches {add_fleet}; "
+              f"wall {time.perf_counter() - t_start:.1f} s; no success line", flush=True)
+        return 0
     plan = plan_from_samples(graphs, max_batch_graphs=size["batch"], num_buckets=3)
     for lay in plan.layouts:
         print(f"bucket: n_pad {lay.n_pad} e_pad {lay.e_pad} g_pad {lay.g_pad}", flush=True)
@@ -3297,6 +3990,8 @@ def main(argv=None):
     lap("serve (GAT, MFC, CGCNN, DimeNet)")
     add(phase_serve_tenancy(plan, graphs[:SERVE_REQUESTS], device, card, size))
     lap("serve (tenants, cache, costs, scorer, tracing)")
+    add(phase_fleet(graphs[:SERVE_REQUESTS], device, card, size, args.workdir))
+    lap("serve fleet (replicas, router, hot-swap, canary, autoscaler, drift)")
 
     set_targets(graphs, seed=1)
     set_targets(cg_graphs, seed=1)

@@ -8,8 +8,10 @@ Every line is one JSON object with a fixed envelope::
 plus the payload fields of the event's type in :data:`EVENT_FIELDS`. The
 port keeps the schema of the kinds it emits: ``span`` (request tracing,
 ``obs/trace.py``), ``quota_adjusted`` (the cost ledger's feedback,
-``serve/costs.py``), ``tenant_cost``, ``cache_stats`` and the run manifest;
-the JAX package's ``validate_events`` reads the streams the port writes.
+``serve/costs.py``), ``tenant_cost``, ``cache_stats``, the run manifest,
+and the serving fleet's (``serve/fleet.py``, ``router.py``, ``canary.py``,
+``autoscale.py``, ``obs/drift.py``); the JAX package's ``validate_events``
+reads the streams the port writes, and the port's reads the JAX package's.
 Unknown event types are allowed (a newer writer must not break an older
 validator); a known type missing a required field is a schema violation.
 
@@ -23,7 +25,7 @@ import math
 import os
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 SCHEMA_VERSION = 1
 
@@ -52,6 +54,50 @@ EVENT_FIELDS: Dict[str, tuple] = {
     # window — device_s attributed device wall-time, replica_s the
     # integrated replica-seconds the rows (plus idle) sum to
     "tenant_cost": ("tenant", "device_s", "flops", "requests", "replica_s"),
+    # serving fleet (serve/fleet.py): a replica's process exited or its
+    # lease went stale (reason exit_<rc>, lease_expired, boot_timeout)
+    "replica_lost": ("replica", "reason"),
+    # the supervisor respawned a lost replica and its new incarnation
+    # reported serving; downtime_s spans detection to the serving lease
+    "replica_respawned": ("replica", "downtime_s"),
+    # hot-swap: a candidate warmed on every live replica (per bucket,
+    # compile-counter verified) was published as the active version
+    "model_promoted": ("name", "version"),
+    # hot-swap: a candidate was refused (strict load, warm-up, ack
+    # timeout) or the operator rolled back; the old version kept serving
+    "model_rollback": ("name", "reason"),
+    # live replicas dropped below the target (the router's shed trigger)
+    "fleet_degraded": ("live", "target"),
+    # a load generator's measured traffic window: availability is
+    # succeeded / submitted logical requests
+    "fleet_report": ("submitted", "succeeded", "availability"),
+    # the training side published a candidate snapshot into the channel
+    # (serve/registry.py CandidateChannel); candidate is the channel seq
+    "candidate_published": ("candidate", "checkpoint"),
+    # canary controller (serve/canary.py): a candidate booted on a canary
+    # replica and entered shadow evaluation
+    "canary_started": ("candidate", "checkpoint"),
+    # every gate passed over the sample floor and the all-acked hot-swap
+    # promoted the candidate
+    "canary_promoted": ("candidate", "checkpoint", "samples"),
+    # the candidate was rejected before serving a live request; reason
+    # names the gate (nan_outputs, head_mae, latency, shadow_errors,
+    # crash_loop, insufficient_samples, superseded, hot_swap_rolled_back)
+    "canary_rejected": ("candidate", "checkpoint", "reason"),
+    # one per spec'd tenant at fleet start: who is packed with what quota
+    "tenant_admitted": ("tenant", "model", "quota"),
+    # the supervised replica target moved (reason slo_pressure, forecast,
+    # scale_down, manual)
+    "fleet_scaled": ("old_target", "new_target", "reason"),
+    # drift detector (obs/drift.py): one per tumbling window; scores maps
+    # "tenant|feature|head" to {psi, ks} against the version's reference
+    "drift_window": ("version", "window", "scores"),
+    # a feature's score crossed the hysteresis threshold (raised) or came
+    # back under it for clear_after windows (cleared)
+    "drift_alert": ("tenant", "feature", "head", "kind", "score", "status", "version"),
+    # a non-finite answer (a canary's NaN veto): scope the region, origin
+    # the first non-finite tensor, subtree its group, leaves/total counts
+    "nan_origin": ("scope", "origin", "subtree", "leaves", "total"),
 }
 
 _ENVELOPE = ("event", "ts", "seq")
@@ -181,6 +227,36 @@ class RunEventLog:
                     self._f.close()
                 finally:
                     self._f = None
+
+
+def iter_events(root: str) -> Iterator[Dict]:
+    """Every complete record under ``root``: one stream file, or a
+    directory searched recursively for ``events*.jsonl`` (the fleet's
+    layout: a stream per process), the streams in path order. Tolerant: a
+    blank, torn or unparseable line, a line that is not a record and an
+    unreadable stream are skipped (a live stream is read mid-write)."""
+    if os.path.isdir(root):
+        paths = sorted(
+            os.path.join(dirpath, fn)
+            for dirpath, _dirnames, filenames in os.walk(root)
+            for fn in filenames
+            if fn.startswith("events") and fn.endswith(".jsonl")
+        )
+    else:
+        paths = [root]
+    for path in paths:
+        try:
+            with open(path) as f:
+                lines = f.readlines()
+        except OSError:
+            continue
+        for line in lines:
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue
+            if isinstance(rec, dict) and "event" in rec:
+                yield rec
 
 
 def validate_events(

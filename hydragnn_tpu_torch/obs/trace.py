@@ -6,9 +6,10 @@ A traced request carries a :class:`TraceContext` (built from the
 or a :class:`RequestTrace` (the front door's buffer, :meth:`Tracer.start`).
 The port's single-replica server records ``queue_wait``, ``batch_form``,
 ``dispatch`` and ``readback`` for each traced rider of a batch, and
-``cache_lookup`` for a hit; the fleet router, which records ``route``,
-``admit``, ``cache_lookup``, ``backoff`` and ``attempt``, is not ported
-yet (``ROADMAP.md``, queue 1, item 5).
+``cache_lookup`` for a hit; the fleet router (``serve/router.py``) records
+``admit``, ``cache_lookup``, ``backoff`` and ``attempt`` and merges the
+replicas' spans under each attempt. :meth:`Tracer.from_env` reads the rate
+from ``HYDRAGNN_TRACE_SAMPLE``.
 
 - Spans are ``span`` events in a ``RunEventLog`` stream
   (``obs/events.py``); :func:`load_span_events`, :func:`build_traces`,
@@ -23,13 +24,14 @@ yet (``ROADMAP.md``, queue 1, item 5).
   path pays one ``is None`` check.
 """
 
-import json
 import os
 import threading
 import time
 from typing import Callable, Dict, List, Optional
 
+from hydragnn_tpu_torch.obs.events import iter_events
 from hydragnn_tpu_torch.obs.metrics import MetricsRegistry
+from hydragnn_tpu_torch.utils.envparse import env_float
 
 TRACE_HEADER = "X-Hydragnn-Trace"
 
@@ -248,6 +250,12 @@ class Tracer:
             "trace_spans_total", "Spans written to the event stream"
         )
 
+    @classmethod
+    def from_env(cls, emit: Optional[Callable] = None) -> "Tracer":
+        """The head-sample rate from ``HYDRAGNN_TRACE_SAMPLE`` (default 0:
+        off; SLO misses and errors flush at any non-zero rate)."""
+        return cls(sample=env_float("HYDRAGNN_TRACE_SAMPLE", 0.0, minimum=0.0), emit=emit)
+
     @property
     def enabled(self) -> bool:
         return self.sample > 0.0 and self.emit is not None
@@ -293,33 +301,9 @@ class Tracer:
 
 def load_span_events(root: str) -> List[Dict]:
     """Every ``span`` event under ``root`` (a directory searched
-    recursively for ``events*.jsonl``, or one stream file). Tolerant:
-    unparseable lines skip (a live server's stream is read mid-write)."""
-    paths: List[str] = []
-    if os.path.isfile(root):
-        paths = [root]
-    else:
-        for dirpath, _dirnames, filenames in os.walk(root):
-            for fn in sorted(filenames):
-                if fn.startswith("events") and fn.endswith(".jsonl"):
-                    paths.append(os.path.join(dirpath, fn))
-    spans: List[Dict] = []
-    for path in sorted(paths):
-        try:
-            with open(path) as f:
-                for line in f:
-                    line = line.strip()
-                    if not line:
-                        continue
-                    try:
-                        rec = json.loads(line)
-                    except ValueError:
-                        continue
-                    if rec.get("event") == "span" and rec.get("trace"):
-                        spans.append(rec)
-        except OSError:
-            continue
-    return spans
+    recursively for ``events*.jsonl``, or one stream file), read by
+    :func:`~hydragnn_tpu_torch.obs.events.iter_events`."""
+    return [rec for rec in iter_events(root) if rec["event"] == "span" and rec.get("trace")]
 
 
 def build_traces(spans: List[Dict]) -> Dict[str, Dict]:

@@ -17,8 +17,21 @@ observability endpoint::
 ``InferenceServer(tenants=TenantManager(...), cache=ResponseCache(),
 costs=CostLedger(), scorer=UncertaintyScorer(...))`` adds the rest of the
 single-replica server; ``submit(tenant=..., trace=...)``.
+
+The serving fleet: ``ServingFleet`` supervises replica processes
+(``ReplicaServer``, one ``InferenceServer`` each) through a coordination
+directory, ``FleetRouter`` routes to them, ``CanaryController`` proves
+published candidates on a canary replica and ``FleetAutoscaler`` resizes
+the fleet (``serve/fleet.py``, ``router.py``, ``canary.py``,
+``autoscale.py``)::
+
+    with ServingFleet(coord_dir, 2, spec_path="spec.json") as fleet:
+        router = FleetRouter(coord_dir)
+        heads = router.route(graph, deadline_s=1.0)
+        fleet.promote("candidate", path="logs/")
 """
 
+from hydragnn_tpu_torch.serve.autoscale import AutoscalePolicy, FleetAutoscaler, LoadForecast
 from hydragnn_tpu_torch.serve.buckets import (
     BucketCapacity,
     GraphTooLarge,
@@ -26,7 +39,9 @@ from hydragnn_tpu_torch.serve.buckets import (
     plan_from_samples,
 )
 from hydragnn_tpu_torch.serve.cache import ResponseCache, canonical_graph_key
+from hydragnn_tpu_torch.serve.canary import CanaryController, CanaryGates, CanaryMetrics
 from hydragnn_tpu_torch.serve.costs import CostLedger, merge_bills, price_per_million
+from hydragnn_tpu_torch.serve.fleet import FleetMetrics, ReplicaServer, ServingFleet
 from hydragnn_tpu_torch.serve.http import ObservabilityServer
 from hydragnn_tpu_torch.serve.metrics import LatencyHistogram, MetricsRegistry, ServeMetrics
 from hydragnn_tpu_torch.serve.quality import FeedbackSink, UncertaintyScorer
@@ -36,6 +51,7 @@ from hydragnn_tpu_torch.serve.registry import (
     ModelRegistry,
     publish_candidate,
 )
+from hydragnn_tpu_torch.serve.router import FleetRouter, NoLiveReplica, RetryBudget
 from hydragnn_tpu_torch.serve.server import (
     DeadlineExceeded,
     InferenceServer,
@@ -45,23 +61,35 @@ from hydragnn_tpu_torch.serve.server import (
 from hydragnn_tpu_torch.serve.tenants import TenantManager, TenantOverQuota, TenantSpec
 
 __all__ = [
+    "AutoscalePolicy",
     "BucketCapacity",
+    "CanaryController",
+    "CanaryGates",
+    "CanaryMetrics",
     "CandidateChannel",
     "CostLedger",
     "DeadlineExceeded",
     "FeedbackSink",
+    "FleetAutoscaler",
+    "FleetMetrics",
+    "FleetRouter",
     "GraphTooLarge",
     "InferenceServer",
     "LatencyHistogram",
+    "LoadForecast",
     "MetricsRegistry",
     "ModelEntry",
     "ModelRegistry",
+    "NoLiveReplica",
     "ObservabilityServer",
+    "ReplicaServer",
     "ResponseCache",
+    "RetryBudget",
     "ServeFuture",
     "ServeMetrics",
     "ServerOverloaded",
     "ServingBucketPlan",
+    "ServingFleet",
     "TenantManager",
     "TenantOverQuota",
     "TenantSpec",

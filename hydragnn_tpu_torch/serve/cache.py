@@ -35,6 +35,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from hydragnn_tpu_torch.utils.envparse import env_int
+
 
 _DIGEST_SIZE = 16  # BLAKE2b-128: plenty for a cache key, half the hashing cost
 
@@ -146,6 +148,26 @@ class ResponseCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+
+    @classmethod
+    def from_env(cls, spec: Optional[Dict] = None, metrics=None) -> Optional["ResponseCache"]:
+        """A cache from a fleet spec's ``cache`` section and the
+        ``HYDRAGNN_CACHE_*`` knobs (the environment wins), or None when
+        caching is off: ``HYDRAGNN_CACHE=0`` turns off a spec that enables
+        it, ``HYDRAGNN_CACHE=1`` turns it on with the defaults where no spec
+        does. ``HYDRAGNN_CACHE_CAPACITY`` and ``HYDRAGNN_CACHE_MAX_BYTES``
+        bound it."""
+        spec = dict(spec or {})
+        enabled = env_int("HYDRAGNN_CACHE", 1 if spec.get("enabled", bool(spec)) else 0)
+        if not enabled:
+            return None
+        return cls(
+            capacity=env_int("HYDRAGNN_CACHE_CAPACITY", int(spec.get("capacity", 1024)),
+                             minimum=1),
+            max_bytes=env_int("HYDRAGNN_CACHE_MAX_BYTES", int(spec.get("max_bytes", 64 << 20)),
+                              minimum=1),
+            metrics=metrics,
+        )
 
     @staticmethod
     def key(graph_key: str, model: str, version: int,

@@ -229,12 +229,22 @@ class UncertaintyScorer:
                    seed=env_int("HYDRAGNN_UNC_SEED", 0), registry=registry, device=device)
 
 
+_SINK_NOT_PORTED = ("FeedbackSink needs data/shard_store, which is not ported yet: see "
+                    "ROADMAP.md, queue 1, item 9")
+
+
 class FeedbackSink:
     """The JAX package's labelled-on-demand feedback sink persists graphs
     as ``data/shard_store`` packs, which the port does not have yet."""
 
     def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "FeedbackSink needs data/shard_store, which is not ported yet: see "
-            "ROADMAP.md, queue 1, item 9"
-        )
+        raise NotImplementedError(_SINK_NOT_PORTED)
+
+    @classmethod
+    def from_env(cls, emit=None) -> Optional["FeedbackSink"]:
+        """None while ``HYDRAGNN_FEEDBACK_DIR`` is unset (the sink off, as
+        in the JAX package); set, it raises ``NotImplementedError``: the
+        port cannot persist the packs yet."""
+        if not os.getenv("HYDRAGNN_FEEDBACK_DIR"):
+            return None
+        raise NotImplementedError(_SINK_NOT_PORTED)

@@ -30,8 +30,8 @@ Publication channel: :class:`CandidateChannel` is a file-backed queue of
 candidate checkpoint snapshots under one root directory, laid out as the
 JAX package lays it out, so that either package reads what the other
 published and pinned (:func:`publish_candidate`; a tenant spec with a
-``channel`` loads the pinned version). The canary controller that consumes
-it is not ported yet (``ROADMAP.md``, queue 1, item 5).
+``channel`` loads the pinned version). ``serve/canary.py``'s
+``CanaryController`` consumes it.
 """
 
 import dataclasses
@@ -46,6 +46,8 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+
+from hydragnn_tpu_torch import coord
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,23 +250,6 @@ class ModelRegistry:
 # ---- candidate publication channel -------------------------------------------
 
 
-def _write_json(path: str, obj: Dict):
-    """Atomic JSON write (tmp + rename): a reader never sees a torn file."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tmp = f"{path}.tmp.{os.getpid()}"
-    with open(tmp, "w") as f:
-        json.dump(obj, f)
-    os.replace(tmp, path)
-
-
-def _read_json(path: str) -> Optional[Dict]:
-    try:
-        with open(path) as f:
-            return json.load(f)
-    except (OSError, ValueError):
-        return None  # missing or mid-rename: the caller polls again
-
-
 class CandidateChannel:
     """File-backed train -> serve candidate queue under one root (the JAX
     package's layout)::
@@ -322,7 +307,7 @@ class CandidateChannel:
             "ts": time.time(),
         }
         manifest.update(meta)
-        _write_json(self.manifest_path(seq), manifest)
+        coord.write_json(self.manifest_path(seq), manifest)
         return manifest
 
     def _seqs(self) -> List[int]:
@@ -338,7 +323,7 @@ class CandidateChannel:
         return seqs[-1] if seqs else 0
 
     def read(self, seq: int) -> Optional[Dict]:
-        return _read_json(self.manifest_path(seq))
+        return coord.read_json(self.manifest_path(seq))
 
     def pending(self, after_seq: int = 0) -> List[Dict]:
         """Committed manifests with ``seq > after_seq``, oldest first."""
@@ -354,13 +339,13 @@ class CandidateChannel:
     def record_promotion(self, seq: int):
         """Pin ``seq`` as the active published version; the previously
         active one becomes the rollback base. Both survive :meth:`gc`."""
-        pins = _read_json(os.path.join(self.root, "promoted.json")) or {}
-        _write_json(os.path.join(self.root, "promoted.json"),
+        pins = coord.read_json(os.path.join(self.root, "promoted.json")) or {}
+        coord.write_json(os.path.join(self.root, "promoted.json"),
                     {"active_seq": int(seq), "base_seq": pins.get("active_seq"),
                      "ts": time.time()})
 
     def pinned(self) -> set:
-        pins = _read_json(os.path.join(self.root, "promoted.json")) or {}
+        pins = coord.read_json(os.path.join(self.root, "promoted.json")) or {}
         return {int(s) for s in (pins.get("active_seq"), pins.get("base_seq"))
                 if s is not None}
 

@@ -398,6 +398,16 @@ class InferenceServer:
                          and sum(deltas[1:]) == 0),
         }
 
+    def warm_tenant(self, tenant: str, timeout: float = 120.0, passes: int = 2) -> Dict[str, int]:
+        """:meth:`warm_version` of ``tenant``'s model's active version."""
+        if self.tenants is None:
+            raise ValueError("server has no TenantManager")
+        return self.warm_version(self.tenants.model_for(tenant), timeout=timeout, passes=passes)
+
+    def is_warm(self) -> bool:
+        """True once :meth:`warmup` captured every registered version."""
+        return self._warm
+
     def _submit_pinned(self, graph, entry: ModelEntry, bucket: int) -> ServeFuture:
         """Enqueue one request pinned to ``(entry, bucket)`` (the
         warm-version path), counted like any other request."""

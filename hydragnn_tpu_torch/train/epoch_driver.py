@@ -51,8 +51,20 @@ and a finite epoch commits; on chunks, a chunk whose last epoch is NaN
 without an early stop restores and runs again. Its counters go into
 ``train_meta``'s ``guard`` section and come back on resume.
 
-Candidate publication, elastic runs and plots raise where a config or the
-environment asks for them (``ROADMAP.md``, queue 1).
+Candidate publication (``publish_dir`` or ``HYDRAGNN_PUBLISH_DIR``): each
+resumable save is also snapshotted into the serving side's
+``CandidateChannel`` (``serve/registry.publish_candidate``) every
+``publish_every`` saves' epochs (``HYDRAGNN_PUBLISH_EVERY``, default 1;
+0: every save), keeping the newest ``publish_keep_last``
+(``HYDRAGNN_PUBLISH_KEEP``, default 4) besides the pinned ones, with the
+epoch and the validation loss in the manifest. With the async writer the
+snapshot rides the writer's queue behind the save, so only a durable
+checkpoint is published. A publish that fails with ``OSError`` is printed
+and the run goes on. The port's driver keeps no event stream: the manifest
+is the record (the JAX package also emits ``candidate_published``).
+
+Elastic runs and plots raise where a config or the environment asks for
+them (``ROADMAP.md``, queue 1).
 """
 
 import os
@@ -86,12 +98,44 @@ def _not_ported(what: str, item: int):
 
 
 def _check_supported(training: dict, create_plots: bool):
-    if os.getenv("HYDRAGNN_PUBLISH_DIR", training.get("publish_dir") or ""):
-        raise _not_ported("publish_dir (the canary's candidate channel)", 5)
     if os.getenv("HYDRAGNN_ELASTIC_DIR") or os.getenv("HYDRAGNN_HEARTBEAT_FILE"):
         raise _not_ported("elastic runs", 8)
     if create_plots:
         raise _not_ported("Visualization.create_plots", 7)
+
+
+def _candidate_publisher(training: dict, log_name: str, writer, verbosity: int):
+    """``publish(epoch, val_loss)`` for the run's resumable saves (module
+    docstring; JAX ``epoch_driver.py:174-238``), or None without a
+    ``publish_dir``."""
+    publish_dir = os.getenv("HYDRAGNN_PUBLISH_DIR", training.get("publish_dir") or "") or None
+    if publish_dir is None:
+        return None
+    every = int(os.getenv("HYDRAGNN_PUBLISH_EVERY", str(training.get("publish_every", 1))))
+    keep = int(os.getenv("HYDRAGNN_PUBLISH_KEEP", str(training.get("publish_keep_last", 4))))
+
+    def publish(epoch, val_loss=None):
+        if every > 0 and (epoch + 1) % every != 0:
+            return
+
+        def job():
+            from hydragnn_tpu_torch.serve.registry import publish_candidate
+
+            try:
+                publish_candidate(publish_dir, log_name, "./logs/", keep_last=keep,
+                                  epoch=int(epoch),
+                                  val_loss=None if val_loss is None else float(val_loss))
+            except OSError as e:
+                # an unwritable channel must not end a run that would finish
+                print_distributed(verbosity, f"candidate publish failed: {e}")
+
+        # behind the save on the writer's queue: only a durable file is copied
+        if writer is not None:
+            writer.submit(job)
+        else:
+            job()
+
+    return publish
 
 
 def build_train_meta(epoch, rng, scheduler, early, ckpt, guard=None, sched=None,
@@ -182,13 +226,17 @@ def train_validate_test(trainer, state, train_loader, val_loader, test_loader,
                                      f"(lr {scheduler.lr:.3e})")
         trainer.final_state_saved = start_epoch >= num_epoch
 
-    def save_resumable(epoch, sched=None):
+    publish = _candidate_publisher(training, log_name, writer, verbosity)
+
+    def save_resumable(epoch, sched=None, val_loss=None):
         meta = build_train_meta(epoch, rng, scheduler, early, ckpt, guard, sched,
                                 trainer.perm_generator.get_state())
         trainer.last_save = save_model(state, log_name, train_meta=meta, keep_last=keep_last,
                                        writer=writer)
         trainer.final_train_meta = meta
         trainer.final_state_saved = True
+        if publish is not None:
+            publish(epoch, val_loss)
 
     def log_epoch(epoch, train_loss, val_loss, test_loss, train_tasks, t_train, extra):
         print_distributed(
@@ -280,7 +328,7 @@ def train_validate_test(trainer, state, train_loader, val_loader, test_loader,
         stopping = early is not None and early(val_loss)
         if resume_every > 0 and ((epoch + 1) % resume_every == 0 or stopping
                                  or epoch == num_epoch - 1):
-            save_resumable(epoch)
+            save_resumable(epoch, val_loss=val_loss)
         log_epoch(epoch, train_loss, val_loss, test_loss, train_tasks, t_train, {
             "train_collate_s": collate_s, "epoch_s": time.time() - t0,
             "lr": float(get_learning_rate(state.optimizer))})
@@ -290,7 +338,7 @@ def train_validate_test(trainer, state, train_loader, val_loader, test_loader,
         if not check_remaining(time.time() - t0):
             # a wall-clock stop is when a resumable checkpoint matters
             if resume_every > 0 and not trainer.final_state_saved:
-                save_resumable(epoch)
+                save_resumable(epoch, val_loss=val_loss)
             print_distributed(verbosity, "Stopping: not enough job wall-clock time left")
             break
     drain_async()
@@ -354,7 +402,7 @@ def _fit_chunks(trainer, state, staged, train_loader, val_loader, test_loader, t
         epoch0 += n
         if resume_every > 0:
             mirror_sched(host, scheduler, early, series["lr"][n - 1])
-            save_resumable(epoch0 - 1, sched=host)
+            save_resumable(epoch0 - 1, sched=host, val_loss=series["val_loss"][n - 1])
         if bool(host["stopped"]):
             ep_stop = epoch0 - n + int(np.argmax(series["stopped"]))
             print_distributed(verbosity, f"Early stopping at epoch {ep_stop}")

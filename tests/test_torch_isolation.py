@@ -1,6 +1,7 @@
 """The port stands alone: ``hydragnn_tpu_torch`` and ``chip_smoke.py``
-import nothing of JAX, flax, optax or the JAX package, and the entry
-points refuse to run on the CPU unless asked to by name."""
+import nothing of JAX, flax, optax or the JAX package, the processes the
+fleet and the canary spawn run the port's module, and the entry points
+refuse to run on the CPU unless asked to by name."""
 
 import ast
 import os
@@ -39,7 +40,8 @@ def _port_files():
                 "parallel/distributed.py", "train/guard.py", "utils/envparse.py",
                 "obs/__init__.py", "obs/metrics.py", "obs/events.py", "obs/http.py",
                 "obs/trace.py", "obs/drift.py", "serve/http.py", "serve/cache.py",
-                "serve/tenants.py", "serve/costs.py", "serve/quality.py"):
+                "serve/tenants.py", "serve/costs.py", "serve/quality.py", "coord.py",
+                "serve/fleet.py", "serve/router.py", "serve/canary.py", "serve/autoscale.py"):
         assert REPO / "hydragnn_tpu_torch" / new in files
     return files
 
@@ -79,6 +81,9 @@ def pytest_importing_the_port_loads_no_jax():
         "import hydragnn_tpu_torch.ops.dense_agg, hydragnn_tpu_torch.ops.autotune\n"
         "import hydragnn_tpu_torch.train.driver, hydragnn_tpu_torch.data.loaders\n"
         "import hydragnn_tpu_torch.obs, hydragnn_tpu_torch.serve.quality\n"
+        "import hydragnn_tpu_torch.coord, hydragnn_tpu_torch.serve.fleet\n"
+        "import hydragnn_tpu_torch.serve.router, hydragnn_tpu_torch.serve.canary\n"
+        "import hydragnn_tpu_torch.serve.autoscale, hydragnn_tpu_torch.obs.drift\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'hydragnn_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -148,3 +153,47 @@ def pytest_serialized_unpickler_refuses_other_classes(tmp_path):
             pickle.dump([bad], f)
         with pytest.raises(pickle.UnpicklingError, match="refusing to load"):
             read_serialized(str(path))
+
+
+@pytest.mark.parametrize("who", ["fleet", "fleet_worker_cmd", "canary", "canary_controller"])
+def pytest_spawned_replicas_run_the_port(monkeypatch, tmp_path, who):
+    """``ServingFleet`` (its spawns, its resize and the command it keeps),
+    the canary's ``_SubprocessCanary`` and the ``CanaryController`` that
+    makes one spawn ``python -m hydragnn_tpu_torch.serve.fleet``, never the
+    JAX module; a canary is told its role, its id and its incarnation."""
+    from types import SimpleNamespace
+
+    from hydragnn_tpu_torch.serve import canary, fleet
+
+    seen = []
+
+    class _Proc:
+        pid = 1
+
+        def poll(self):
+            return 0
+
+    monkeypatch.setattr(subprocess, "Popen", lambda cmd, env: seen.append((cmd, env)) or _Proc())
+    if who in ("fleet", "fleet_worker_cmd"):
+        sup = fleet.ServingFleet(str(tmp_path), 2, spec_path="spec.json")
+        if who == "fleet":
+            sup._spawn(sup._replicas[0])
+            sup.resize(3)
+        else:
+            seen.append((sup.worker_cmd, None))
+        sup.events.close()
+    else:
+        if who == "canary":
+            canary._SubprocessCanary("spec.json", str(tmp_path), 3, 1, 0.25)
+        else:
+            spec = tmp_path / "spec.json"
+            spec.write_text("{}")
+            stub = SimpleNamespace(coord_dir=str(tmp_path), lease_s=2.0, spec_path=str(spec))
+            ctl = canary.CanaryController(stub, str(tmp_path / "chan"))
+            ctl._spawn_subprocess(str(spec), 3, 1)
+        ((_, env),) = seen
+        assert env["HYDRAGNN_FLEET_CANARY"] == "1" and env["HYDRAGNN_FLEET_REPLICA"] == "3"
+        assert env["HYDRAGNN_FLEET_GEN"] == "1" and env["HYDRAGNN_FLEET_DIR"] == str(tmp_path)
+    assert seen and all(cmd[:3] == [sys.executable, "-m", "hydragnn_tpu_torch.serve.fleet"]
+                        for cmd, _ in seen)
+    assert not any(part.startswith("hydragnn_tpu.") for cmd, _ in seen for part in cmd)

@@ -134,6 +134,45 @@ def _write_traces(pkg_events, pkg_trace, path):
     return tracer
 
 
+def pytest_one_tolerant_reader_under_spans_and_quality_events(tmp_path):
+    """``events.iter_events`` walks a fleet's tree of streams (nested, a
+    torn tail, blank and unparseable lines, a file that is no stream); the
+    span and quality loaders built on it read what the JAX package's read.
+    A line that parses but is no record is skipped too."""
+    root = tmp_path / "fleet"
+    (root / "log").mkdir(parents=True)
+    (root / "drift-replica0").mkdir()
+    _write_traces(events, trace, str(root / "log" / "events.jsonl"))
+    rng = np.random.default_rng(5)
+    kinds = ["drift_window", "drift_alert", "feedback_sink", "span", "fleet_report"]
+    streams = [root / "events-replica0.jsonl", root / "drift-replica0" / "events-canary1.jsonl",
+               root / "other.jsonl"]
+    whole = 0
+    for k, path in enumerate(streams):
+        with open(path, "w") as f:
+            for seq in range(8):
+                rec = {"event": kinds[int(rng.integers(len(kinds)))],
+                       "ts": float(rng.integers(0, 4)), "seq": seq, "replica": k}
+                if rec["event"] == "span":
+                    rec.update(trace=f"t{k}", span=f"s{seq}", name="dispatch", parent="p")
+                f.write(json.dumps(rec) + "\n")
+                f.write("\n" if seq % 3 else "not json\n")
+            f.write('{"event": "drift_alert", "ts": 9.0')  # a torn tail
+        whole += 8 * (path.name != "other.jsonl")
+    got = list(events.iter_events(str(root)))
+    assert len(got) == whole + len(jax_trace.load_span_events(str(root / "log")))
+    assert all(isinstance(r, dict) and "event" in r for r in got)
+    assert trace.load_span_events(str(root)) == jax_trace.load_span_events(str(root))
+    assert drift.load_quality_events(str(root)) == jax_drift.load_quality_events(str(root))
+    one = str(streams[1])
+    assert drift.load_quality_events(one) == jax_drift.load_quality_events(one)
+    assert trace.load_span_events(one) == jax_trace.load_span_events(one)
+    odd = tmp_path / "events-odd.jsonl"
+    odd.write_text('[1, 2]\n7\n"event"\n{"ts": 1.0}\n{"event": "span", "trace": "x"}\n')
+    assert list(events.iter_events(str(odd))) == [{"event": "span", "trace": "x"}]
+    assert list(events.iter_events(str(tmp_path / "missing"))) == []
+
+
 @pytest.mark.parametrize("writer", ["port", "jax"])
 def pytest_span_files_read_by_the_other_package(tmp_path, writer):
     path = str(tmp_path / "events.jsonl")
