@@ -193,7 +193,21 @@ warm-ups alike (``train.capture_counts``).
    restore, ceilings met, and the guard's cost a step
    (:func:`guard_cost`); and one poisoned step under
    ``HYDRAGNN_NAN_SENTINEL=1``, which must raise ``NonFiniteError``
-   naming a parameter (:func:`sentinel_check`).
+   naming a parameter (:func:`sentinel_check`). Then the rest of
+   ``run_training``'s surface (:func:`phase_formats`): 200 periodic FCC
+   NiNb supercells of 108 atoms (:func:`write_cfg_data`) through
+   ``run_training`` + ``run_prediction`` with
+   ``periodic_boundary_conditions`` at MXU_HEADLINE's width (PNA hidden
+   256, 3 layers, ``fused``): every atom 12 in-neighbours across the
+   cell, the launches exact, the loss falling, the host seconds of
+   ``radius_graph_pbc``, step 1 held against the float64 CPU step; an XYZ
+   run the same way; an extxyz slab (``pbc="T T F"``: no edge through the
+   vacuum) through ``Trainer``; every optimizer type's 10 captured steps
+   against the CPU's eager trajectory, each update against the CPU's rule
+   on the card's gradients and state, ``freeze_conv``'s encoder
+   bit-equal; conv checkpointing's peak memory and ms a step beside the
+   plain step's, its step 1 within the atomic tolerance of it; the bytes a
+   compact batch ships. One ``{"formats": ...}`` line each.
 7. Capture: one ``{"capture": ...}`` line of phase 4's compile counters
    and ``warm_version`` results, one of phase 5's ``bench_model`` rows
    (captured and eager ms a step, the replay's busy share and device ops,
@@ -218,7 +232,8 @@ warm-ups alike (``train.capture_counts``).
 plain versions (the fleet's replicas with ``"device": "cpu"``), to check
 the script's control flow without a card. It times nothing on a device and
 never prints the success line. ``--only-fleet`` runs phases 1, 2 and the
-fleet alone, and prints no success line either.
+fleet alone, ``--only-formats`` phases 1, 2 and :func:`phase_formats`,
+and neither prints the success line.
 """
 
 import argparse
@@ -3391,6 +3406,58 @@ def write_unit_test_data(path, number_configurations, cells=((1, 3), (1, 3), (1,
             f.write(unit_test_text(feature, positions, out_x))
 
 
+CFG_ALAT = 3.52  # FCC Ni's lattice constant, Angstrom (the JAX package's examples/eam)
+CFG_NI, CFG_NB = 28, 41
+
+
+def fcc_scaled(cells):
+    """The scaled coordinates (in [0, 1)) of ``cells``^3 FCC unit cells:
+    4 atoms each."""
+    basis = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]], np.float64)
+    grid = np.stack(np.meshgrid(*[np.arange(cells)] * 3, indexing="ij"), -1).reshape(-1, 1, 3)
+    return (grid + basis[None]).reshape(-1, 3) / cells
+
+
+def eam_energy(z, pos):
+    """An embedded-atom flavour of formation energy a site: ``F(rho_i) =
+    -sqrt(rho_i) + 0.05 rho_i``, ``rho_i`` the other atoms' density
+    ``exp(-d / 2.5)``, Nb's weighted 1.6 (the JAX package's example)."""
+    d = np.linalg.norm(pos[:, None] - pos[None, :], axis=-1)
+    np.fill_diagonal(d, np.inf)
+    rho = (np.exp(-d / 2.5) * np.where(z == CFG_NI, 1.0, 1.6)[None, :]).sum(1)
+    return float((-np.sqrt(rho) + 0.05 * rho).sum() / len(z))
+
+
+def write_cfg_data(path, number_configurations, cells=3, seed=0):
+    """NiNb solid solutions in the AtomEye ``.cfg`` format, each with its
+    energy in a sibling ``.bulk`` file: ``cells``^3 FCC cells at
+    :data:`CFG_ALAT` (108 atoms at 3), a Ni share drawn per configuration
+    in [0.3, 0.9], the scaled coordinates jittered by N(0, 0.004), the
+    ``H0`` supercell matrix, and mass and symbol lines before each atom's
+    row, sorted by species (the layout of the JAX package's
+    ``examples/eam``, written here from ``seed``)."""
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    scaled = fcc_scaled(cells)
+    n = len(scaled)
+    cell = np.eye(3) * CFG_ALAT * cells
+    for c in range(number_configurations):
+        z = np.where(rng.random(n) < rng.uniform(0.3, 0.9), CFG_NI, CFG_NB)
+        jitter = scaled + rng.normal(0, 0.004, scaled.shape)
+        lines = [f"Number of particles = {n}", "A = 1.0 Angstrom"]
+        lines += [f"H0({i + 1},{j + 1}) = {cell[i, j]:.6f} A" for i in range(3) for j in range(3)]
+        lines += [".NO_VELOCITY.", "entry_count = 3"]
+        for i in np.argsort(z, kind="stable"):
+            ni = z[i] == CFG_NI
+            lines += ["58.693" if ni else "92.906", "Ni" if ni else "Nb",
+                      f"{jitter[i, 0]:.6f} {jitter[i, 1]:.6f} {jitter[i, 2]:.6f}"]
+        base = os.path.join(path, f"config{c}")
+        with open(base + ".cfg", "w") as f:
+            f.write("\n".join(lines))
+        with open(base + ".bulk", "w") as f:
+            f.write(f"{eam_energy(z, jitter @ cell):.8f}\n")
+
+
 @contextlib.contextmanager
 def run_directory(path, env=None):
     """Run inside ``path`` (logs and serialized data land there), with
@@ -3891,12 +3958,433 @@ def phase_whole_runs(device, card, rehearsal):
     return launches
 
 
+# ---- phase 6, continued: the raw formats, periodic cells, the optimizers ----
+
+# the CFG run: 200 of examples/eam's NiNb supercells (its default writes
+# 300; the periodic radius graph is a Python loop on the host, parsed
+# three times by run_and_predict), 3x3x3 FCC cells of 108 atoms
+FORMATS_FULL = dict(cfg_configs=200, cells=3, hidden=256, layers=3, epochs=4, batch=32,
+                    xyz=96, slab=48, step1_graphs=4, opt_graphs=4, ckpt_graphs=32)
+FORMATS_REHEARSAL = dict(cfg_configs=16, cells=2, hidden=8, layers=2, epochs=2, batch=4,
+                         xyz=16, slab=12, step1_graphs=2, opt_graphs=2, ckpt_graphs=4)
+OPT_TYPES = ("SGD", "Adadelta", "Adagrad", "Adamax", "RMSprop", "LAMB", "FusedLAMB", "Adam",
+             "AdamW")
+# each type's rate on the card: where 10 steps at this width do not yet
+# amplify a rounding difference past the trajectory's tolerance (below)
+OPT_RATES = {"SGD": 1e-2, "Adadelta": 3e-2, "Adagrad": 1e-2, "Adamax": 2e-4, "RMSprop": 1e-5,
+             "LAMB": 1e-3, "FusedLAMB": 1e-3, "Adam": 5e-5, "AdamW": 1e-4}
+OPT_STEPS = 10
+# the card's 10 captured steps against the CPU's 10 eager ones. The sums'
+# order differs (K3's and K1's atomics) and the sign-like updates of the
+# adaptive rules amplify it step by step: on the CPU, weights moved by 1e-6
+# of themselves move RMSprop's 10 losses at 1e-3 by 4.7% and Adam's at
+# 1e-3 by 2.3%, at these rates by at most 0.07% (rtol 1e-3: 0.66 of it).
+# So the trajectory is held at 1e-2, and each captured update exactly:
+OPT_LOSS_RTOL, OPT_LOSS_ATOL = 1e-2, 1e-5
+# every update against the CPU's rule on the card's own gradients and state:
+# 1e-4 of the update plus 3 units in the last place of the parameter it
+# lands in. The bias corrections 1 - b^t are float32 on both devices (as in
+# optax), and two units in the last place of 0.999^t (a pow on each device)
+# move 1 - 0.999^t by 1.2e-4 of itself at step 1 and its square root by
+# 6e-5; torch's capturable Adam divides by eps / step size where its CPU
+# step multiplies, which can land a unit or two of the parameter apart
+OPT_UPDATE_RTOL, OPT_UPDATE_ULPS = 1e-4, 3
+CKPT_TIMED_STEPS = 10
+SLAB_VACUUM = 2.5  # Angstrom above the slab: under the cutoff, so a z image would connect
+
+
+@contextlib.contextmanager
+def timed_pbc(spent):
+    """``spent`` gets the host seconds and calls of the serialized
+    loader's ``radius_graph_pbc`` while inside."""
+    from hydragnn_tpu_torch.data import serialized
+
+    inner = serialized.radius_graph_pbc
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return inner(*args, **kw)
+        finally:
+            spent[0] += time.perf_counter() - t0
+            spent[1] += 1
+
+    serialized.radius_graph_pbc = timed
+    try:
+        yield spent
+    finally:
+        serialized.radius_graph_pbc = inner
+
+
+def write_xyz_data(path, number_configurations, cells=2, seed=1):
+    """FCC NiNb clusters (``cells``^3 cells, no lattice) as ``.xyz`` files,
+    the energy a site on the comment line."""
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    scaled = fcc_scaled(cells)
+    for c in range(number_configurations):
+        z = np.where(rng.random(len(scaled)) < rng.uniform(0.3, 0.9), CFG_NI, CFG_NB)
+        pos = (scaled + rng.normal(0, 0.004, scaled.shape)) * CFG_ALAT * cells
+        rows = [f"{'Ni' if zi == CFG_NI else 'Nb'} {p[0]:.6f} {p[1]:.6f} {p[2]:.6f}"
+                for zi, p in zip(z, pos)]
+        with open(os.path.join(path, f"cluster{c}.xyz"), "w") as f:
+            f.write(f"{len(z)}\n{eam_energy(z, pos):.8f}\n" + "\n".join(rows) + "\n")
+
+
+def slab_frames(number, cells=3, layers=2, seed=2):
+    """FCC Ni(001) slabs, ``cells`` x ``cells`` in plane, ``layers`` cells
+    thick, :data:`SLAB_VACUUM` above, ``pbc="T T F"``: extxyz frames with
+    an energy and seeded forces."""
+    rng = np.random.default_rng(seed)
+    scaled = fcc_scaled(1)
+    grid = np.stack(np.meshgrid(np.arange(cells), np.arange(cells), np.arange(layers),
+                                indexing="ij"), -1).reshape(-1, 1, 3)
+    base = ((grid + scaled[None]).reshape(-1, 3)) * CFG_ALAT
+    top = float(base[:, 2].max())
+    cell = np.diag([cells * CFG_ALAT, cells * CFG_ALAT, top + SLAB_VACUUM])
+    frames = []
+    for _ in range(number):
+        z = np.where(rng.random(len(base)) < 0.7, CFG_NI, CFG_NB)
+        pos = base + rng.normal(0, 0.02, base.shape)
+        frames.append({"z": z, "pos": pos, "cell": cell, "pbc": np.array([True, True, False]),
+                       "info": {"energy": eam_energy(z, pos) * len(z)},
+                       "arrays": {"forces": rng.normal(0, 0.1, pos.shape)}})
+    return frames, top
+
+
+def formats_config(name, fmt, raw, size, periodic):
+    """``examples/eam/NiNb_EAM_energy.json`` (radius 3.2, 14 neighbours,
+    AdamW at 2e-3) at MXU_HEADLINE's width: PNA hidden 256, 3 conv layers,
+    64-wide graph head; ``fmt`` data under ``raw`` (the ``total`` path,
+    the plain split: nearly every configuration's composition is its own,
+    and a stratified split needs two of each)."""
+    with open(_build.REPO_ROOT / "examples" / "eam" / "NiNb_EAM_energy.json") as f:
+        config = json.load(f)
+    config["Verbosity"]["level"] = 0
+    ds = config["Dataset"]
+    ds.update(name=name, format=fmt, path={"total": str(raw)},
+              compositional_stratified_splitting=False)
+    arch = config["NeuralNetwork"]["Architecture"]
+    width = max(32, size["hidden"] // 4)
+    arch.update(periodic_boundary_conditions=periodic, hidden_dim=size["hidden"],
+                num_conv_layers=size["layers"])
+    arch["output_heads"]["graph"].update(dim_sharedlayers=width, dim_headlayers=[width] * 2)
+    config["NeuralNetwork"]["Training"].update(num_epoch=size["epochs"], batch_size=size["batch"])
+    return config
+
+
+def held_first_step(cfg, samples, device):
+    """Step 1 of ``cfg``'s PNA (``fused``, AdamW at 1e-3) on the batch of
+    ``samples`` through ``Trainer`` on ``device``, held against the port's
+    float64 CPU step with the f32 CPU steps as the witnesses, the graphs in
+    both orders (:func:`hold_step_at_kinks`, ``F32_FACTOR``). Returns the
+    check's line and the launches."""
+    host = _graph_batch(samples)
+    model = create_model_config(cfg, device=device, aggregation="fused", seed=0)
+    kinks = {}
+    # a witness in each graph order: one alone can land near the exact value
+    reversed_host = _graph_batch(samples[::-1])
+    cpu, exact = cpu_references(model, host, False, reversed_host, kinks=kinks)
+    trainer = Trainer(model, train_config(False))
+    state = trainer.init_state(host)
+    acts = KinkReLUs()
+    acts.install(model)
+    reset_launch_counts()
+    state, met = trainer.train_step(state, host)
+    counts = launch_counts()
+    step1 = snapshot(model)
+    acts.remove(model)
+    acts.inputs = acts.card_inputs()
+    trainer.release()
+    rows, bad, level, relu_kinks = hold_step_at_kinks(step1, met["loss"], cpu, exact, kinks,
+                                                      acts.inputs, host)
+    if bad:
+        raise AssertionError(f"formats: the periodic CFG step 1 against the exact step: {bad}")
+    return {"tensors": len(rows), "cpu_level": level, "relu_kinks": relu_kinks,
+            "worst_err_over_tolerance": max(r["worst_over_tol"] for r in rows),
+            "closest": sorted(rows, key=lambda r: -r["worst_over_tol"])[:4],
+            "cpu_witness": "f32 CPU steps, the graphs in both orders",
+            "factor": F32_FACTOR}, counts
+
+
+def _launch_check(what, counts, device, steps, forwards, cfg, extra=None):
+    """Hold ``counts`` to ``steps`` training steps and ``forwards``
+    forwards of ``cfg``'s PNA in ``fused`` mode (``extra``: more launches
+    a step), on the card."""
+    per_step, per_forward = launches_per_train_step(cfg, "fused"), launches_per_forward(cfg,
+                                                                                      "fused")
+    want = {k: steps * (per_step[k] + (extra or {}).get(k, 0)) + forwards * per_forward[k]
+            for k in KERNELS}
+    if device.type == "cuda" and counts != want:
+        raise AssertionError(f"formats ({what}): launched {counts}, expected {want} "
+                             f"({steps} steps, {forwards} forwards)")
+
+
+def _graph_batch(samples):
+    """``samples`` (with their targets) in one batch padded for them."""
+    pads = pad_sizes_for(max(g.num_nodes for g in samples), max(g.num_edges for g in samples),
+                         len(samples))
+    return collate_graphs(samples, *pads, head_types=tuple(samples[0].target_types),
+                          head_dims=tuple(int(t.shape[-1]) for t in samples[0].targets))
+
+
+def held_optimizer_steps(base, training, freeze, host, device, cfg, add):
+    """``OPT_STEPS`` captured steps of a copy of ``base`` on ``device``;
+    before each, the training state is read back, and after it a CPU copy
+    of the same optimizer takes one step from that state with the card's
+    gradients: every parameter the card updated must land on that update
+    (``OPT_UPDATE_RTOL`` of it and ``OPT_UPDATE_ULPS`` units in the last
+    place of the parameter). Returns the losses, the worst update's share
+    of its tolerance and the encoder parameters that stayed bit-equal to
+    ``base``'s."""
+    from hydragnn_tpu_torch.train.capture import copy_state, state_tensors
+    from hydragnn_tpu_torch.train.optimizer import ensure_optimizer_state
+
+    model = copy.deepcopy(base).to(device)
+    trainer = Trainer(model, training, freeze_conv=freeze)
+    state = trainer.init_state(host)
+    twin = copy.deepcopy(base)
+    twin_opt = Trainer(twin, training, freeze_conv=freeze).init_state(host).optimizer
+    ensure_optimizer_state(state.optimizer)
+    ensure_optimizer_state(twin_opt)
+    card_state, twin_state = state_tensors(model, state.optimizer), state_tensors(twin, twin_opt)
+    reset_launch_counts()
+    reset_capture_counts()
+    losses, worst = [], 0.0
+    for _ in range(OPT_STEPS):
+        before = [t.detach().cpu().clone() for t in card_state]
+        state, met = trainer.train_step(state, host)
+        losses.append(met["loss"])
+        copy_state(twin_state, before)
+        for p, q in zip(model.parameters(), twin.parameters()):
+            q.grad = p.grad.detach().cpu().clone()
+        twin_opt.step()
+        for p, q, p0 in zip(model.parameters(), twin.parameters(), before):
+            got, want = p.detach().cpu(), q.detach()
+            ulp = torch.finfo(torch.float32).eps * torch.maximum(want.abs(), got.abs())
+            tol = OPT_UPDATE_RTOL * (want - p0).abs() + OPT_UPDATE_ULPS * ulp
+            worst = max(worst, float(((got - want).abs() / tol.clamp_min(1e-30)).max()))
+    _launch_check(f"{training['Optimizer']['type']} steps", launch_counts(), device,
+                  OPT_STEPS + capture_counts()["warm_steps"], 0, cfg)
+    add(launch_counts())
+    start = dict(base.named_parameters())
+    still = [n for n, p in model.named_parameters() if n.startswith("encoder_")
+             and torch.equal(p.detach().cpu(), start[n])]
+    trainer.release()
+    return [float(v) for v in torch.stack(losses).cpu()], worst, still
+
+
+def phase_formats(device, card, rehearsal):
+    """The rest of ``run_training``'s surface on the card (the module
+    docstring, phase 6): a periodic CFG run, an XYZ run, an extxyz slab
+    through ``Trainer``, every optimizer type, conv checkpointing and the
+    compact wire format. One ``{"formats": ...}`` line each. Returns the
+    launches."""
+    from hydragnn_tpu_torch.data.extxyz import load_extxyz_dir, write_extxyz
+    from hydragnn_tpu_torch.data.loaders import create_dataloaders
+    from hydragnn_tpu_torch.train.transfer import wire_bytes
+    from hydragnn_tpu_torch.utils.config import gather_deg
+
+    size = FORMATS_REHEARSAL if rehearsal else FORMATS_FULL
+    root = _build.REPO_ROOT / "build" / "chip_smoke" / "formats"
+    if root.exists():
+        shutil.rmtree(root)
+    on_card = device.type == "cuda"
+    launches = {name: 0 for name in KERNELS}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    # 1. the periodic CFG run through the entry points
+    t0 = time.perf_counter()
+    raw = root / "data" / "cfg"
+    write_cfg_data(str(raw), size["cfg_configs"], cells=size["cells"], seed=0)
+    config = formats_config("NiNb_pbc", "CFG", raw, size, periodic=True)
+    spent = [0.0, 0]
+    with timed_pbc(spent), run_directory(root / "cfg_run", {"HYDRAGNN_AGG": "fused"}):
+        state, counts, line, (train_l, test_l, _) = run_and_predict(config, device, "fused")
+        add(counts)
+        with open(os.path.join("logs", state.info["log_name"], "config.json")) as f:
+            cfg = json.load(f)["NeuralNetwork"]["Architecture"]
+        if on_card:
+            line.update(profiled_epoch(state, config, train_l, device, "formats_cfg"))
+    samples = list(train_l.dataset)
+    degrees = sorted({int(d) for g in samples
+                      for d in np.bincount(g.edge_index[1], minlength=g.num_nodes)})
+    if degrees != [12]:
+        raise AssertionError(f"formats: FCC in-degrees {degrees} across the periodic cell, not 12")
+    if not line["train_loss"][-1] < line["train_loss"][0]:
+        raise AssertionError(f"formats: the CFG run's loss did not fall: {line['train_loss']}")
+    check, counts = held_first_step(cfg, samples[: size["step1_graphs"]], device)
+    warm = capture_counts()
+    add(counts)
+    line.update(pbc_host_s=spent[0], pbc_calls=spent[1],
+                pbc_ms_per_sample=1e3 * spent[0] / max(spent[1], 1), in_degrees=degrees,
+                step1_check=check, atoms=samples[0].num_nodes, phase_s=time.perf_counter() - t0)
+    emit({"formats": {"run": "cfg_periodic", "config": "examples/eam/NiNb_EAM_energy.json",
+                      "width": size["hidden"], "branch": "fused", **line, "card": card}})
+
+    # 2. an XYZ run, the same way (clusters: no cell)
+    t0 = time.perf_counter()
+    raw = root / "data" / "xyz"
+    write_xyz_data(str(raw), size["xyz"], cells=2, seed=1)
+    config = formats_config("NiNb_clusters", "XYZ", raw, size, periodic=False)
+    with run_directory(root / "xyz_run", {"HYDRAGNN_AGG": "fused"}):
+        _, counts, line, _ = run_and_predict(config, device, "fused")
+    add(counts)
+    if not line["train_loss"][-1] < line["train_loss"][0]:
+        raise AssertionError(f"formats: the XYZ run's loss did not fall: {line['train_loss']}")
+    emit({"formats": {"run": "xyz", "width": size["hidden"], "branch": "fused", **line,
+                      "phase_s": time.perf_counter() - t0, "card": card}})
+
+    # 3. an extxyz slab (pbc "T T F") through Trainer: the OC20 path without
+    # the shard store
+    t0 = time.perf_counter()
+    frames, top = slab_frames(size["slab"])
+    slab_dir = root / "data" / "slab"
+    slab_dir.mkdir(parents=True)
+    write_extxyz(str(slab_dir / "slab.extxyz"), frames)
+    graphs = load_extxyz_dir(str(slab_dir), radius=3.2, max_neighbours=14)
+    across = max(float(np.abs(g.pos[g.edge_index[0], 2] - g.pos[g.edge_index[1], 2]).max())
+                 for g in graphs)
+    degrees = sorted({int(d) for g in graphs for d in np.bincount(g.edge_index[1])})
+    if across > 3.2 or degrees[-1] != 12 or degrees[0] >= 12:
+        raise AssertionError(f"formats: the slab's edges reach {across} A in z (slab {top} A "
+                             f"thick), in-degrees {degrees}")
+    slab_cfg = dict(arch(FULL if not rehearsal else TINY, "PNA"), hidden_dim=size["hidden"],
+                    num_conv_layers=size["layers"], output_dim=[1, 3],
+                    num_nodes=graphs[0].num_nodes, pna_deg=gather_deg(graphs).tolist())
+    n_val = max(1, len(graphs) // 8)
+    loaders = create_dataloaders(graphs[: -2 * n_val], graphs[-2 * n_val: -n_val],
+                                 graphs[-n_val:], batch_size=max(2, size["batch"] // 2))
+    model = create_model_config(slab_cfg, device=device, aggregation="fused", seed=0)
+    trainer = Trainer(model, train_config(False))
+    state = trainer.init_state(next(iter(loaders[0])))
+    reset_launch_counts()
+    reset_capture_counts()
+    losses = []
+    for epoch in range(3):
+        loaders[0].set_epoch(epoch)
+        state, loss, _ = trainer.train_epoch(state, loaders[0])
+        losses.append(loss)
+        val_loss, _ = trainer.evaluate(state, loaders[1])
+    ran = capture_counts()
+    _launch_check("slab", launch_counts(), device, 3 * len(loaders[0]) + ran["warm_steps"],
+                  3 * len(loaders[1]) + ran["warm_forwards"], slab_cfg)
+    add(launch_counts())
+    trainer.release()
+    if not (np.isfinite(losses + [val_loss]).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"formats: the slab's losses {losses}, validation {val_loss}")
+    emit({"formats": {"run": "extxyz_slab", "pbc": "T T F", "frames": len(graphs),
+                      "atoms": graphs[0].num_nodes, "max_edge_dz": across, "slab_top_z": top,
+                      "in_degrees": degrees, "train_loss": losses, "val_loss": val_loss,
+                      "launches": {k: v for k, v in launch_counts().items() if v},
+                      "phase_s": time.perf_counter() - t0, "card": card}})
+
+    # 4. every optimizer type: 10 captured steps against the CPU's eager
+    # trajectory, and each update against the CPU's rule on its gradients
+    t0 = time.perf_counter()
+    host = _graph_batch(samples[: size["opt_graphs"]])
+    base = create_model_config(cfg, device="cpu", aggregation="fused", seed=0)
+    encoder = [n for n, _ in base.named_parameters() if n.startswith("encoder_")]
+    runs = []
+    for opt_type, freeze in [(t, False) for t in OPT_TYPES] + [("AdamW", True)]:
+        training = {"Optimizer": {"type": opt_type, "learning_rate": OPT_RATES[opt_type]}}
+        card_l, update_over, still = held_optimizer_steps(base, training, freeze, host, device,
+                                                          cfg, add)
+        model = copy.deepcopy(base)
+        trainer = Trainer(model, training, freeze_conv=freeze)
+        state = trainer.init_state(host)
+        cpu_l = []
+        for _ in range(OPT_STEPS):
+            state, met = trainer.train_step(state, host)
+            cpu_l.append(float(met["loss"]))
+        worst = float(np.max(np.abs(np.subtract(card_l, cpu_l))
+                             / (OPT_LOSS_ATOL + OPT_LOSS_RTOL * np.abs(cpu_l))))
+        if (worst > 1 or update_over > 1 or not np.isfinite(card_l).all()
+                or (freeze and still != encoder)):
+            raise AssertionError(f"formats: {opt_type} (freeze_conv {freeze}) on the card "
+                                 f"{card_l} against the CPU {cpu_l} ({worst} of the tolerance); "
+                                 f"updates {update_over} of theirs; frozen kept {len(still)} "
+                                 f"of {len(encoder)}")
+        runs.append({"type": opt_type, "freeze_conv": freeze, "lr": OPT_RATES[opt_type],
+                     "card_loss": card_l, "cpu_loss": cpu_l, "worst_over_tol": worst,
+                     "update_worst_over_tol": update_over,
+                     "encoder_bit_equal": f"{len(still)} of {len(encoder)}" if freeze else None})
+    emit({"formats": {"run": "optimizers", "steps": OPT_STEPS, "graphs": size["opt_graphs"],
+                      "trajectory_rtol": OPT_LOSS_RTOL, "trajectory_atol": OPT_LOSS_ATOL,
+                      "update_rtol": OPT_UPDATE_RTOL, "update_ulps": OPT_UPDATE_ULPS,
+                      "runs": runs, "phase_s": time.perf_counter() - t0, "card": card}})
+
+    # 5. conv checkpointing: memory and time against the same step without
+    # it; 6. the bytes a batch ships, compact and not
+    t0 = time.perf_counter()
+    host = _graph_batch(samples[: size["ckpt_graphs"]])
+    result = {}
+    for ck in (False, True):
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        model = create_model_config(dict(cfg, conv_checkpointing=ck), device=device,
+                                    aggregation="fused", seed=0)
+        trainer = Trainer(model, train_config(False))
+        state = trainer.init_state(host)
+        reset_launch_counts()
+        reset_capture_counts()
+        state, met = trainer.train_step(state, host)
+        grads = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+        entry = {"loss": float(met["loss"])}
+        if on_card:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(CKPT_TIMED_STEPS):
+                state, _ = trainer.train_step(state, host)
+            end.record()
+            torch.cuda.synchronize()
+            entry.update(ms_per_step=start.elapsed_time(end) / CKPT_TIMED_STEPS,
+                         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+            steps = 1 + CKPT_TIMED_STEPS + capture_counts()["warm_steps"]
+            # the recompute runs each conv's forward again in the backward
+            _launch_check(f"conv_checkpointing {ck}", launch_counts(), device, steps, 0, cfg,
+                          extra={FUSED_KERNEL["PNA"]: cfg["num_conv_layers"]} if ck else None)
+            add(launch_counts())
+        else:
+            entry.update(ms_per_step="not measured (cpu rehearsal)",
+                         peak_memory_gb="not measured (cpu rehearsal)")
+        result[ck] = (entry, grads)
+        if not ck:
+            compact = trainer.compact(host)
+            wire = {"bytes_compact": wire_bytes(compact), "bytes_plain": wire_bytes(host),
+                    "pos_placeholder": tuple(compact.pos.shape) == (1, 3),
+                    "ids": str(compact.senders.dtype)}
+        trainer.release()
+    (plain, g0), (checked, g1) = result[False], result[True]
+    worst = max(float((g1[n] - g0[n]).abs().max()) / atomic_tolerance(g0[n]) for n in g0)
+    loss_over = abs(checked["loss"] - plain["loss"]) / atomic_tolerance(
+        torch.tensor([plain["loss"]]))
+    if worst > 1 or loss_over > 1:
+        raise AssertionError(f"formats: conv checkpointing's step 1 differs: gradients "
+                             f"{worst}, loss {loss_over} times the atomic tolerance")
+    emit({"formats": {"run": "conv_checkpointing", "graphs": size["ckpt_graphs"],
+                      "batch": f"n_pad {host.num_nodes} e_pad {host.num_edges}",
+                      "plain": plain, "checkpointed": checked,
+                      "grad_over_atomic_tol": worst, "loss_over_atomic_tol": loss_over,
+                      "phase_s": time.perf_counter() - t0, "card": card}})
+    emit({"formats": {"run": "compact_transfer", "graphs": size["ckpt_graphs"], **wire,
+                      "saved_share": 1 - wire["bytes_compact"] / wire["bytes_plain"],
+                      "card": card}})
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="tiny size on the CPU through the plain versions; no success line")
     ap.add_argument("--only-fleet", action="store_true",
                     help="phases 1, 2 and the serving fleet (phase_fleet) only; no success line")
+    ap.add_argument("--only-formats", action="store_true",
+                    help="phases 1, 2 and the formats phase (phase_formats) only; no success line")
     ap.add_argument("--workdir", default=None,
                     help="the fleet phase's files (default build/chip_smoke/fleet)")
     ap.add_argument("--step1-bucket", action="store_true",
@@ -3913,6 +4401,11 @@ def main(argv=None):
         phase_build()
         device, size = torch.device("cuda"), FULL
 
+    if args.only_formats:
+        add_formats = phase_formats(device, card, rehearsal=args.cpu_rehearsal)
+        print(f"only the formats: launches {add_formats}; "
+              f"wall {time.perf_counter() - t_start:.1f} s; no success line", flush=True)
+        return 0
     graphs = make_graphs(size["graphs"], size["nodes"], size["degree"], seed=0)
     if args.only_fleet:
         add_fleet = phase_fleet(graphs[:SERVE_REQUESTS], device, card, size, args.workdir)
@@ -4029,6 +4522,8 @@ def main(argv=None):
     lap("run_training")
     add(phase_whole_runs(device, card, rehearsal=args.cpu_rehearsal))
     lap("run_training (whole runs, guard, sentinel)")
+    add(phase_formats(device, card, rehearsal=args.cpu_rehearsal))
+    lap("run_training (formats, periodic cells, optimizers, conv checkpointing)")
     phase_capture(plan, graphs, device, card, served, benched)
     lap("capture")
 

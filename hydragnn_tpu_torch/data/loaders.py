@@ -351,15 +351,19 @@ def _serialized_path(config: dict, split: Optional[str]) -> str:
 
 
 def transform_raw_data_to_serialized(ds_config: dict):
-    """Parse and serialize the raw files of a ``LSMS`` or ``unit_test``
-    dataset."""
+    """Parse and serialize the raw files of a ``LSMS``, ``unit_test``,
+    ``CFG`` or ``XYZ`` dataset; any other format raises ``NameError``, as
+    in the JAX package."""
     fmt = ds_config["format"]
-    if fmt not in ("LSMS", "unit_test"):
-        raise NotImplementedError(
-            f"the {fmt} raw format is not ported yet: see ROADMAP.md, queue 1, item 7")
-    from hydragnn_tpu_torch.data.lsms import LSMSDataset
-
-    LSMSDataset(ds_config).load_raw_data()
+    if fmt in ("LSMS", "unit_test"):
+        from hydragnn_tpu_torch.data.lsms import LSMSDataset as Reader
+    elif fmt == "CFG":
+        from hydragnn_tpu_torch.data.cfg import CFGDataset as Reader
+    elif fmt == "XYZ":
+        from hydragnn_tpu_torch.data.xyz import XYZDataset as Reader
+    else:
+        raise NameError("Data format not recognized for raw data loader")
+    Reader(ds_config).load_raw_data()
 
 
 def total_to_train_val_test_pkls(config: dict):

@@ -2,8 +2,13 @@
 ``data/serialized.py``).
 
 :class:`SerializedGraphLoader` reads one pickled split, optionally rotates
-each sample onto its principal axes, builds the radius graph, appends the
-edge lengths divided by the longest over the split, applies the optional
+each sample onto its principal axes, builds the radius graph (with
+``periodic_boundary_conditions``, :func:`~hydragnn_tpu_torch.data.radius_graph.
+radius_graph_pbc` over the sample's ``supercell_size``, whose image
+lengths become ``edge_attr``; ``pos`` stays as it was, in the cell, so a
+stack that recomputes distances from ``pos`` (SchNet, EGNN) sees the
+in-cell distance there, as in the JAX package), appends the edge lengths
+divided by the longest over the split, applies the optional
 descriptors, extracts one target per head (:func:`extract_targets`) and
 keeps the input node-feature columns (:func:`select_input_node_features`).
 
@@ -23,7 +28,7 @@ from typing import List
 import numpy as np
 
 from hydragnn_tpu_torch.data.dataobj import GraphData
-from hydragnn_tpu_torch.data.radius_graph import radius_graph
+from hydragnn_tpu_torch.data.radius_graph import radius_graph, radius_graph_pbc
 from hydragnn_tpu_torch.data.transforms import (
     add_edge_lengths,
     normalize_rotation,
@@ -105,10 +110,7 @@ class SerializedGraphLoader:
         ds = config["Dataset"]
         arch = config["NeuralNetwork"]["Architecture"]
         voi = config["NeuralNetwork"]["Variables_of_interest"]
-        if arch.get("periodic_boundary_conditions", False):
-            raise NotImplementedError(
-                "periodic_boundary_conditions (radius_graph_pbc) is not ported yet: see "
-                "ROADMAP.md, queue 1, item 7")
+        self.periodic = arch.get("periodic_boundary_conditions", False)
         self.node_feature_dim = ds["node_features"]["dim"]
         self.graph_feature_dim = ds["graph_features"]["dim"]
         self.rotational_invariance = ds.get("rotational_invariance", False)
@@ -133,9 +135,15 @@ class SerializedGraphLoader:
         if self.rotational_invariance:
             dataset = [normalize_rotation(d) for d in dataset]
         for data in dataset:
-            data.edge_index = radius_graph(data.pos, self.radius, self.max_neighbours)
-            data.edge_attr = None
-            add_edge_lengths(data)
+            if self.periodic:
+                edge_index, lengths = radius_graph_pbc(data.pos, data.supercell_size,
+                                                       self.radius, self.max_neighbours)
+                data.edge_index = edge_index
+                data.edge_attr = lengths[:, None].astype(np.float32)
+            else:
+                data.edge_index = radius_graph(data.pos, self.radius, self.max_neighbours)
+                data.edge_attr = None
+                add_edge_lengths(data)
         max_edge_length = 0.0
         for data in dataset:
             if data.edge_attr.size:

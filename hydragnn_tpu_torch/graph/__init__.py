@@ -8,10 +8,14 @@ from hydragnn_tpu_torch.graph.batch import (
 )
 from hydragnn_tpu_torch.graph.segment import (
     segment_count,
+    segment_max,
+    segment_mean,
+    segment_min,
     segment_minmax_fused,
     segment_moments_fused,
     segment_softmax,
     segment_softmax_unnorm,
+    segment_std,
     segment_sum,
 )
 
@@ -22,10 +26,14 @@ __all__ = [
     "pack_triplets",
     "pad_sizes_for",
     "segment_count",
+    "segment_max",
+    "segment_mean",
+    "segment_min",
     "segment_minmax_fused",
     "segment_moments_fused",
     "segment_softmax",
     "segment_softmax_unnorm",
+    "segment_std",
     "segment_sum",
     "stack_batches",
 ]

@@ -44,6 +44,46 @@ def segment_count(segment_ids: torch.Tensor, num_segments: int,
     return out.index_add_(0, torch.where(valid, segment_ids, 0), torch.where(valid, ones, 0.0))
 
 
+def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
+                 num_segments: int) -> torch.Tensor:
+    """Mean per segment (0 where empty): :func:`segment_sum` over the
+    count, at least 1."""
+    count = torch.clamp(segment_count(segment_ids, num_segments), min=1.0)
+    return segment_sum(data, segment_ids, num_segments) / count.reshape(
+        (-1,) + (1,) * (data.ndim - 1))
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                fill: float = 0.0, has: torch.Tensor = None) -> torch.Tensor:
+    """Max per segment; empty segments, and non-finite results, get
+    ``fill`` (padded nodes see 0, not ``-inf``)."""
+    return _fill_empty(_segment_max(data, segment_ids, num_segments), segment_ids,
+                       num_segments, fill, has)
+
+
+def segment_min(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                fill: float = 0.0, has: torch.Tensor = None) -> torch.Tensor:
+    """Min per segment, as :func:`segment_max`."""
+    return _fill_empty(-_segment_max(-data, segment_ids, num_segments), segment_ids,
+                       num_segments, fill, has)
+
+
+def _fill_empty(out, segment_ids, num_segments, fill, has):
+    if has is None:
+        has = segment_count(segment_ids, num_segments) > 0
+    has = has.reshape((-1,) + (1,) * (out.ndim - 1))
+    return torch.where(has & torch.isfinite(out), out, fill)
+
+
+def segment_std(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                eps: float = 1e-5) -> torch.Tensor:
+    """Standard deviation per segment, PNA's: ``sqrt(relu(E[x^2] - E[x]^2)
+    + eps)``."""
+    mean = segment_mean(data, segment_ids, num_segments)
+    mean_sq = segment_mean(data * data, segment_ids, num_segments)
+    return torch.sqrt(torch.relu(mean_sq - mean * mean) + eps)
+
+
 def segment_minmax_fused(data: torch.Tensor, segment_ids: torch.Tensor,
                          num_segments: int, fill: float = 0.0,
                          has: torch.Tensor = None):

@@ -9,7 +9,12 @@ from hydragnn_tpu_torch.models.common import (
     global_mean_pool,
 )
 from hydragnn_tpu_torch.models.cgcnn import CGCNNStack, CGConv
-from hydragnn_tpu_torch.models.create import MODEL_TYPES, create_model_config
+from hydragnn_tpu_torch.models.create import (
+    MODEL_TYPES,
+    create_model_config,
+    init_model_params,
+    print_model,
+)
 from hydragnn_tpu_torch.models.dimenet import DIMEStack, DimeNetConv
 from hydragnn_tpu_torch.models.egnn import E_GCL, EGCLStack
 from hydragnn_tpu_torch.models.gat import GATStack, GATv2Conv
@@ -46,6 +51,8 @@ __all__ = [
     "SplitLinear",
     "TorchLinear",
     "create_model_config",
+    "init_model_params",
+    "print_model",
     "get_activation",
     "global_mean_pool",
     "init_params",

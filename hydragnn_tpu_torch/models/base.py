@@ -32,6 +32,19 @@ from the ``generator`` passed to ``forward``; eval is deterministic.
 changing the module: the stochastic layers draw and BatchNorm takes the
 batch's statistics, but the running statistics stay as they are (one
 sample of the uncertainty scorer's ``dropout`` mode, ``serve/quality.py``).
+
+With ``conv_checkpointing`` (the JAX package's ``nn.remat`` of the conv
+class) every conv, of the encoder and of a ``conv`` node head, runs under
+``torch.utils.checkpoint`` (``use_reentrant=False``) when autograd records:
+its activations are freed after the forward and recomputed in the
+backward. The region is the conv alone: no BatchNorm is inside it, so no
+running statistic is updated twice. The recompute sees the tensors the
+forward saw (the parameters of the call, bf16 casts under mixed
+precision) and the same dropout draws: the forward records each draw of
+the conv (``common.recorded_draws``) and the recompute replays it, since
+the draws come from the trainer's generator, not from the global RNG
+state (which the checkpoint does not keep: reading it is not allowed
+while a CUDA graph captures).
 """
 
 import math
@@ -39,6 +52,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from hydragnn_tpu_torch.graph.batch import GraphBatch
 from hydragnn_tpu_torch.models.common import (
@@ -50,6 +64,7 @@ from hydragnn_tpu_torch.models.common import (
     masked_error,
     masked_gaussian_nll,
     matmul,
+    recorded_draws,
     uniform_,
 )
 
@@ -118,6 +133,9 @@ class HydraBase(nn.Module):
     dense_branch = False
     # the JAX package's HydraBase.dropout: GAT's attention dropout rate
     dropout = 0.25
+    # whether the convs read node positions (SchNet, EGNN, DimeNet): the
+    # others train on a position placeholder (train/transfer.py)
+    conv_needs_pos = False
 
     def __init__(
         self,
@@ -136,6 +154,7 @@ class HydraBase(nn.Module):
         aggregation: str = "fused",
         loss_function_type: str = "mse",
         loss_nll: bool = False,
+        conv_checkpointing: bool = False,
     ):
         super().__init__()
         self.input_dim = input_dim
@@ -155,6 +174,7 @@ class HydraBase(nn.Module):
         self.loss_function_type = loss_function_type
         # NLL mode: every head emits one extra log-variance channel
         self.loss_nll = bool(loss_nll)
+        self.conv_checkpointing = bool(conv_checkpointing)
 
     @property
     def use_edge_attr(self) -> bool:
@@ -268,11 +288,22 @@ class HydraBase(nn.Module):
                 m.dropout = float(rate)
         return self
 
-    @staticmethod
-    def _conv(conv, x, pos, batch, generator, sample):
-        if getattr(conv, "stochastic", False):
-            return conv(x, pos, batch, generator=generator, sample=sample)
-        return conv(x, pos, batch)
+    def _conv(self, conv, x, pos, batch, generator, sample):
+        kw = {"generator": generator, "sample": sample} if getattr(conv, "stochastic", False) else {}
+        if not (self.conv_checkpointing and torch.is_grad_enabled()):
+            return conv(x, pos, batch, **kw)
+        # the tensors of this call (bf16 casts inside forward_bf16's
+        # functional_call), so that the recompute, outside that call, sees them
+        tensors = dict(conv.named_parameters())
+        tensors.update(conv.named_buffers())
+
+        def run(x, pos):
+            return torch.func.functional_call(conv, tensors, (x, pos, batch), kw)
+
+        # the draws are recorded, so no global RNG state is kept (its read
+        # is not allowed inside a CUDA graph capture)
+        return checkpoint(run, x, pos, use_reentrant=False, preserve_rng_state=False,
+                          context_fn=recorded_draws)
 
     def forward(self, batch: GraphBatch, generator: Optional[torch.Generator] = None,
                 sample: bool = False):

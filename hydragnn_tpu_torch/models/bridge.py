@@ -30,14 +30,25 @@ parameters), by the same path mapping, and the learning rate that optax keeps in
 ``opt_state.hyperparams`` (``optax.inject_hyperparams``) into every param
 group's ``lr``.
 
+:func:`load_optax_state` carries the state of any optimizer of
+``train.optimizer`` across: Adam and AdamW as above, and an
+``OptaxOptimizer`` (the other types, and every type under
+``freeze_conv``) from its optax state's slots (``e_g``/``e_x``,
+``sum_of_squares``, ``mu``/``nu``, ``nu``), where a frozen parameter's
+slot is optax's ``MaskedNode`` (an empty dict in the checkpoint) and the
+frozen parameters' count is the injected one.
+
 The reverse direction writes the tree the JAX package checkpoints for its
 ``TrainState`` (``flax.serialization.to_state_dict`` of it):
 :func:`flax_variables_of` (the port's parameters and BatchNorm statistics
 as ``{"params", "batch_stats"}``), :func:`optax_state_of` (the optimizer
-as ``optax.inject_hyperparams(adam or adamw)``'s state: ``count``,
+as ``optax.inject_hyperparams(...)``'s state: ``count``,
 ``hyperparams.learning_rate``, ``hyperparams_states`` and
-``inner_state``, ``{"0": {count, mu, nu}, "1": {}, ...}`` with one empty
-state per transform after ``scale_by_adam``), and :func:`state_dict_of`
+``inner_state``, for Adam ``{"0": {count, mu, nu}, "1": {}, ...}`` with one
+empty state per transform after ``scale_by_adam``; the chain of each
+other type in :data:`OPTAX_CHAINS`; under ``freeze_conv`` that chain
+inside ``multi_transform``'s ``{"inner_states": {"trainable":
+{"inner_state": ...}, "frozen": {"inner_state": {}}}}``), and :func:`state_dict_of`
 for a whole ``TrainState``. :func:`restore_state` loads such a tree
 into a ``TrainState``.
 """
@@ -149,6 +160,16 @@ def _find_adam_state(tree):
     return None
 
 
+def _named_params(optimizer):
+    params = {}
+    for group in optimizer.param_groups:
+        names = group.get("param_names")
+        if names is None:
+            raise ValueError("the optimizer must be built over named parameters")
+        params.update(zip(names, group["params"]))
+    return params
+
+
 def load_optax_adam_state(optimizer: torch.optim.Optimizer, opt_state) -> torch.optim.Optimizer:
     """Fill ``optimizer`` (``torch.optim.Adam`` or ``AdamW`` over named
     parameters) from optax's Adam state with numpy leaves (convert with
@@ -160,12 +181,7 @@ def load_optax_adam_state(optimizer: torch.optim.Optimizer, opt_state) -> torch.
     adam = _find_adam_state(opt_state)
     if adam is None:
         raise ValueError("no Adam state (mu, nu, count) in the optax state")
-    params = {}
-    for group in optimizer.param_groups:
-        names = group.get("param_names")
-        if names is None:
-            raise ValueError("the optimizer must be built over named parameters")
-        params.update(zip(names, group["params"]))
+    params = _named_params(optimizer)
     moments = {}
     for key, torch_key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
         for path, value in _flatten(adam[key]):
@@ -206,13 +222,69 @@ def load_optax_adam_state(optimizer: torch.optim.Optimizer, opt_state) -> torch.
     return optimizer
 
 
+def _as_dict_tree(tree):
+    """An optax state (named tuples, tuples, dicts) as flax's state dict
+    names it: a named tuple by its fields, a tuple by position."""
+    if isinstance(tree, dict):
+        return {str(k): _as_dict_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return {f: _as_dict_tree(getattr(tree, f)) for f in tree._fields}
+    if isinstance(tree, (tuple, list)):
+        return {str(i): _as_dict_tree(v) for i, v in enumerate(tree)}
+    return tree
+
+
+def load_optax_state(optimizer: torch.optim.Optimizer, opt_state) -> torch.optim.Optimizer:
+    """Fill any optimizer of ``train.optimizer`` from the JAX package's
+    optax state (numpy leaves; named tuples or a checkpoint's dicts), in
+    place where the state exists (a captured step holds its tensors)."""
+    from hydragnn_tpu_torch.train.optimizer import OptaxOptimizer, set_learning_rate
+
+    if not isinstance(optimizer, OptaxOptimizer):
+        return load_optax_adam_state(optimizer, opt_state)
+    tree = _as_dict_tree(opt_state)
+    inner = tree["inner_state"]
+    if "inner_states" in inner:  # freeze_conv: multi_transform's trainable chain
+        inner = inner["inner_states"]["trainable"]["inner_state"]
+    slots = tuple(optimizer.slots)
+    node = None
+    if slots:
+        node = next((v for _, v in sorted(inner.items(), key=lambda kv: int(kv[0]))
+                     if isinstance(v, dict) and set(slots) <= set(v)), None)
+        if node is None:
+            raise ValueError(f"no {optimizer.kind} state {slots} in the optax state")
+    params = _named_params(optimizer)
+    frozen = {n for g in optimizer.param_groups if g["frozen"] for n in g["param_names"]}
+    values = {}
+    for key in slots:
+        for path, value in _flatten(node[key]):
+            name, transpose = _target(path, "params")
+            if name not in params or name in frozen:
+                raise ValueError(f"opt_state/{key}/{'/'.join(path)}: no trainable parameter {name}")
+            src = _as_tensor(value.T if transpose else value)
+            if tuple(src.shape) != tuple(params[name].shape):
+                raise ValueError(f"opt_state/{key}/{'/'.join(path)}: shape {tuple(src.shape)} "
+                                 f"does not fit {name} {tuple(params[name].shape)}")
+            values.setdefault(name, {})[key] = src
+    missing = [n for n in params if n not in frozen and len(values.get(n, {})) != len(slots)]
+    if missing:
+        raise ValueError(f"no {optimizer.kind} state for: {sorted(missing)}")
+    step = float(np.asarray(tree["count"]))
+    with torch.no_grad():
+        for name, p in params.items():
+            st = optimizer.state[p]
+            st["step"].fill_(step)
+            for key, src in values.get(name, {}).items():
+                st[key].copy_(src)
+    lr = tree.get("hyperparams", {}).get("learning_rate")
+    if lr is not None:
+        set_learning_rate(optimizer, float(np.asarray(lr)))
+    return optimizer
+
+
 # ---------------------------------------------------------------------------
 # the reverse direction: the port's state as the JAX package's tree
 # ---------------------------------------------------------------------------
-
-# the transforms optax chains after scale_by_adam, each with an empty state
-_EMPTY_STATES = {torch.optim.AdamW: 2, torch.optim.Adam: 1}
-
 
 def _flax_path(model: nn.Module, name: str, collection: str):
     """``(flax path, transpose?)`` of the port's parameter or buffer
@@ -266,32 +338,58 @@ def flax_variables_of(model: nn.Module) -> Dict:
     return out
 
 
+# type -> (the index of the stateful transform in optax's chain, the
+# chain's length, whether that state has a count): ``select_optimizer``'s
+# table of the JAX package, as optax builds each one
+OPTAX_CHAINS = {
+    "SGD": (None, 2, False),
+    "Adadelta": (1, 3, False),
+    "Adagrad": (0, 2, False),
+    "Adamax": (0, 2, True),
+    "RMSprop": (0, 3, False),
+    "LAMB": (0, 4, True),
+    "FusedLAMB": (0, 4, True),
+    "Adam": (0, 2, True),
+    "AdamW": (0, 3, True),
+}
+
+
 def optax_state_of(optimizer: torch.optim.Optimizer, model: nn.Module) -> Dict:
-    """The state of ``optax.inject_hyperparams(adamw or adam)`` that the
-    JAX package's optimizer holds after as many updates as ``optimizer``
-    took: Adam's moments in flax's layout (zeros before the first step),
-    both counts, and the learning rate of the first param group, float32
-    as optax keeps it."""
-    kind = type(optimizer)
-    if kind not in _EMPTY_STATES:
-        raise ValueError(f"no optax counterpart for {kind.__name__}")
-    mu, nu = {}, {}
+    """The state of the JAX package's optimizer (``optax.inject_hyperparams``
+    of the type's chain, inside ``multi_transform`` under ``freeze_conv``)
+    after as many updates as ``optimizer`` took: its slots in flax's layout
+    (a frozen parameter's as an empty dict), the counts, and the learning
+    rate of the first param group, float32 as optax keeps it."""
+    from hydragnn_tpu_torch.train.optimizer import OptaxOptimizer
+
+    if isinstance(optimizer, OptaxOptimizer):
+        kind, slots = optimizer.kind, tuple(optimizer.slots)
+        frozen = {n for g in optimizer.param_groups if g["frozen"] for n in g["param_names"]}
+    elif type(optimizer) in (torch.optim.Adam, torch.optim.AdamW):
+        kind, slots, frozen = type(optimizer).__name__, ("exp_avg", "exp_avg_sq"), set()
+    else:
+        raise ValueError(f"no optax counterpart for {type(optimizer).__name__}")
+    trees = {key: {} for key in slots}
     count = 0
-    for group in optimizer.param_groups:
-        names = group.get("param_names")
-        if names is None:
-            raise ValueError("the optimizer must be built over named parameters")
-        for name, p in zip(names, group["params"]):
-            path, transpose = _flax_path(model, name, "params")
-            state = optimizer.state.get(p, {})
-            zeros = torch.zeros_like(p, dtype=torch.float32)
-            _nest(mu, path, _to_numpy(state.get("exp_avg", zeros), transpose))
-            _nest(nu, path, _to_numpy(state.get("exp_avg_sq", zeros), transpose))
-            if "step" in state:
-                count = max(count, int(float(state["step"])))
+    for name, p in _named_params(optimizer).items():
+        path, transpose = _flax_path(model, name, "params")
+        state = optimizer.state.get(p, {})
+        zeros = torch.zeros_like(p, dtype=torch.float32)
+        for key in slots:
+            _nest(trees[key], path, {} if name in frozen else
+                  _to_numpy(state.get(key, zeros), transpose))
+        if "step" in state:
+            count = max(count, int(float(state["step"])))
     count = np.asarray(count, np.int32)
-    inner = {"0": {"count": count, "mu": mu, "nu": nu}}
-    inner.update({str(i): {} for i in range(1, 1 + _EMPTY_STATES[kind])})
+    at, length, with_count = OPTAX_CHAINS[kind]
+    inner = {str(i): {} for i in range(length)}
+    if at is not None:
+        names = {"exp_avg": "mu", "exp_avg_sq": "nu"}
+        inner[str(at)] = {**({"count": count} if with_count else {}),
+                          **{names.get(k, k): v for k, v in trees.items()}}
+    if frozen:
+        inner = {"inner_states": {"trainable": {"inner_state": inner},
+                                  "frozen": {"inner_state": {}}}}
     return {
         "count": count,
         "hyperparams": {
@@ -318,11 +416,11 @@ def state_dict_of(state) -> Dict:
 def restore_state(state, restored: Dict):
     """Load a checkpoint's tree (``params``, ``batch_stats``, and
     ``opt_state`` and ``step`` when present) into ``state`` in place: the
-    weights, Adam's moments and count, and the learning rate."""
+    weights, the optimizer's state and count, and the learning rate."""
     load_flax_variables(state.model, {"params": restored["params"],
                                       "batch_stats": restored.get("batch_stats", {})})
     if restored.get("opt_state") is not None:
-        load_optax_adam_state(state.optimizer, restored["opt_state"])
+        load_optax_state(state.optimizer, restored["opt_state"])
     if restored.get("step") is not None:
         state.step = int(np.asarray(restored["step"]))
     return state

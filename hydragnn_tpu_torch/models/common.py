@@ -19,7 +19,9 @@ before its wrapper, and its result goes back to the input's dtype, as the
 JAX package's fused kernels do.
 """
 
+import contextlib
 import math
+import threading
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -32,6 +34,43 @@ from hydragnn_tpu_torch.ops import (
     fused_gather_sum_vjp,
     fused_gather_weighted_sum_vjp,
 )
+
+
+# the draws of a checkpointed conv (models/base.py): recorded in its
+# forward, replayed in its recompute
+_DRAWS = threading.local()
+
+
+@contextlib.contextmanager
+def _draws(tape: list, replay: bool):
+    prev = getattr(_DRAWS, "active", None)
+    _DRAWS.active = (tape, replay, [0])
+    try:
+        yield
+    finally:
+        _DRAWS.active = prev
+
+
+def recorded_draws():
+    """``context_fn`` of ``torch.utils.checkpoint``: the forward records
+    every :func:`draw_keep` mask, the recompute gets them back in order."""
+    tape = []
+    return _draws(tape, False), _draws(tape, True)
+
+
+def draw_keep(shape, rate: float, generator: torch.Generator, device) -> torch.Tensor:
+    """A dropout mask: each entry True with probability ``1 - rate``,
+    drawn from ``generator`` (or replayed, inside a checkpoint's
+    recompute)."""
+    active = getattr(_DRAWS, "active", None)
+    if active is not None and active[1]:
+        tape, _, at = active
+        at[0] += 1
+        return tape[at[0] - 1]
+    keep = torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+    if active is not None:
+        active[0].append(keep)
+    return keep
 
 
 def uniform_(param: torch.Tensor, bound: float, generator: torch.Generator):

@@ -8,6 +8,8 @@ own: their ``aggregation`` modes are one path (a gather in PyTorch, then
 K1), as the JAX package's ``HYDRAGNN_AGG=fused`` leaves them on
 ``segment_sum``. :func:`resolve_precision` is the JAX package's
 compute-precision decision, which the trainer reads.
+:func:`init_model_params` and :func:`print_model` are the JAX package's
+names for the weights of a built model and its parameter summary.
 """
 
 import os
@@ -66,8 +68,6 @@ def create_model_config(config: dict, device=None, aggregation: str = "fused",
         raise ValueError(f"Unknown model_type: {model_type}")
     if config.get("partition_axis") is not None:
         raise _not_ported("partition_axis (graph-partition parallelism)")
-    if config.get("conv_checkpointing", False):
-        raise _not_ported("conv_checkpointing")
     output_dim = tuple(config["output_dim"])
     common = dict(
         aggregation=aggregation,
@@ -86,6 +86,7 @@ def create_model_config(config: dict, device=None, aggregation: str = "fused",
         equivariance=config.get("equivariance", False),
         loss_function_type=config.get("loss_function_type", "mse"),
         loss_nll=bool(config.get("ilossweights_nll", 0)),
+        conv_checkpointing=bool(config.get("conv_checkpointing", False)),
     )
     if model_type == "PNA":
         if config.get("pna_deg") is None:
@@ -133,6 +134,30 @@ def create_model_config(config: dict, device=None, aggregation: str = "fused",
         model = EGCLStack(**{**common, "edge_dim": config.get("edge_dim") or 0})
     init_params(model, torch.Generator().manual_seed(int(seed)))
     return model.eval()
+
+
+def init_model_params(model: HydraBase, seed: int = 0) -> HydraBase:
+    """Draw ``model``'s weights again from a ``torch.Generator`` seeded
+    with ``seed`` (what :func:`create_model_config` does at build; the JAX
+    package's ``init_model_params`` materialises flax variables)."""
+    return init_params(model, torch.Generator().manual_seed(int(seed)))
+
+
+def print_model(model: HydraBase, verbosity: int = 0) -> int:
+    """The parameter count per top-level module and in total (printed at
+    ``verbosity`` 2 and up, as the JAX package prints on rank 0); returns
+    the total."""
+    per_module, total = {}, 0
+    for name, p in model.named_parameters():
+        top = name.split(".")[0]
+        per_module[top] = per_module.get(top, 0) + p.numel()
+        total += p.numel()
+    if verbosity >= 2:
+        print(f"model: {type(model).__name__}")
+        for name in sorted(per_module):
+            print(f"  {name}: {per_module[name]:,} params")
+        print(f"total trainable params: {total:,}")
+    return total
 
 
 # ---------------------------------------------------------------------------

@@ -355,6 +355,7 @@ class DimeNetConv(nn.Module):
 class DIMEStack(HydraBase):
     conv_use_batchnorm = False  # Identity feature layers, as the reference
     dense_branch = True
+    conv_needs_pos = True
 
     def __init__(self, basis_emb_size: int = 8, envelope_exponent: int = 5,
                  int_emb_size: int = 64, out_emb_size: int = 128, num_after_skip: int = 2,

@@ -151,6 +151,7 @@ class E_GCL(nn.Module):
 class EGCLStack(HydraBase):
     conv_use_batchnorm = False  # Identity feature layers, as the reference
     dense_branch = True
+    conv_needs_pos = True
 
     def __init__(self, device=None, **common):
         super().__init__(**common)

@@ -31,7 +31,7 @@ from torch import nn
 
 from hydragnn_tpu_torch.graph.segment import segment_softmax_unnorm, segment_sum
 from hydragnn_tpu_torch.models.base import HydraBase
-from hydragnn_tpu_torch.models.common import glorot_uniform_, matmul, uniform_
+from hydragnn_tpu_torch.models.common import draw_keep, glorot_uniform_, matmul, uniform_
 from hydragnn_tpu_torch.ops.dense_agg import gather_neighbors
 
 
@@ -44,7 +44,7 @@ def attention_dropout(x: torch.Tensor, rate: float, generator: torch.Generator) 
             "attention dropout in train() mode needs a torch.Generator: pass "
             "generator= to the forward (Trainer does), or set_dropout(0.0)"
         )
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    keep = draw_keep(x.shape, rate, generator, x.device)
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 

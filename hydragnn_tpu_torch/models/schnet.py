@@ -147,6 +147,7 @@ class CFConv(nn.Module):
 class SCFStack(HydraBase):
     conv_use_batchnorm = False  # Identity feature layers, as the reference
     dense_branch = True
+    conv_needs_pos = True
 
     def __init__(self, num_filters: int, num_gaussians: int, radius: float,
                  device=None, **common):

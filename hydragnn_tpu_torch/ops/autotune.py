@@ -5,6 +5,13 @@ The JAX package measured where its dense neighbour-list branch overtakes
 the segment reductions, per stack and width, on its TPU; these tables are
 that policy, copied as it is. The per-bucket measured cache
 (``autotune_bucket``) is not ported (``ROADMAP.md``, queue 1).
+
+:func:`fused_choice` is the environment's part of the JAX package's
+``use_fused`` (``:348-368``): ``HYDRAGNN_FUSED_MP=0`` forbids the fused
+kernels and beats ``HYDRAGNN_AGG=fused``; with ``HYDRAGNN_AGG`` unset,
+``HYDRAGNN_FUSED_MP=1`` asks for them where the stack has a fused op. The
+JAX package also requires its VMEM guard to pass; the port's kernels have
+no such limit, so nothing stands in for it.
 """
 
 import os
@@ -50,3 +57,32 @@ def env_force() -> Optional[str]:
     """``HYDRAGNN_AGG`` when it names one of :data:`CHOICES`, else None."""
     v = (os.getenv("HYDRAGNN_AGG") or "").strip().lower()
     return v if v in CHOICES else None
+
+
+# the stacks with a fused message-passing op (K3-K7)
+FUSED_STACKS = ("PNA", "GIN", "SAGE", "SchNet", "EGNN")
+
+
+def fused_forbidden() -> bool:
+    """``HYDRAGNN_FUSED_MP=0``: the fused kill switch."""
+    return (os.getenv("HYDRAGNN_FUSED_MP") or "").strip() == "0"
+
+
+def fused_forced() -> bool:
+    return (os.getenv("HYDRAGNN_FUSED_MP") or "").strip() == "1"
+
+
+def fused_choice(model_type: Optional[str] = None) -> Optional[str]:
+    """``"fused"`` or ``"segment"`` as the environment decides the
+    model's aggregation, or None when it leaves it open: the kill switch
+    first, then ``HYDRAGNN_AGG`` (``fused`` or ``segment``; ``dense`` is a
+    layout decision, whose batches take the lists' branch), then
+    ``HYDRAGNN_FUSED_MP=1`` for a stack in :data:`FUSED_STACKS`."""
+    forced = env_force()
+    if forced == "fused" and fused_forbidden():
+        return "segment"
+    if forced in ("fused", "segment"):
+        return forced
+    if forced is None and fused_forced() and model_type in FUSED_STACKS:
+        return "fused"
+    return None

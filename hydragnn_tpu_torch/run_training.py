@@ -1,9 +1,11 @@
 """``run_training(config_or_path, device=None)``: train the run a config
 describes (a dict, or the path of a JSON file) and keep its checkpoint
 under ``./logs/<run name>/`` (``train/driver.py``). On the card unless
-``device="cpu"``."""
+``device="cpu"``. The live ``/metrics`` endpoint of a run is not ported:
+``telemetry_port``, ``Telemetry.port`` and ``HYDRAGNN_OBS_PORT`` raise."""
 
 import json
+import os
 
 
 def run_training(config, device=None, use_devices=None, telemetry_port=None):
@@ -22,6 +24,10 @@ def run_training(config, device=None, use_devices=None, telemetry_port=None):
     if (config.get("Telemetry") or {}).get("port") is not None:
         raise NotImplementedError(
             "Telemetry.port (the live /metrics endpoint) is not ported yet: see "
+            "ROADMAP.md, queue 1, item 10")
+    if (os.getenv("HYDRAGNN_OBS_PORT") or "").strip():
+        raise NotImplementedError(
+            "HYDRAGNN_OBS_PORT (the live /metrics endpoint) is not ported yet: see "
             "ROADMAP.md, queue 1, item 10")
     from hydragnn_tpu_torch.train.driver import run_training_impl
 

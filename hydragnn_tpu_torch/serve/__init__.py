@@ -36,6 +36,7 @@ from hydragnn_tpu_torch.serve.buckets import (
     BucketCapacity,
     GraphTooLarge,
     ServingBucketPlan,
+    plan_from_layout,
     plan_from_samples,
 )
 from hydragnn_tpu_torch.serve.cache import ResponseCache, canonical_graph_key
@@ -96,6 +97,7 @@ __all__ = [
     "UncertaintyScorer",
     "canonical_graph_key",
     "merge_bills",
+    "plan_from_layout",
     "plan_from_samples",
     "price_per_million",
     "publish_candidate",

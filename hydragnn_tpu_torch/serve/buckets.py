@@ -83,6 +83,11 @@ class ServingBucketPlan:
             t = int(sample_triplets(graph)[0].shape[0])
         return int(graph.num_nodes), int(graph.num_edges), t
 
+    def select(self, graph: GraphData) -> int:
+        """The smallest bucket that admits ``graph`` (:meth:`admit`'s
+        bucket). Raises :class:`GraphTooLarge` when none does."""
+        return self.admit(graph)[0]
+
     def admit(self, graph: GraphData) -> Tuple[int, Tuple[int, int, int]]:
         """``(bucket, (nodes, edges, triplets))`` for one request. Raises
         :class:`GraphTooLarge` when no bucket admits the graph."""
@@ -199,3 +204,25 @@ def plan_from_samples(
         capacities=capacities,
         warmup_sample=smallest.clone(),
     )
+
+
+def plan_from_layout(layout, warmup_sample: GraphData,
+                     node_bounds: Optional[Sequence[int]] = None) -> ServingBucketPlan:
+    """A training layout (``data.loaders.compute_layout``: one
+    :class:`BatchLayout` or a ``BucketedLayout``) as the serving plan, so
+    that serving replays the shapes training captured. Each bucket admits
+    one graph of up to ``n_pad - 1`` nodes (or its node bound, the
+    smaller), ``e_pad`` edges and, where it packs them, ``t_pad``
+    triplets."""
+    layouts = list(layout.layouts) if hasattr(layout, "layouts") else [layout]
+    bounds = list(node_bounds if node_bounds is not None else getattr(layout, "node_bounds", []))
+    capacities = [
+        BucketCapacity(
+            max_nodes=min(bounds[i], lay.n_pad - 1) if i < len(bounds) else lay.n_pad - 1,
+            max_edges=lay.e_pad,
+            max_triplets=lay.t_pad if lay.packs_triplets else 0,
+        )
+        for i, lay in enumerate(layouts)
+    ]
+    return ServingBucketPlan(layouts=layouts, capacities=capacities,
+                             warmup_sample=warmup_sample.clone())

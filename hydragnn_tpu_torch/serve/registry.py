@@ -140,7 +140,7 @@ class ModelRegistry:
             raise ValueError(
                 f"checkpoint {checkpoint_name} has no 'params' section: not a model checkpoint")
         model = create_model_config(dict(arch_config), device=device,
-                                    aggregation=model_aggregation())
+                                    aggregation=model_aggregation(arch_config.get("model_type")))
         load_flax_variables(model, {"params": restored["params"],
                                     "batch_stats": restored.get("batch_stats", {})})
         return self.register(name or checkpoint_name, model,
@@ -245,6 +245,12 @@ class ModelRegistry:
                     "source": serving.source,
                 }
             return out
+
+
+    def __len__(self):
+        """The number of registered names."""
+        with self._lock:
+            return len(self._entries)
 
 
 # ---- candidate publication channel -------------------------------------------

@@ -63,7 +63,8 @@ def build_model_and_trainer(config, train_loader, device):
     """The model of ``config``'s derived Architecture on ``device``, its
     ``Trainer`` and a fresh state (from the loader's first batch)."""
     arch = _arch_for_factory(config)
-    model = create_model_config(arch, device=device, aggregation=model_aggregation())
+    model = create_model_config(arch, device=device,
+                                aggregation=model_aggregation(arch.get("model_type")))
     trainer = Trainer(model, config["NeuralNetwork"]["Training"],
                       freeze_conv=arch.get("freeze_conv_layers", False))
     state = trainer.init_state(next(iter(train_loader)))

@@ -11,6 +11,11 @@ kept: batches of more than one shape (``stack_batches`` raises
 bytes and the outputs' over ``HYDRAGNN_PREDICT_STAGE_BUDGET``, else
 ``Training.predict_stage_budget_bytes``, else 8 GiB); memory exhausted on
 the device while staging falls back too.
+
+``HYDRAGNN_DUMP_TESTDATA`` writes the pass's per-head true and predicted
+rows as the JAX package does (``true_<i>``, ``pred_<i>`` in one ``.npz``):
+``1`` names the file ``testdata_rank0.npz``, any other value is the path.
+The port runs one process, rank 0 (``parallel/`` is not ported).
 """
 
 import os
@@ -97,7 +102,7 @@ class PredictMixin:
         """``predict_scan`` over the staged test set, and one readback."""
         from hydragnn_tpu_torch.train.steps import Staged
 
-        staged = Staged(stacked.to(self.device), self.model.num_heads)
+        staged = Staged(self.put_batch(stacked), self.model.num_heads)
         outs = self.programs(state).eval_epoch(staged, staged.nb, outputs=True)
         flat = torch.cat([staged.rows.reshape(-1)] + [o.reshape(-1) for o in outs]).cpu().numpy()
         loss, tasks = self._rows_mean(torch.from_numpy(flat[: staged.rows.numel()]).view(
@@ -127,4 +132,9 @@ class PredictMixin:
                 predicted_values[ihead].append(pred.reshape(-1, 1))
         true_values = [np.concatenate(v, axis=0) for v in true_values]
         predicted_values = [np.concatenate(v, axis=0) for v in predicted_values]
+        dump = os.getenv("HYDRAGNN_DUMP_TESTDATA")
+        if dump:
+            np.savez("testdata_rank0.npz" if dump == "1" else dump,
+                     **{f"true_{i}": v for i, v in enumerate(true_values)},
+                     **{f"pred_{i}": v for i, v in enumerate(predicted_values)})
         return loss, np.atleast_1d(tasks), true_values, predicted_values

@@ -64,6 +64,7 @@ from hydragnn_tpu_torch.graph.batch import GraphBatch
 from hydragnn_tpu_torch.train.capture import ProgramSet, copy_state, rate_tensors, state_tensors
 from hydragnn_tpu_torch.train.common import SchedState, TrainState
 from hydragnn_tpu_torch.train.optimizer import ensure_optimizer_state
+from hydragnn_tpu_torch.train.transfer import decompact
 
 
 def forward_bf16(model, batch: GraphBatch, generator=None):
@@ -89,6 +90,7 @@ def train_body(model, optimizer, batch: GraphBatch, guarded: bool = False,
     model's device), in bf16 mixed precision with ``mixed``; ``generator``
     (on the model's device) feeds a stochastic layer. Returns the metrics;
     the model and optimizer are updated in place."""
+    batch = decompact(batch)
     model.train()
     optimizer.zero_grad(set_to_none=True)
     with record_function("train_step.forward"):
@@ -124,6 +126,7 @@ def train_step(state: TrainState, batch: GraphBatch, guarded: bool = False,
 def eval_body(model, batch: GraphBatch):
     """The loss and outputs of the model in eval mode (running BatchNorm
     statistics), with nothing recorded for autograd."""
+    batch = decompact(batch)
     model.eval()
     with torch.inference_mode():
         outputs = model(batch)

@@ -55,9 +55,14 @@ leaves the batch out of the epoch's mean. The fault hooks
 the host step count ``_host_step``; a chunk calls ``kill_at_step`` for
 each step it ran, after its readback.
 
-Not ported yet, and refused where a config or the environment asks for
-them: ``freeze_conv`` and the optimizers other than Adam and AdamW
-(``ROADMAP.md``, queue 1, item 7); meshes (item 8).
+Every host batch ships in the compact wire format unless
+``compact_transfer`` (or ``HYDRAGNN_COMPACT_TRANSFER``) is off
+(``train/transfer.py``: int16 ids, a position placeholder for a model
+that reads none), undone inside the programs. ``freeze_conv`` freezes the
+encoder (``train/optimizer.py``).
+
+Not ported yet, and refused where a config asks for them: meshes
+(``ROADMAP.md``, queue 1, item 8).
 """
 
 import dataclasses
@@ -74,6 +79,7 @@ from hydragnn_tpu_torch.train.common import (
     FIT_SCHED_FIELDS,
     SchedState,
     TrainState,
+    _env_flag,
     _env_int,
     _nbatch,
     guard_enabled,
@@ -82,6 +88,7 @@ from hydragnn_tpu_torch.train.guard import DivergenceGuard
 from hydragnn_tpu_torch.train.optimizer import ensure_optimizer_state, select_optimizer
 from hydragnn_tpu_torch.train.predict import PredictMixin
 from hydragnn_tpu_torch.train.steps import CapturedSteps, Staged
+from hydragnn_tpu_torch.train.transfer import compact_for_transfer, needs_pos
 from hydragnn_tpu_torch.utils import faults
 
 
@@ -102,6 +109,8 @@ class Trainer(PredictMixin):
                                            int(training_config.get("steps_per_dispatch", 1)))
         self.device_prefetch = _env_int("HYDRAGNN_DEVICE_PREFETCH",
                                         int(training_config.get("device_prefetch", 0)))
+        self.compact_transfer = _env_flag("HYDRAGNN_COMPACT_TRANSFER", training_config,
+                                          "compact_transfer", default=True)
         self.device = next(model.parameters()).device
         self.generator = torch.Generator(device=self.device).manual_seed(0)
         # the staged epochs' microbatch order, drawn on the host
@@ -156,14 +165,21 @@ class Trainer(PredictMixin):
             self._steps.release()
             self._steps = None
 
+    def compact(self, batch: GraphBatch) -> GraphBatch:
+        """A host batch in the wire format (``compact_transfer``); a
+        device batch as it is."""
+        if not self.compact_transfer or batch.x.device.type != "cpu":
+            return batch
+        return compact_for_transfer(batch, needs_pos(self.model))
+
     def put_batch(self, batch: GraphBatch) -> GraphBatch:
         """The host batch on the model's device, in one transfer."""
-        return batch.to(self.device)
+        return self.compact(batch).to(self.device)
 
     def _feed(self, batch: GraphBatch) -> GraphBatch:
         # on the card a program copies a host batch into its static input in
         # one transfer; on the CPU the body takes the batch as it is
-        return batch if self.device.type == "cuda" else self.put_batch(batch)
+        return self.compact(batch) if self.device.type == "cuda" else self.put_batch(batch)
 
     def train_step(self, state: TrainState, batch: GraphBatch):
         metrics = self.programs(state).train_step(self._feed(batch))
@@ -251,12 +267,11 @@ class Trainer(PredictMixin):
         for b in pending:  # a trailing partial group: the single-step program
             yield [b]
 
-    @staticmethod
-    def _put_group(group):
+    def _put_group(self, group):
         """A group as ``(payload, count)``: one batch, or K stacked."""
         if len(group) > 1:
-            return stack_batches(group), len(group)
-        return group[0], 1
+            return self.compact(stack_batches(group)), len(group)
+        return self.compact(group[0]), 1
 
     def _prefetch_put(self, plan, depth):
         """``(payload, count)`` per dispatch of ``plan``. With ``depth`` >
@@ -352,14 +367,14 @@ class Trainer(PredictMixin):
     def stage_batches(self, batches) -> Staged:
         """Stack same-shape collated batches and keep them on the card
         (JAX ``stage_batches``); raises ``ValueError`` on ragged batches."""
-        return Staged(stack_batches(batches).to(self.device), self.model.num_heads)
+        return Staged(self.put_batch(stack_batches(batches)), self.model.num_heads)
 
     def restage(self, staged: Staged, batches) -> Staged:
         """Stage ``batches`` into ``staged``'s own tensors, in place (JAX
         ``restage_per_chunk``): the programs bound to the stack keep their
         graphs and no second stack is held. Raises ``ValueError`` when the
         new stack's shapes differ from the staged one's."""
-        new = stack_batches(batches)
+        new = self.compact(stack_batches(batches))
         if new.shape_key() != staged.stack.shape_key():
             raise ValueError("restage: the batches' shapes differ from the staged stack's")
         with torch.no_grad():

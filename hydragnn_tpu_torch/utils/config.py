@@ -17,6 +17,7 @@ builds the model with.
 import json
 import os
 from copy import deepcopy
+from typing import Optional
 
 import numpy as np
 
@@ -34,13 +35,14 @@ def arch_for_auto_policy(nn_config: dict) -> dict:
     return arch
 
 
-def model_aggregation() -> str:
-    """The model's ``aggregation``: the one ``HYDRAGNN_AGG`` names
-    (``fused`` or ``segment``), else ``segment`` (K2 for PNA, K1 for the
-    rest). A batch that carries the dense lists takes the lists' branch
-    whatever this is."""
-    forced = autotune.env_force()
-    return forced if forced in ("fused", "segment") else "segment"
+def model_aggregation(model_type: Optional[str] = None) -> str:
+    """The model's ``aggregation``: the environment's choice
+    (``ops.autotune.fused_choice``: ``HYDRAGNN_FUSED_MP=0`` beats
+    ``HYDRAGNN_AGG=fused``; ``HYDRAGNN_FUSED_MP=1`` picks ``fused`` for a
+    ``model_type`` with a fused op), else ``segment`` (K2 for PNA, K1 for
+    the rest). A batch that carries the dense lists takes the lists'
+    branch whatever this is."""
+    return autotune.fused_choice(model_type) or "segment"
 
 
 def update_config(config, train_loader, val_loader, test_loader):

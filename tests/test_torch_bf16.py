@@ -34,7 +34,10 @@ exact| / scale[kind]`` over its tensors. ``FLOOR`` is 1e-4.
   updates of the encoder convs' last biases (which BatchNorm cancels, so
   their gradient is rounding noise in any precision; scale: the largest
   other update) and the BatchNorm statistics; exact: a float64 trajectory
-  of the port from the same weights (``chip_smoke.float64_port``).
+  of the port from the same weights (``chip_smoke.float64_port``), taken
+  once for the weights and graphs and shared by the three modes: their
+  branches compute one function, and their float64 runs agree to
+  float64's rounding (``chip_smoke.cpu_references``' shared step).
 
 ``C`` (``FORWARD_FACTOR``, ``TRAJECTORY_FACTOR``): ``PYTHONPATH=.:tests
 JAX_PLATFORMS=cpu python tests/test_torch_bf16.py`` reads the factor each
@@ -51,6 +54,7 @@ statistics in float32 and the gradients on the float32 parameters, and
 every kernel wrapper (K1-K7) receives float32 in a bf16 forward and step.
 """
 
+import json
 import os
 import sys
 
@@ -69,6 +73,7 @@ from hydragnn_tpu.models.common import TorchLinear as JaxTorchLinear
 from hydragnn_tpu.ops import dense_agg as jdense
 from hydragnn_tpu.train.trainer import Trainer as JaxTrainer
 
+from _torch_jax_init import cached_jax_init  # noqa: F401 (autouse)
 import chip_smoke
 from chip_smoke import FUSED_KERNEL
 from hydragnn_tpu_torch import ops
@@ -271,6 +276,19 @@ def _kinds(run, cancelled=_null_space):
     return out
 
 
+# the float64 trajectory per (seed, config, weights): each mode's exact run
+_EXACT = {}
+
+
+def _fingerprint(variables):
+    """The bytes of every leaf of ``variables``, in key order."""
+    out = []
+    for key in sorted(variables):
+        v = variables[key]
+        out.append(_fingerprint(v) if isinstance(v, dict) else np.asarray(v).tobytes())
+    return b"".join(out)
+
+
 def trajectories(mode, seed, cfg=None):
     """The exact (float64), JAX bf16 and port bf16 trajectories of one
     mode from one set of weights (``cfg``: multi-head PNA unless given)."""
@@ -301,10 +319,12 @@ def trajectories(mode, seed, cfg=None):
     end_model = create_model_config(cfg, device="cpu")
     load_flax_variables(end_model, _np({"params": jstate.params, "batch_stats": jstate.batch_stats}))
     jrun = _record(jlosses, end_model, start)
-    with chip_smoke.float64_port():
-        exact = _port_run(cfg, variables, batch, mode, mixed=False, f64=True)
+    key = (seed, json.dumps(cfg, sort_keys=True), _fingerprint(variables))
+    if key not in _EXACT:
+        with chip_smoke.float64_port():
+            _EXACT[key] = _port_run(cfg, variables, batch, mode, mixed=False, f64=True)
     port = _port_run(cfg, variables, batch, mode, mixed=True)
-    return exact, jrun, port
+    return _EXACT[key], jrun, port
 
 
 def hold(exact, jrun, port, factor, cancelled=_null_space):

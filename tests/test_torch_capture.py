@@ -68,6 +68,7 @@ from hydragnn_tpu_torch.models.bridge import load_optax_adam_state
 from hydragnn_tpu_torch.serve import InferenceServer, ModelRegistry, plan_from_samples
 from hydragnn_tpu_torch.train import Trainer, capture_counts
 
+from _torch_jax_init import cached_jax_init  # noqa: F401 (autouse)
 from test_torch_pna import arch
 from test_torch_run_training import _in_dir, _loaders, _scalars, raw_dirs  # noqa: F401
 from test_torch_train import ADAMW, HEADS, PADS, _graphs, _np, _null_space, _port_variables

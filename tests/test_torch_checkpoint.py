@@ -43,6 +43,7 @@ from hydragnn_tpu_torch.train import Trainer, get_learning_rate, set_learning_ra
 from hydragnn_tpu_torch.train import checkpoint as ckpt
 from hydragnn_tpu_torch.train import msgpack_codec
 
+from _torch_jax_init import cached_jax_init  # noqa: F401 (autouse)
 from test_torch_pna import arch, samples
 
 RTOL, ATOL = 1e-4, 1e-5

@@ -51,6 +51,7 @@ from hydragnn_tpu_torch.ops import autotune
 from hydragnn_tpu_torch.ops import dense_agg as dense
 from hydragnn_tpu_torch.serve import plan_from_samples
 
+from _torch_jax_init import cached_jax_init  # noqa: F401 (autouse)
 from test_torch_gin_sage import arch as family_arch
 from test_torch_gin_sage import jax_variables as family_variables
 from test_torch_pna import arch, jax_variables, samples

@@ -76,6 +76,7 @@ from hydragnn_tpu.ops import dense_agg as jdense
 from hydragnn_tpu.serve.buckets import plan_from_samples as jax_plan_from_samples
 from hydragnn_tpu.train.trainer import Trainer as JaxTrainer
 
+from _torch_jax_init import cached_jax_init  # noqa: F401 (autouse)
 import chip_smoke
 from hydragnn_tpu_torch.data import GraphData
 from hydragnn_tpu_torch.data.layout import collate_for_layout

@@ -74,6 +74,7 @@ from hydragnn_tpu_torch.train import checkpoint as ckpt
 from hydragnn_tpu_torch.train.capture import state_tensors
 from hydragnn_tpu_torch.train.common import FIT_SCHED_FIELDS
 
+from _torch_jax_init import cached_jax_init  # noqa: F401 (autouse)
 from test_torch_capture import _hold_updates, _hosts, _sync, _updates
 from test_torch_pna import arch
 from test_torch_run_training import (  # noqa: F401

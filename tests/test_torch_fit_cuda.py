@@ -24,7 +24,8 @@ skipped inside the test without one. Run on the card with
   two restaged chunks capture no program and leave
   ``torch.cuda.memory_allocated`` where the first chunk left it (a new
   stack would be bound anew by every chunk program and kept by its
-  graphs), and the stack then holds the new batches exactly.
+  graphs), and the stack then holds the new batches exactly, in the
+  compact wire format the trainer ships (``train/transfer.py``).
 """
 
 import copy
@@ -194,7 +195,7 @@ def pytest_restage_in_place_keeps_programs_and_memory(card):
     torch.cuda.synchronize(card)
     assert capture.capture_counts()["captures"] == captures
     assert torch.cuda.memory_allocated(card) == mem, (torch.cuda.memory_allocated(card), mem)
-    want = stack_batches(restacks[-1])
+    want = trainer.compact(stack_batches(restacks[-1]))  # as the trainer ships a stack
     for name, a, b in zip(want.leaves()[0], staged.stack.leaves()[1], want.leaves()[1]):
         assert torch.equal(a.cpu(), b), name
     assert state.step == 18

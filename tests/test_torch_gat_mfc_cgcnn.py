@@ -61,6 +61,7 @@ from hydragnn_tpu.models import create_model_config as jax_create_model_config
 from hydragnn_tpu.ops import dense_agg as jdense
 from hydragnn_tpu.train.trainer import Trainer as JaxTrainer
 
+from _torch_jax_init import cached_jax_init  # noqa: F401 (autouse)
 import chip_smoke
 from hydragnn_tpu_torch.graph import collate_graphs, segment_softmax, segment_softmax_unnorm
 from hydragnn_tpu_torch.models import create_model_config, load_flax_variables

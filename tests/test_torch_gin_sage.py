@@ -18,12 +18,12 @@ import jax.numpy as jnp
 from hydragnn_tpu.graph import collate_graphs as jax_collate
 from hydragnn_tpu.graph import pad_sizes_for
 from hydragnn_tpu.models import create_model_config as jax_create_model_config
-from hydragnn_tpu.models import init_model_params
 
 from hydragnn_tpu_torch.graph import collate_graphs
 from hydragnn_tpu_torch.models import create_model_config, load_flax_variables
 from hydragnn_tpu_torch.ops import launch_counts
 
+from _torch_jax_init import cached_init_model_params
 from test_torch_pna import JAX_ENV, samples
 from test_torch_pna import arch as pna_arch
 
@@ -49,7 +49,7 @@ def arch(model_type, node_type="mlp", hidden=8, layers=2, equivariance=False,
 def jax_variables(model, batch, seed=0):
     """Initialised variables, as nested dicts of numpy arrays, with
     non-trivial BatchNorm running statistics where the model has any."""
-    variables = jax.tree_util.tree_map(np.asarray, init_model_params(model, batch))
+    variables = jax.tree_util.tree_map(np.asarray, cached_init_model_params(model, batch))
     rng = np.random.default_rng(seed + 100)
     for stats in variables.get("batch_stats", {}).values():
         f = stats["mean"].shape[0]

@@ -41,7 +41,9 @@ def _port_files():
                 "obs/__init__.py", "obs/metrics.py", "obs/events.py", "obs/http.py",
                 "obs/trace.py", "obs/drift.py", "serve/http.py", "serve/cache.py",
                 "serve/tenants.py", "serve/costs.py", "serve/quality.py", "coord.py",
-                "serve/fleet.py", "serve/router.py", "serve/canary.py", "serve/autoscale.py"):
+                "serve/fleet.py", "serve/router.py", "serve/canary.py", "serve/autoscale.py",
+                "data/elements.py", "data/cfg.py", "data/xyz.py", "data/extxyz.py",
+                "data/mptrj.py", "data/qm9_raw.py", "train/transfer.py"):
         assert REPO / "hydragnn_tpu_torch" / new in files
     return files
 
@@ -84,6 +86,8 @@ def pytest_importing_the_port_loads_no_jax():
         "import hydragnn_tpu_torch.coord, hydragnn_tpu_torch.serve.fleet\n"
         "import hydragnn_tpu_torch.serve.router, hydragnn_tpu_torch.serve.canary\n"
         "import hydragnn_tpu_torch.serve.autoscale, hydragnn_tpu_torch.obs.drift\n"
+        "import hydragnn_tpu_torch.data, hydragnn_tpu_torch.data.cfg, hydragnn_tpu_torch.data.xyz\n"
+        "import hydragnn_tpu_torch.train.transfer\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'hydragnn_tpu')]\n"
         "assert not bad, bad\n"
     )

@@ -24,11 +24,12 @@ import jax.numpy as jnp
 from hydragnn_tpu.graph import collate_graphs as jax_collate
 from hydragnn_tpu.graph import pad_sizes_for
 from hydragnn_tpu.models import create_model_config as jax_create_model_config
-from hydragnn_tpu.models import init_model_params
 
 from hydragnn_tpu_torch.graph import collate_graphs
 from hydragnn_tpu_torch.models import create_model_config, load_flax_variables
 from hydragnn_tpu_torch.ops import launch_counts
+
+from _torch_jax_init import cached_init_model_params
 
 RTOL, ATOL = 1e-4, 1e-5
 JAX_ENV = {"fused": ("HYDRAGNN_AGG", "fused"), "segment": ("HYDRAGNN_PALLAS", "1")}
@@ -86,7 +87,7 @@ def samples(num=6, seed=0, with_edge_attr=False):
 def jax_variables(model, batch, seed=0):
     """Initialised variables with non-trivial BatchNorm running stats, as
     nested dicts of numpy arrays."""
-    variables = jax.tree_util.tree_map(np.asarray, init_model_params(model, batch))
+    variables = jax.tree_util.tree_map(np.asarray, cached_init_model_params(model, batch))
     rng = np.random.default_rng(seed + 100)
     stats = variables["batch_stats"]
     for name in stats:
@@ -155,8 +156,9 @@ def pytest_pna_unported_options_raise():
         create_model_config({**arch(), "partition_axis": "data"}, device="cpu")
     with pytest.raises(ValueError):
         create_model_config(arch(), device="cpu", aggregation="dense")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model_config({**arch(), "conv_checkpointing": True}, device="cpu")
+    # conv checkpointing is ported (tests/test_torch_optimizers.py holds it)
+    assert create_model_config({**arch(), "conv_checkpointing": True},
+                               device="cpu").conv_checkpointing
     # bf16 compute is ported: a bf16 forward runs and returns bf16, as
     # JAX's does in fused mode (tests/test_torch_bf16.py holds its values)
     model = create_model_config(arch(), device="cpu")

@@ -73,6 +73,7 @@ from hydragnn_tpu_torch.utils import faults
 from hydragnn_tpu_torch.utils.retry import backoff_delay, retry_io
 
 from _torch_resilience_worker import make_samples
+from _torch_jax_init import cached_jax_init  # noqa: F401 (autouse)
 from test_torch_capture import _hold_updates, _hosts, _sync, _updates
 from test_torch_pna import arch
 from test_torch_train import ADAMW, _port_variables
@@ -301,13 +302,26 @@ def pytest_check_remaining_outside_slurm(monkeypatch):
 
 # ---- kill and resume --------------------------------------------------------------
 
-def _worker(workdir, mode, kind, env=None):
+def _spawn(workdir, mode, kind, env=None):
     clean = {k: v for k, v in os.environ.items()
              if not k.startswith(("HYDRAGNN_FAULT_", "HYDRAGNN_RESUME", "HYDRAGNN_CKPT_",
                                   "HYDRAGNN_GUARD_"))}
     clean.update(env or {})
-    return subprocess.run([sys.executable, WORKER, str(workdir), mode, kind], env=clean,
-                          capture_output=True, text=True, timeout=300)
+    return subprocess.Popen([sys.executable, WORKER, str(workdir), mode, kind], env=clean,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _finish(proc):
+    try:
+        out, err = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise
+    return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+
+
+def _worker(workdir, mode, kind, env=None):
+    return _finish(_spawn(workdir, mode, kind, env))
 
 
 @pytest.mark.parametrize("kind", ["stream", "chunk"])
@@ -315,10 +329,12 @@ def pytest_kill_and_resume_equals_the_uninterrupted_run(tmp_path, kind):
     ref, killed = tmp_path / "ref", tmp_path / "killed"
     ref.mkdir()
     killed.mkdir()
-    done = _worker(ref, "run", kind)
+    # the uninterrupted run and the killed one side by side (two directories)
+    procs = (_spawn(ref, "run", kind),
+             # 4 steps an epoch: step 9 is in epoch 2, and in the second chunk (2-3)
+             _spawn(killed, "run", kind, {"HYDRAGNN_FAULT_KILL_AT_STEP": "9"}))
+    done, dead = (_finish(p) for p in procs)
     assert done.returncode == 0, done.stderr[-2000:]
-    # 4 steps an epoch: step 9 is in epoch 2, and in the second chunk (2-3)
-    dead = _worker(killed, "run", kind, {"HYDRAGNN_FAULT_KILL_AT_STEP": "9"})
     assert dead.returncode == faults.KILL_EXIT_CODE, dead.stderr[-2000:]
     assert not (killed / "result.json").exists()
     meta = ckpt.pop_train_meta(ckpt.load_state_dict("resil", path=str(killed / "logs")))

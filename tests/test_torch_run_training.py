@@ -55,6 +55,7 @@ from hydragnn_tpu_torch.train import checkpoint as ckpt
 from hydragnn_tpu_torch.utils import config as port_config
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _torch_jax_init import cached_jax_init  # noqa: F401 (autouse)
 from synthetic import deterministic_graph_data  # noqa: E402
 
 LOSS_RTOL, LOSS_ATOL = 1e-4, 1e-5

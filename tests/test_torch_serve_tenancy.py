@@ -72,6 +72,7 @@ from hydragnn_tpu_torch.serve import costs as port_costs
 from hydragnn_tpu_torch.serve import tenants as port_tenants
 from hydragnn_tpu_torch.train import checkpoint as ckpt
 
+from _torch_jax_init import cached_jax_init  # noqa: F401 (autouse)
 from test_torch_gat_mfc_cgcnn import RTOL as FORWARD_RTOL
 from test_torch_gat_mfc_cgcnn import ATOL as FORWARD_ATOL
 from test_torch_gat_mfc_cgcnn import arch as stack_arch

@@ -59,6 +59,7 @@ from hydragnn_tpu_torch.train import (
     set_learning_rate,
 )
 
+from _torch_jax_init import cached_jax_init  # noqa: F401 (autouse)
 from test_torch_pna import JAX_ENV, arch, samples
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -346,13 +347,13 @@ def pytest_trainer_refuses_bf16_and_what_is_not_ported(monkeypatch):
     monkeypatch.delenv("HYDRAGNN_MIXED_PRECISION")
 
     batch = collate_graphs(_graphs(), *PADS, head_types=HEADS[0], head_dims=HEADS[1])
+    # every optimizer type and freeze_conv are ported (tests/test_torch_optimizers.py)
     for config in ({"Optimizer": {"type": "SGD"}}, {"Optimizer": {"type": "LAMB"}}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(small, config).init_state(batch)
+        assert type(Trainer(small, config).init_state(batch).optimizer).__name__ == "OptaxOptimizer"
     with pytest.raises(ValueError, match="not supported"):
         Trainer(small, {"Optimizer": {"type": "Nadam"}}).init_state(batch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(small, {}, freeze_conv=True).init_state(batch)
+    frozen = Trainer(small, {}, freeze_conv=True).init_state(batch).optimizer
+    assert [g["frozen"] for g in frozen.param_groups] == [False, True]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(small, {}, mesh=object())
     with pytest.raises(ValueError, match="targets"):

@@ -58,6 +58,7 @@ from hydragnn_tpu_torch.ops import dense_agg as dense
 from hydragnn_tpu_torch.ops import launch_counts
 from hydragnn_tpu_torch.train import Trainer
 
+from _torch_jax_init import cached_jax_init  # noqa: F401 (autouse)
 from test_torch_bf16 import TRAJECTORY_FACTOR, hold, trajectories
 from test_torch_gin_sage import arch
 from test_torch_pna import JAX_ENV
