@@ -207,7 +207,25 @@ warm-ups alike (``train.capture_counts``).
    on the card's gradients and state, ``freeze_conv``'s encoder
    bit-equal; conv checkpointing's peak memory and ms a step beside the
    plain step's, its step 1 within the atomic tolerance of it; the bytes a
-   compact batch ships. One ``{"formats": ...}`` line each.
+   compact batch ships. One ``{"formats": ...}`` line each. Then the
+   training telemetry (:func:`phase_telemetry`): ``ci_multihead.json`` at
+   MXU_HEADLINE's width under ``HYDRAGNN_AGG=fused`` and
+   ``HYDRAGNN_OBS_PORT=0``, four ``run_training`` runs: a guarded streaming
+   run with one poisoned step, its ``/metrics`` and ``/healthz`` scraped
+   and ``/profile?steps=2`` asked after epoch 0 (the trace must name K3's
+   and K1's kernels, :data:`TRACE_KERNELS`; the stream every kind of
+   :data:`TELEMETRY_REQUIRE`; the report rendered by the CLI, its budget
+   checked: exit 0, 1 with the FLOPs halved, 2 on a missing stream); the
+   staged run with telemetry off, then on (ms a step within
+   :data:`TELEMETRY_OVERHEAD` or the off run's spread); chunked, every
+   chunk after the first queued under ``set_sync_debug_mode("error")``.
+   Every run's launches exact, every goodput window's fractions summing to
+   1, each train bucket's MFU within :data:`TELEMETRY_MFU_TOL` of the
+   smoke's own figure (FlopCounterMode's FLOPs of one eager step over the
+   ms a step of CUDA events around whole passes of replays, taken outside
+   the program layer, :func:`_own_mfu`); then the CLI's
+   ``fleet``, ``drift`` and ``trace`` on the serving phases' streams. One
+   ``{"telemetry": ...}`` line a run.
 7. Capture: one ``{"capture": ...}`` line of phase 4's compile counters
    and ``warm_version`` results, one of phase 5's ``bench_model`` rows
    (captured and eager ms a step, the replay's busy share and device ops,
@@ -233,7 +251,8 @@ plain versions (the fleet's replicas with ``"device": "cpu"``), to check
 the script's control flow without a card. It times nothing on a device and
 never prints the success line. ``--only-fleet`` runs phases 1, 2 and the
 fleet alone, ``--only-formats`` phases 1, 2 and :func:`phase_formats`,
-and neither prints the success line.
+``--only-telemetry`` phases 1, 2 and :func:`phase_telemetry`, and none of
+them prints the success line.
 """
 
 import argparse
@@ -4377,6 +4396,448 @@ def phase_formats(device, card, rehearsal):
     return launches
 
 
+# ---- phase 7: training telemetry ------------------------------------------------
+
+TELEMETRY_EPOCHS = 3  # the guarded streaming run
+TELEMETRY_STAGED_EPOCHS = 6  # the staged runs: telemetry on against off, past the capture
+TELEMETRY_CHUNK = 2  # the chunked run's fit_chunk_epochs: 3 chunks, the first captures
+TELEMETRY_NAN_STEP = 3  # HYDRAGNN_FAULT_NAN_AT_STEP of the guarded run: a step of epoch 0
+TELEMETRY_PROFILE_STEPS = 2  # /profile?steps=N, asked after epoch 0
+TELEMETRY_MFU_TOL = 0.15  # each train bucket's MFU against the smoke's own figure
+TELEMETRY_OVERHEAD = 0.03  # ms a step with telemetry on against off (or the off runs' spread)
+# the staged runs that the overhead hold pools, in the order they run: off,
+# on, on, off, so that a drift of the card's speed across the phase falls on
+# both sides alike
+TELEMETRY_OVERHEAD_RUNS = (("staged_off", False), ("staged", True), ("staged_on_2", True),
+                           ("staged_off_2", False))
+TELEMETRY_OWN_PASSES = 3  # the smoke's own figure: passes over every microbatch, timed whole
+TELEMETRY_REQUIRE = ("run_manifest", "epoch", "compile", "checkpoint_saved", "guard_skip",
+                     "goodput", "profile", "run_end")
+# the kernels a trace of the fused PNA step must name: K3's (the gather
+# kernel of csrc/gather_reduce.cuh) and K1's (csrc/segment.cu)
+TRACE_KERNELS = {"fused_gather_moments": "gather_reduce_kernel",
+                 "segment_sum": "segment_sum_runs_kernel"}
+
+
+class _ScrapeOnFirstScalar:
+    """The run's scalar writer, wrapped: at its first scalar (epoch 0's,
+    after the epoch's captures) it scrapes the live ``/metrics`` and
+    ``/healthz`` and asks ``/profile?steps=N`` from the training thread, as
+    the JAX package's telemetry test scrapes through ``writer=``."""
+
+    def __init__(self, inner, scrapes):
+        self.inner, self.scrapes = inner, scrapes
+
+    def add_scalar(self, tag, value, step):
+        self.inner.add_scalar(tag, value, step)
+        if self.scrapes:
+            return
+        from hydragnn_tpu_torch.obs import runtime
+
+        host, port = runtime.active().address
+        base = f"http://{host}:{port}"
+        with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+            self.scrapes["metrics"] = r.read().decode()
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+            self.scrapes["health"] = json.loads(r.read())
+        with urllib.request.urlopen(f"{base}/profile?steps={TELEMETRY_PROFILE_STEPS}",
+                                    timeout=30) as r:
+            self.scrapes["profile"] = json.loads(r.read())
+
+    def add_regions(self, regions, step=0):
+        self.inner.add_regions(regions, step)
+
+    def close(self):
+        self.inner.close()
+
+
+@contextlib.contextmanager
+def _patched(obj, name, value):
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def _sync_checked_chunks(orig, checked):
+    """``Trainer.fit_dispatch`` with every chunk after the first (which
+    captures the programs) queued under ``set_sync_debug_mode("error")``:
+    a host sync inside one raises."""
+    def fit_dispatch(self, *args, **kw):
+        checked.append(len(checked))
+        if len(checked) == 1:
+            return orig(self, *args, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return orig(self, *args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    return fit_dispatch
+
+
+def _telemetry_run(root, label, config, env, device, sizes, scrape=None, sync_check=False):
+    """One ``run_training`` of ``config`` under ``env`` in ``root/label``:
+    its launches held exactly (its steps' and evaluation forwards', the
+    captures' warm-ups), its stream validated (every goodput window's
+    fractions summing to 1). Returns the state, the records, the counts
+    and the run's wall."""
+    from hydragnn_tpu_torch import run_training
+    from hydragnn_tpu_torch.obs.scalars import ScalarWriter
+    from hydragnn_tpu_torch.train import driver
+
+    from hydragnn_tpu_torch.obs import runtime
+
+    n_train, n_val, n_test = sizes
+    patches = contextlib.ExitStack()
+    # every step time the run's ledger took, in order, for the line
+    step_times = []
+    on_step_time = runtime.RunTelemetry.on_step_time
+
+    def recorded(self, seconds, count=1, compile_s=None):
+        step_times.append((self.current_epoch, seconds / max(int(count), 1)))
+        return on_step_time(self, seconds, count, compile_s)
+
+    patches.enter_context(_patched(runtime.RunTelemetry, "on_step_time", recorded))
+    if scrape is not None:
+        class Writer:
+            for_run = staticmethod(lambda *a, **k: _ScrapeOnFirstScalar(
+                ScalarWriter.for_run(*a, **k), scrape))
+
+        patches.enter_context(_patched(driver, "ScalarWriter", Writer))
+    checked = []
+    if sync_check and device.type == "cuda":
+        patches.enter_context(_patched(Trainer, "fit_dispatch",
+                                       _sync_checked_chunks(Trainer.fit_dispatch, checked)))
+    with run_directory(root / label, env), patches:
+        reset_launch_counts()
+        reset_capture_counts()
+        t0 = time.perf_counter()
+        state = run_training(copy.deepcopy(config), device=device)
+        wall = time.perf_counter() - t0
+        counts, programs = launch_counts(), capture_counts()
+    training = config["NeuralNetwork"]["Training"]
+    history = state.info["history"]
+    chunk = int(training.get("fit_chunk_epochs", 0))
+    epochs = chunk * len({h["chunk"] for h in history}) if chunk else len(history)
+    arch_cfg = dict(config["NeuralNetwork"]["Architecture"], equivariance=False)
+    per_step = launches_per_train_step(arch_cfg, "fused")
+    per_forward = launches_per_forward(arch_cfg, "fused")
+    expected = {k: (epochs * n_train + programs["warm_steps"]) * per_step[k]
+                + (epochs * (n_val + n_test) + programs["warm_forwards"]) * per_forward[k]
+                for k in KERNELS}
+    if device.type == "cuda" and counts != expected:
+        raise AssertionError(f"telemetry run {label}: launched {counts}, expected {expected} "
+                             f"({epochs} epochs, programs {programs})")
+    if sync_check and device.type == "cuda" and len(checked) < 2:
+        raise AssertionError(f"telemetry run {label}: {len(checked)} chunks, none sync-checked")
+    stream = root / label / "logs" / state.info["log_name"] / "events.jsonl"
+    records = (validate_events(str(stream)) if env.get("HYDRAGNN_TELEMETRY") != "0"
+               else [])
+    for g in (r for r in records if r["event"] == "goodput"):
+        total = sum(g["fractions"].values())
+        if abs(total - 1.0) > 1e-6:
+            raise AssertionError(f"telemetry run {label}: epoch {g['epoch']}'s goodput "
+                                 f"fractions sum to {total}")
+    if records and records[-1] != next(r for r in reversed(records) if r["event"] == "run_end"):
+        raise AssertionError(f"telemetry run {label}: the stream does not end with run_end")
+    ms = [1e3 * h["train_s"] / n_train for h in history]
+    return {"state": state, "records": records, "launches": counts, "wall_s": wall,
+            "stream": stream, "ms_per_step": ms, "epochs": epochs,
+            "sync_checked_chunks": max(len(checked) - 1, 0),
+            "step_ms": [[e, round(1e3 * t, 4)] for e, t in step_times]}
+
+
+def _last_mfu(records):
+    """``{bucket: mfu entry}`` of the last goodput window that has one."""
+    return next((r["mfu"] for r in reversed(records) if r["event"] == "goodput" and r.get("mfu")),
+                {})
+
+
+def _own_mfu(state, training, batches, device, staged):
+    """The smoke's own figure for a train bucket, taken outside the program
+    layer (neither its timer hook nor its FLOP accounting):
+    FlopCounterMode's FLOPs of one eager forward and backward of a copy of
+    the run's model, over the ms a step of a pair of CUDA events around a
+    whole pass of replays of the run's program on another copy
+    (``epoch_scan`` over the staged batches; or ``train_step`` over the
+    batches, each already on the card, back to back), divided by the pass's
+    steps: the median of :data:`TELEMETRY_OWN_PASSES` passes; over the
+    card's f32 peak (``obs/ledger.PEAK_FLOPS``, 67e12). Returns ``(mfu,
+    flops, ms, peak, the passes' ms a step)``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from hydragnn_tpu_torch.obs.ledger import PEAK_FLOPS
+    from hydragnn_tpu_torch.train.transfer import decompact
+
+    model, optimizer = copy.deepcopy((state.model, state.optimizer))
+    trainer = Trainer(model, training)
+    st = dataclasses.replace(state, model=model, optimizer=optimizer, info={})
+    counter_model = copy.deepcopy(state.model).train()
+    first = decompact(trainer.put_batch(batches[0]))
+    with FlopCounterMode(display=False) as counter:
+        loss, _ = counter_model.loss(counter_model(first), first)
+        loss.backward()
+    flops = float(counter.get_total_flops())
+    del counter_model
+    if staged:
+        stack = trainer.stage_batches(batches)
+        trainer.train_epoch_staged(st, stack)  # the capture
+        programs = trainer.programs(st)
+        n, one_pass = stack.nb, lambda: programs.epoch_scan(stack, stack.nb)  # noqa: E731
+    else:
+        trainer.train_step(st, batches[0])  # the capture
+        programs = trainer.programs(st)
+        on_card = [trainer.put_batch(b) for b in batches]
+
+        def one_pass():
+            for b in on_card:
+                programs.train_step(b)
+
+        n = len(on_card)
+    times = []
+    for _ in range(TELEMETRY_OWN_PASSES):
+        begin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        begin.record()
+        one_pass()
+        end.record()
+        end.synchronize()
+        times.append(begin.elapsed_time(end) / n)
+    ms = float(np.median(times))
+    trainer.release()
+    peak = PEAK_FLOPS[torch.cuda.get_device_name(device)]["f32"]
+    return flops / (ms / 1e3) / peak, flops, ms, peak, times
+
+
+def _trace_kernels(path):
+    """The kernel names of a Chrome trace the profiler wrote."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    return {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+
+
+def _obs_cli(args):
+    """``python -m hydragnn_tpu_torch.obs`` in this process: ``(exit code,
+    stdout)``."""
+    import io
+
+    from hydragnn_tpu_torch.obs.__main__ import main as obs_main
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = obs_main(args)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _budget_checks(run_dir, work, device):
+    """The report of ``run_dir`` rendered by the CLI's own process; on the
+    card (where the records carry FLOPs and peak bytes) a budget written
+    from it, checked (exit 0), the same budget with every FLOPs figure
+    halved (exit 1), and a missing stream (exit 2)."""
+    rendered = work / "report.md"
+    with open(rendered, "w") as f:
+        res = subprocess.run([sys.executable, "-m", "hydragnn_tpu_torch.obs", "report",
+                              str(run_dir), "--format", "markdown"], stdout=f,
+                             stderr=subprocess.PIPE, text=True, timeout=300,
+                             cwd=str(_build.REPO_ROOT))
+    if res.returncode != 0:
+        raise AssertionError(f"obs report exited {res.returncode}: {res.stderr}")
+    if device.type != "cuda":
+        return {"report_lines": sum(1 for _ in open(rendered)), "budget": "not on the CPU"}
+    budget = work / "budget.json"
+    rc, _, err = _obs_cli(["report", str(run_dir), "--write-budget", str(budget)])
+    if rc != 0:
+        raise AssertionError(f"obs report --write-budget exited {rc}: {err}")
+    rc_own, _, err_own = _obs_cli(["report", str(run_dir), "--check-budget", str(budget)])
+    with open(budget) as f:
+        halved = json.load(f)
+    for entry in halved["programs"].values():
+        if "flops" in entry:
+            entry["flops"] /= 2.0
+    halved_path = work / "budget_halved.json"
+    with open(halved_path, "w") as f:
+        json.dump(halved, f)
+    rc_halved, _, err_halved = _obs_cli(["report", str(run_dir), "--check-budget",
+                                         str(halved_path)])
+    rc_missing, _, _ = _obs_cli(["report", str(work / "no_such_run")])
+    if (rc_own, rc_halved, rc_missing) != (0, 1, 2):
+        raise AssertionError(f"obs report exit codes: own budget {rc_own} ({err_own}), halved "
+                             f"FLOPs {rc_halved} ({err_halved}), missing stream {rc_missing}; "
+                             "expected 0, 1, 2")
+    return {"report_lines": sum(1 for _ in open(rendered)),
+            "budget_programs": len(halved["programs"]),
+            "exit_codes": {"own_budget": rc_own, "halved_flops": rc_halved,
+                           "missing_stream": rc_missing}}
+
+
+def phase_telemetry(device, card, rehearsal):
+    """Phase 7, training telemetry (``obs/``): ``ci_multihead.json``'s PNA at
+    MXU_HEADLINE's width (hidden 256, 3 layers, ``fused``, f32) through
+    ``run_training`` with ``HYDRAGNN_OBS_PORT=0``, four runs: a guarded
+    streaming run with one poisoned step, its ``/metrics`` and
+    ``/healthz`` scraped and ``/profile?steps=2`` asked after epoch 0 (the
+    trace must name K3's and K1's kernels; the stream holds every kind of
+    :data:`TELEMETRY_REQUIRE`); the staged run twice with telemetry off and
+    twice on, in the order of :data:`TELEMETRY_OVERHEAD_RUNS` (the median ms
+    a step of the on runs' epochs past the capture within
+    :data:`TELEMETRY_OVERHEAD` of the off runs', or of the larger off run's
+    own spread); the same chunked, every chunk after the first queued with
+    no host sync.
+    Each train bucket's MFU (the last goodput window's) is held against the
+    smoke's own figure (:func:`_own_mfu`) within :data:`TELEMETRY_MFU_TOL`;
+    the report, its budget (exit 0) and the budget with the FLOPs halved
+    (exit 1) through the CLI. One ``{"telemetry": ...}`` line a run (with
+    the card's clocks read just after it).
+    Returns the launches."""
+    from hydragnn_tpu_torch.data.loaders import dataset_loading_and_splitting
+
+    root = _build.REPO_ROOT / "build" / "chip_smoke" / "telemetry"
+    if root.exists():
+        shutil.rmtree(root)
+    configs = RUN_REHEARSAL["multihead_configs"] if rehearsal else MULTIHEAD_CONFIGS
+    base = ci_config("ci_multihead.json", root / "data", configs, rehearsal)
+    base["NeuralNetwork"]["Training"]["num_epoch"] = TELEMETRY_EPOCHS
+    # the runs' branch: HYDRAGNN_AGG decides whether the batches carry the
+    # dense lists (which a fused model would then take)
+    with run_directory(root / "loaders", {"HYDRAGNN_AGG": "fused"}):
+        loaders = dataset_loading_and_splitting(copy.deepcopy(base))
+    sizes = tuple(len(ld) for ld in loaders)
+    batches = list(loaders[0])
+    launches = {name: 0 for name in KERNELS}
+    on = {"HYDRAGNN_AGG": "fused", "HYDRAGNN_OBS_PORT": "0"}
+    staged = dict(device_resident_dataset=True, num_epoch=TELEMETRY_STAGED_EPOCHS)
+
+    def config_of(**training):
+        config = copy.deepcopy(base)
+        config["NeuralNetwork"]["Training"].update(training)
+        return config
+
+    off = {"HYDRAGNN_AGG": "fused", "HYDRAGNN_TELEMETRY": "0"}
+    runs = [
+        ("guarded_streaming", config_of(divergence_guard=True),
+         dict(on, HYDRAGNN_FAULT_NAN_AT_STEP=str(min(TELEMETRY_NAN_STEP, sizes[0] - 1))),
+         True, False),
+        *((label, config_of(**staged), on if telemetry else off, False, False)
+          for label, telemetry in TELEMETRY_OVERHEAD_RUNS),
+        ("chunked", config_of(**staged, fit_chunk_epochs=TELEMETRY_CHUNK), on, False, True),
+    ]
+    results, problems = {}, []
+    for label, config, env, scraped, chunked in runs:
+        t0 = time.perf_counter()
+        scrapes = {} if scraped else None
+        run = _telemetry_run(root, label, config, env, device, sizes, scrape=scrapes,
+                             sync_check=chunked)
+        results[label] = run
+        for k, v in run["launches"].items():
+            launches[k] += v
+        records = run["records"]
+        line = {"run": label, "env": env, "epochs": run["epochs"], "wall_s": run["wall_s"],
+                "ms_per_step": run["ms_per_step"],
+                "launches": {k: v for k, v in run["launches"].items() if v}}
+        if records:
+            kinds = {}
+            for r in records:
+                kinds[r["event"]] = kinds.get(r["event"], 0) + 1
+            compiles = [r for r in records if r["event"] == "compile"]
+            line.update(events=kinds, goodput=[
+                {"epoch": g["epoch"], "wall_s": g["wall_s"], "fractions": g["fractions"],
+                 "steps": g.get("steps"), "step_s": g.get("step_s")}
+                for g in records if g["event"] == "goodput"],
+                compiles=[{"name": c["name"], "bucket": c["bucket"], "cost": c["cost"],
+                           "memory": c["memory"], "capture_s": c.get("capture_s")}
+                          for c in compiles])
+            mfu = _last_mfu(records)
+            line["mfu"] = mfu
+            if device.type == "cuda":
+                for bucket, m in mfu.items():
+                    if not 0.0 < m["mfu"] < 1.0:
+                        problems.append(f"telemetry run {label}: {bucket} MFU {m}")
+                prog = "train_step" if label == "guarded_streaming" else "epoch_scan"
+                buckets = [b for b in mfu if b.startswith(prog + "/")]
+                if len(buckets) != 1 or (label != "chunked" and set(mfu) != set(buckets)):
+                    raise AssertionError(f"telemetry run {label}: train buckets {sorted(mfu)}")
+                own, flops, own_ms, peak, own_times = _own_mfu(
+                    run["state"], config["NeuralNetwork"]["Training"], batches, device,
+                    staged=prog == "epoch_scan")
+                ratio = mfu[buckets[0]]["mfu"] / own
+                line["own_mfu"] = {"mfu": own, "flops": flops, "ms_per_step": own_ms,
+                                   "peak_flops": peak, "ratio": ratio,
+                                   "passes_ms_per_step": [round(t, 4) for t in own_times]}
+                line["step_ms"] = run["step_ms"]
+                if abs(ratio - 1.0) > TELEMETRY_MFU_TOL:
+                    problems.append(f"telemetry run {label}: MFU {mfu[buckets[0]]} against the "
+                                    f"smoke's own {line['own_mfu']}")
+        if scraped:
+            missing = [k for k in TELEMETRY_REQUIRE if k not in line["events"]]
+            if missing:
+                raise AssertionError(f"telemetry run {label}: no {missing} in the stream")
+            text, health = scrapes["metrics"], scrapes["health"]
+            for needle in ("hydragnn_train_epochs_total", "hydragnn_train_graphs_per_second",
+                           "hydragnn_train_guard_skips_total 1",
+                           "hydragnn_train_heartbeat_age_seconds"):
+                if needle not in text:
+                    raise AssertionError(f"the mid-run /metrics lacks {needle!r}")
+            if health.get("status") != "ok" or scrapes["profile"].get("status") != "armed":
+                raise AssertionError(f"mid-run /healthz {health}, /profile {scrapes['profile']}")
+            done = [r for r in records if r["event"] == "profile" and r["status"] == "done"]
+            if not done:
+                raise AssertionError(f"the trace never finished: "
+                                     f"{[r for r in records if r['event'] == 'profile']}")
+            names = _trace_kernels(done[0]["trace"]) if device.type == "cuda" else set()
+            found = {k: sorted(n for n in names if sub in n)[:1]
+                     for k, sub in TRACE_KERNELS.items()}
+            if device.type == "cuda" and not all(found.values()):
+                raise AssertionError(f"the trace names no kernel of {TRACE_KERNELS}: {found}")
+            line.update(scrape={"metrics_bytes": len(text), "health": health,
+                                "profile": scrapes["profile"]},
+                        trace={"path": done[0]["trace"], "kernels": found,
+                               "kernel_names": len(names)},
+                        report=_budget_checks(run["stream"].parent, root, device))
+        if chunked:
+            line["sync_checked_chunks"] = run["sync_checked_chunks"]
+        if device.type == "cuda":
+            line["clocks_after"] = clocks_line()
+        line["phase_s"] = time.perf_counter() - t0
+        emit({"telemetry": {**line, "card": card}})
+    # every staged run's epochs past the first (which captures), pooled by side
+    epochs = {label: results[label]["ms_per_step"][1:] for label, _ in TELEMETRY_OVERHEAD_RUNS}
+    on_ms = [t for label, telemetry in TELEMETRY_OVERHEAD_RUNS if telemetry for t in epochs[label]]
+    off_ms = [t for label, telemetry in TELEMETRY_OVERHEAD_RUNS if not telemetry
+              for t in epochs[label]]
+    spread = max((max(epochs[label]) - min(epochs[label])) / float(np.median(epochs[label]))
+                 for label, telemetry in TELEMETRY_OVERHEAD_RUNS if not telemetry)
+    ratio = float(np.median(on_ms)) / float(np.median(off_ms))
+    overhead = {"ms_per_step_on": float(np.median(on_ms)),
+                "ms_per_step_off": float(np.median(off_ms)),
+                "ratio": ratio, "off_spread": spread,
+                "limit": max(TELEMETRY_OVERHEAD, spread),
+                "runs": {label: {"telemetry": telemetry,
+                                 "ms_per_step_median": float(np.median(epochs[label]))}
+                         for label, telemetry in TELEMETRY_OVERHEAD_RUNS}}
+    emit({"telemetry": {"overhead": overhead, "card": card}})
+    if device.type == "cuda" and abs(ratio - 1.0) > overhead["limit"]:
+        problems.append(f"telemetry overhead: {overhead}")
+    # the CLI's other reports on the serving phases' streams, where this run
+    # had them (the fleet's and the tenancy's; not with --only-telemetry)
+    smoke = _build.REPO_ROOT / "build" / "chip_smoke"
+    clis = {}
+    for command, where in (("fleet", smoke / "fleet"), ("drift", smoke / "fleet"),
+                           ("trace", smoke / "tenancy")):
+        if where.exists():
+            rc, out, err = _obs_cli([command, str(where)])
+            clis[command] = {"exit": rc, "lines": out.count("\n")}
+            if rc != 0:
+                problems.append(f"obs {command} {where} exited {rc}: {err.strip()}")
+    emit({"telemetry": {"cli_on_serving_streams": clis or "not run: no serving phase's streams",
+                        "card": card}})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -4385,6 +4846,9 @@ def main(argv=None):
                     help="phases 1, 2 and the serving fleet (phase_fleet) only; no success line")
     ap.add_argument("--only-formats", action="store_true",
                     help="phases 1, 2 and the formats phase (phase_formats) only; no success line")
+    ap.add_argument("--only-telemetry", action="store_true",
+                    help="phases 1, 2 and the telemetry phase (phase_telemetry) only; no success "
+                         "line")
     ap.add_argument("--workdir", default=None,
                     help="the fleet phase's files (default build/chip_smoke/fleet)")
     ap.add_argument("--step1-bucket", action="store_true",
@@ -4404,6 +4868,11 @@ def main(argv=None):
     if args.only_formats:
         add_formats = phase_formats(device, card, rehearsal=args.cpu_rehearsal)
         print(f"only the formats: launches {add_formats}; "
+              f"wall {time.perf_counter() - t_start:.1f} s; no success line", flush=True)
+        return 0
+    if args.only_telemetry:
+        add_telemetry = phase_telemetry(device, card, rehearsal=args.cpu_rehearsal)
+        print(f"only the telemetry: launches {add_telemetry}; "
               f"wall {time.perf_counter() - t_start:.1f} s; no success line", flush=True)
         return 0
     graphs = make_graphs(size["graphs"], size["nodes"], size["degree"], seed=0)
@@ -4524,6 +4993,8 @@ def main(argv=None):
     lap("run_training (whole runs, guard, sentinel)")
     add(phase_formats(device, card, rehearsal=args.cpu_rehearsal))
     lap("run_training (formats, periodic cells, optimizers, conv checkpointing)")
+    add(phase_telemetry(device, card, rehearsal=args.cpu_rehearsal))
+    lap("run_training (telemetry: events, /metrics, /profile, goodput, MFU, report)")
     phase_capture(plan, graphs, device, card, served, benched)
     lap("capture")
 

@@ -39,6 +39,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from hydragnn_tpu_torch.data import GraphData
 from hydragnn_tpu_torch.graph import collate_graphs, compute_triplets, pack_triplets, pad_sizes_for
 from hydragnn_tpu_torch.models import create_model_config
+from hydragnn_tpu_torch.obs.ledger import PEAK_FLOPS
 from hydragnn_tpu_torch.ops.dense_agg import attach_neighbor_lists
 from hydragnn_tpu_torch.train import Trainer, steps
 from hydragnn_tpu_torch.utils import resolve_device
@@ -65,12 +66,11 @@ MXU_ROWS = [
     for mode in ({}, {"dense": True, "bf16": True})
 ]
 
-# peak dense TFLOP/s by torch.cuda.get_device_name() and precision (NVIDIA
-# H100 SXM data sheet: bf16 on the tensor cores without sparsity; f32
-# outside them, as the port runs f32 with TF32 off)
-PEAK_TFLOPS = {
-    "NVIDIA H100 80GB HBM3": {"bf16": 989.0, "f32": 67.0},
-}
+# peak dense TFLOP/s by torch.cuda.get_device_name() and precision: the
+# live MFU gauge's table (obs/ledger.PEAK_FLOPS), so that the two cannot
+# drift apart
+PEAK_TFLOPS = {kind: {prec: flops / 1e12 for prec, flops in row.items()}
+               for kind, row in PEAK_FLOPS.items()}
 
 
 def make_graphs(num_graphs, nodes, degree, seed=0, input_dim=1):

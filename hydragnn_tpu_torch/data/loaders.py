@@ -243,6 +243,29 @@ class GraphLoader:
             return len(self._batch_plan())
         return -(-len(self.dataset) // self.batch_size)
 
+    def epoch_padding_stats(self):
+        """``(real node rows, padded node rows)`` over this epoch's batch
+        plan (the telemetry's padding waste, ``1 - real / padded``), or None
+        for a dataset that is not a list in memory (reading every sample's
+        size would be a pass over the data). Cached per epoch."""
+        cache = getattr(self, "_padding_stats_cache", None)
+        if cache is not None and cache[0] == self.epoch:
+            return cache[1]
+        if isinstance(self.layout, BucketedLayout):
+            plan = self._batch_plan()
+            nodes = self._sizes[1]
+            real = int(sum(int(nodes[chunk].sum()) for _, chunk in plan))
+            padded = int(sum(self.layout.layouts[b].n_pad for b, _ in plan))
+        else:
+            if not isinstance(self.dataset, list):
+                return None
+            nodes = np.fromiter((d.num_nodes for d in self.dataset), np.int64,
+                                count=len(self.dataset))
+            real = int(nodes[self._indices()].sum())
+            padded = len(self) * int(self.layout.n_pad)
+        self._padding_stats_cache = (self.epoch, (real, padded))
+        return real, padded
+
     def batch_tasks(self):
         """``(layout, sample indices)`` of each batch of this epoch."""
         if isinstance(self.layout, BucketedLayout):

@@ -6,10 +6,12 @@ Every line is one JSON object with a fixed envelope::
     {"event": <type>, "ts": <unix seconds>, "seq": <per-stream monotonic int>, ...}
 
 plus the payload fields of the event's type in :data:`EVENT_FIELDS`. The
-port keeps the schema of the kinds it emits: ``span`` (request tracing,
+port keeps the schema of the kinds it emits: a training run's (the run
+manifest, epochs, chunks, checkpoints, the guard, compiles, stalls,
+profiles, goodput; ``obs/runtime.py``), ``span`` (request tracing,
 ``obs/trace.py``), ``quota_adjusted`` (the cost ledger's feedback,
-``serve/costs.py``), ``tenant_cost``, ``cache_stats``, the run manifest,
-and the serving fleet's (``serve/fleet.py``, ``router.py``, ``canary.py``,
+``serve/costs.py``), ``tenant_cost``, ``cache_stats``, and the serving
+fleet's (``serve/fleet.py``, ``router.py``, ``canary.py``,
 ``autoscale.py``, ``obs/drift.py``); the JAX package's ``validate_events``
 reads the streams the port writes, and the port's reads the JAX package's.
 Unknown event types are allowed (a newer writer must not break an older
@@ -35,6 +37,42 @@ EVENT_FIELDS: Dict[str, tuple] = {
         "schema_version", "run", "config_hash", "git_rev", "world_size",
         "device_kind", "device_count", "num_epoch",
     ),
+    # ---- a training run (obs/runtime.py and the train/ modules) ----
+    "epoch": (
+        "epoch", "train_loss", "val_loss", "test_loss", "mode",
+    ),
+    "fit_chunk": ("epoch_start", "epochs", "wall_time_s"),
+    "staged": ("num_batches",),
+    "checkpoint_saved": ("name", "kind"),
+    "checkpoint_restored": ("name", "source"),
+    "guard_skip": ("scope", "skipped"),
+    "guard_restore": ("restores", "lr"),
+    "resume": ("start_epoch",),
+    "early_stop": ("epoch",),
+    "wallclock_stop": ("epoch",),
+    "tracer_totals": ("regions",),
+    "run_end": ("status",),
+    # introspection (obs/introspect.py): one per novel (captured program,
+    # shape key); cost holds the FlopCounterMode FLOPs of the capture's
+    # eager warm-up (aten operations only: the hand-written kernels, reached
+    # through ctypes, are not counted), memory the argument, output and
+    # peak bytes ({} where the device reports none)
+    "compile": ("name", "bucket", "cost", "memory"),
+    # flight recorder: a step exceeded stall_factor x the rolling median
+    # of the last K steps
+    "stall": ("step", "seconds", "median", "factor"),
+    # on-demand trace capture lifecycle (armed -> started -> done)
+    "profile": ("status",),
+    # device memory report
+    "device_memory": ("devices",),
+    # a bucket plan built from a scanned size histogram: the inclusive
+    # node-count boundaries and the simulated padding-waste ratio
+    "bucket_plan": ("num_buckets", "bounds", "samples_scanned", "est_waste"),
+    # goodput ledger (obs/ledger.py): one per epoch window; seconds and
+    # fractions map every CATEGORIES entry to its wall time / fraction
+    # (the fractions sum to 1); optional mfu per train bucket
+    "goodput": ("epoch", "wall_s", "seconds", "fractions",
+                "goodput_fraction"),
     # response cache (serve/cache.py): a measured traffic window's cache
     # counters
     "cache_stats": ("hits", "misses", "evictions", "bytes"),

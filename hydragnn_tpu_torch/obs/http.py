@@ -4,9 +4,11 @@
 The listener needs two things of its provider: ``health() -> dict`` (its
 ``status`` key decides 200 or 503) and ``metrics.render_prometheus() ->
 str``. ``GET /healthz`` answers the JSON health, ``GET /metrics`` the
-Prometheus text. ``GET /profile`` answers 501: on-demand device tracing
-waits for the port of the training telemetry (``ROADMAP.md``, queue 1,
-item 10).
+Prometheus text. ``GET /profile?steps=N`` arms a trace of the next N
+dispatches of a live training run where the provider has ``profile(steps)
+-> dict`` (``obs/runtime.RunTelemetry``: 200 on armed or busy, 400 on an
+error); a provider without it (a server alone, which has no run) answers
+501.
 
 ``http.server`` only; the listener runs on a daemon thread, and ``port=0``
 binds an ephemeral port, readable from :attr:`ObservabilityServer.address`
@@ -17,6 +19,7 @@ import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Tuple
+from urllib.parse import parse_qs, urlsplit
 
 
 class _Listener(ThreadingHTTPServer):
@@ -29,8 +32,9 @@ class _Listener(ThreadingHTTPServer):
 
 
 class ObservabilityServer:
-    """Serves ``/healthz`` + ``/metrics`` for one provider (an
-    :class:`~hydragnn_tpu_torch.serve.server.InferenceServer`).
+    """Serves ``/healthz``, ``/metrics`` and ``/profile`` for one provider
+    (an :class:`~hydragnn_tpu_torch.serve.server.InferenceServer`, a
+    training run's :class:`~hydragnn_tpu_torch.obs.runtime.RunTelemetry`).
 
     ``start()`` on a started listener and ``stop()`` on a stopped one are
     no-ops. Two locks, always lifecycle -> state: ``_lifecycle_lock``
@@ -63,9 +67,21 @@ class ObservabilityServer:
                     code = 200
                     ctype = "text/plain; version=0.0.4"
                 elif self.path.split("?", 1)[0] == "/profile":
-                    body = b"this provider does not support on-demand profiling\n"
-                    code = 501
-                    ctype = "text/plain"
+                    profile = getattr(provider, "profile", None)
+                    if profile is None:
+                        body = b"this provider does not support on-demand profiling\n"
+                        code = 501
+                        ctype = "text/plain"
+                    else:
+                        qs = parse_qs(urlsplit(self.path).query)
+                        try:
+                            steps = int(qs.get("steps", ["3"])[0])
+                        except ValueError:
+                            steps = -1  # profile() answers with an error
+                        result = profile(steps)
+                        body = json.dumps(result).encode()
+                        code = 200 if result.get("status") in ("armed", "busy") else 400
+                        ctype = "application/json"
                 else:
                     body = (b"not found: this endpoint exposes /healthz, /metrics "
                             b"and /profile\n")

@@ -42,6 +42,7 @@ import torch
 
 from hydragnn_tpu_torch.obs.drift import P2Quantile
 from hydragnn_tpu_torch.obs.metrics import MetricsRegistry
+from hydragnn_tpu_torch.obs import introspect
 from hydragnn_tpu_torch.train.capture import ProgramSet
 from hydragnn_tpu_torch.utils.device import resolve_device
 from hydragnn_tpu_torch.utils.envparse import env_int
@@ -158,7 +159,9 @@ class UncertaintyScorer:
                                 for o in model(b, sample=True)]
 
                 bodies = 1
-        return self._programs.program(name, body, bodies=lambda args, n=bodies: n)
+        # accounted like the forward while a telemetry run is active
+        return introspect.instrument(
+            self._programs.program(name, body, bodies=lambda args, n=bodies: n))
 
     def dispatch(self, entry, batch, run: bool = True):
         """Per-head predictive variance of one packed host batch (device

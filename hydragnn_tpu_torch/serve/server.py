@@ -34,8 +34,9 @@ Request lifecycle::
   model's entries through the registry's activation listener.
 - **Costs** (``serve/costs.py``): every batch's host wall from packing to
   readback, and its bucket's matmul FLOPs (counted once per version and
-  bucket by ``FlopCounterMode`` over the capture's eager warm-up; the
-  hand-written kernels add 0), go to the batch's tenant.
+  bucket by ``FlopCounterMode`` over the capture's eager warm-up,
+  ``obs/introspect.py``; the hand-written kernels add 0), go to the
+  batch's tenant.
 - **Tracing** (``obs/trace.py``): a request submitted with ``trace=``
   records ``queue_wait``, ``batch_form``, ``dispatch`` and ``readback``
   (the span starts from one ``time.time()`` read per batch), or
@@ -64,9 +65,9 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.utils.flop_counter import FlopCounterMode
 
 from hydragnn_tpu_torch.data.dataobj import GraphData
+from hydragnn_tpu_torch.obs import introspect
 from hydragnn_tpu_torch.serve.buckets import ServingBucketPlan
 from hydragnn_tpu_torch.serve.cache import ResponseCache, canonical_graph_key
 from hydragnn_tpu_torch.serve.metrics import ServeMetrics
@@ -232,7 +233,6 @@ class InferenceServer:
         self._shape_flops: Dict[Tuple, float] = {}
         # per thread, the capture being counted (``.counting``): the batcher and
         # a caller's warm-up may capture at once
-        self._flop_probe = threading.local()
         self._queue: "queue.Queue[_Request]" = queue.Queue(maxsize=self.queue_capacity)
         # mutated only by the batcher thread; the lock covers the cross-
         # thread reads (_depth from submitters, the sweep in stop)
@@ -704,8 +704,8 @@ class InferenceServer:
     def _compiled(self, entry: ModelEntry, batch, bucket: int, run: bool = True):
         """``entry``'s forward program on one host batch: captured, and
         counted in ``compiles_total``, when its (version, shape) key is new
-        (its matmul FLOPs counted over the capture's eager run when a cost
-        ledger bills them); replayed with ``run``. Returns the per-head
+        (its matmul FLOPs counted over the capture's eager warm-up by
+        ``obs.introspect`` when a cost ledger bills them); replayed with ``run``. Returns the per-head
         outputs (on the device) with ``run``."""
         if entry.device != self.device:
             raise RuntimeError(
@@ -717,30 +717,23 @@ class InferenceServer:
         model = entry.model
 
         def forward(b):
-            probe = getattr(self._flop_probe, "counting", None)
             with torch.inference_mode():
-                if probe is None or "flops" in probe:
-                    return [o.to(torch.float32) for o in model(b)]
-                with FlopCounterMode(display=False) as counter:
-                    out = [o.to(torch.float32) for o in model(b)]
-                probe["flops"] = float(counter.get_total_flops())
-                return out
+                return [o.to(torch.float32) for o in model(b)]
 
         prog = self._programs.program(f"serve:{entry.name}:v{entry.version}", forward)
+        if not prog.instrumented:
+            # a cost ledger bills FLOPs: every capture counts them (and
+            # takes no memory peak outside a telemetry run, obs/introspect.py)
+            introspect.instrument(prog, always=self.costs is not None)
         before = prog.captures
-        probe = None
-        if self.costs is not None and prog.key((batch,)) not in prog.graphs:
-            probe = self._flop_probe.counting = {}
-        try:
-            outputs = prog(batch) if run else prog.prepare(batch)
-            if probe is not None and "flops" not in probe:
-                forward(batch)  # a CPU "capture" runs no body: count on one run
-        finally:
-            self._flop_probe.counting = None
+        outputs = prog(batch) if run else prog.prepare(batch)
         if prog.captures != before:
             self.metrics.on_compile()
-            if probe is not None:
-                self._shape_flops[(entry.key, bucket)] = probe["flops"]
+            if self.costs is not None:
+                rec = prog.records.get(
+                    introspect.bucket_label(prog.name, introspect.signature_key((batch,))))
+                self._shape_flops[(entry.key, bucket)] = (rec or {}).get("cost", {}).get(
+                    "flops", 0.0)
         return outputs
 
     def _scored(self, entry: ModelEntry, batch, run: bool = True):

@@ -47,6 +47,15 @@ and selects and the divergence guard copies, always in place, since a captured g
 tensors and a tensor rebound in Python would leave it reading stale
 memory.
 
+Telemetry (``obs/``): a program marked by ``obs.introspect.instrument``
+records each novel shape key once (``Program.records``: the warm-up's
+FLOPs under ``FlopCounterMode``, the argument, output and peak bytes, the
+capture's seconds; on the CPU, at its first run, the bytes); every capture adds
+its seconds to the run's compile signal (``obs.runtime.note_compile``, a
+kernel source's first-launch build in its warm-up included); and while a pass is timed (``ProgramSet.timer``, an
+``obs.runtime.StepTimer``) each training program marks its input copy and
+replay with a pair of CUDA events.
+
 Launch accounting (``ops.launch_counts``): a capture records the kernel
 wrappers' launch counts of its capture pass and takes them back off (the
 capture launched nothing); each replay adds them again. The warm-up's
@@ -55,7 +64,9 @@ step and forward bodies that warm-ups ran, beside captures and replays,
 process-wide as the launch counts are.
 """
 
+import contextlib
 import dataclasses
+import time
 from typing import Callable, Dict, List, Optional
 
 import torch
@@ -64,6 +75,8 @@ from torch.utils._pytree import tree_leaves, tree_map
 
 from hydragnn_tpu_torch import ops
 from hydragnn_tpu_torch.graph.batch import GraphBatch, stage_bytes, unstage_bytes
+from hydragnn_tpu_torch.obs import introspect
+from hydragnn_tpu_torch.obs import runtime as obs_runtime
 
 # process-wide, as ops.launch_counts(): graphs captured, replays, and the
 # training-step and forward bodies that capture warm-ups ran on the card
@@ -162,10 +175,17 @@ class _Graph:
     launches: Dict[str, int]  # kernel launches of one replay
     keep: list  # tensors the graph writes and keeps beyond a replay
 
-    def fill(self, leaves):
-        """Refill the static inputs from ``leaves`` (same shapes)."""
+    def stage(self, leaves):
+        """The host work of a refill: host ``leaves`` packed into one pinned
+        buffer (None for device leaves, which copy as they are)."""
         if self.buffer is not None and all(t.device.type == "cpu" for t in leaves):
-            host, _ = stage_bytes(leaves, pin_memory=True)  # the key fixed the layout
+            return stage_bytes(leaves, pin_memory=True)[0]  # the key fixed the layout
+        return None
+
+    def fill(self, leaves, host=None):
+        """Refill the static inputs from ``leaves`` (same shapes), from
+        :meth:`stage`'s ``host`` buffer where there is one."""
+        if host is not None:
             self.buffer.copy_(host, non_blocking=True)
             return
         for s, t in zip(self.static, leaves):
@@ -196,6 +216,11 @@ class Program:
         self.graphs: Dict[tuple, object] = {}  # key -> _Graph (CPU: None)
         self.captures = 0
         self.replays = 0
+        # introspection (obs/introspect.instrument): the records by bucket
+        # label, and the CPU keys prepared before their first call
+        self.instrumented = False
+        self.records: Dict[str, dict] = {}
+        self._unrecorded = set()
 
     def key(self, args):
         key = shape_key(args)
@@ -210,17 +235,35 @@ class Program:
             if novel:
                 self.graphs[key] = None
                 self._count_capture()
-            return self.body(*args)
+            timer = self.owner.timer if self.kind == "step" else None
+            mark = None if timer is None else timer.start()
+            if (novel or key in self._unrecorded) and introspect.wants(self):
+                self._unrecorded.discard(key)
+                out = self._run_accounted(args)
+            else:
+                out = self.body(*args)
+            if timer is not None:
+                timer.stop(mark, self.bodies(args))
+            return out
         leaves, _ = _flatten(args)
         if any(t.device.type == "cuda" and t.device != self.owner.device for t in leaves):
             raise RuntimeError(f"{self.name}: inputs on another device than {self.owner.device}")
         entry = self._capture(args) if novel else self.graphs[key]
+        host = None
         if novel:
             self.graphs[key] = entry
         elif not self.bound:
-            entry.fill(leaves)
+            host = entry.stage(leaves)
+        # a training step's device time: the refill's copy and the replay,
+        # not the host's packing before them nor a capture (obs/runtime.py)
+        timer = self.owner.timer if self.kind == "step" else None
+        mark = None if timer is None else timer.start()
+        if not novel and not self.bound:
+            entry.fill(leaves, host)
         with record_function(f"replay.{self.name}"):
             entry.graph.replay()
+        if timer is not None:
+            timer.stop(mark, self.bodies(args))
         ops.add_launches(entry.launches)
         self.replays += 1
         _TALLY["replays"] += 1
@@ -235,8 +278,35 @@ class Program:
         if self.owner.device.type != "cuda":
             self.graphs[key] = None
             self._count_capture()
+            if introspect.wants(self):
+                if self.instrumented == "always" and not self.mutates:
+                    self._run_accounted(args)  # a forward that bills its FLOPs
+                else:  # accounted at its first call
+                    self._unrecorded.add(key)
             return
         self.graphs[key] = self._capture(args)
+
+    def _probe(self, args, leaves):
+        """An introspection probe for a capture of ``args`` when this
+        program is accounted and the shape key has no record yet."""
+        if not introspect.wants(self):
+            return None
+        sig = introspect.signature_key(args)
+        if introspect.bucket_label(self.name, sig) in self.records:
+            return None
+        return introspect.Probe(self, sig, leaves, self.owner.device)
+
+    def _run_accounted(self, args):
+        """The CPU's run of a novel key: no capture, so no warm-up to count;
+        its record holds the bytes, and the FLOPs only where the program
+        bills them (``instrument(always=True)``: the server's forward)."""
+        probe = self._probe(args, _flatten(args)[0])
+        if probe is None:
+            return self.body(*args)
+        with probe.counting() if self.instrumented == "always" else contextlib.nullcontext():
+            out = self.body(*args)
+        probe.finish(out)
+        return out
 
     def _count_capture(self):
         self.captures += 1
@@ -252,33 +322,43 @@ class Program:
             buffer = host.to(owner.device)
             static = unstage_bytes(buffer, spans)
         static_args = rebuild(static)
-        snap = owner.snapshot() if self.mutates else None
-        # a bound program's tensor arguments (a cursor, result rows) are
-        # the graph's to write: the warm-up's writes to them are undone too
-        written = ([(t, t.detach().clone()) for t in args if torch.is_tensor(t)]
-                   if self.bound else [])
-        stream = owner.stream
-        stream.wait_stream(torch.cuda.current_stream(owner.device))
-        with torch.cuda.stream(stream):
-            self.body(*static_args)  # warm-up: builds kernels, lazy state
-            if snap is not None:
-                owner.restore(snap)
-            with torch.no_grad():  # a tail's arguments include the parameters
-                for t, before in written:
-                    t.copy_(before)
-        torch.cuda.current_stream(owner.device).wait_stream(stream)
-        if self.kind != "tail":
-            _TALLY["warm_steps" if self.kind == "step" else "warm_forwards"] += self.bodies(args)
-        graph = torch.cuda.CUDAGraph()
-        if owner.generator is not None:
-            graph.register_generator_state(owner.generator)
-        before = ops.launch_counts()
-        with torch.cuda.graph(graph, pool=owner.pool, stream=stream,
-                              capture_error_mode="thread_local"):
-            out = self.body(*static_args)
+        probe = self._probe(args, static)
+        counting = probe.counting() if probe is not None else contextlib.nullcontext()
+        t0 = time.perf_counter()
+        with probe.measure() if probe is not None else contextlib.nullcontext():
+            snap = owner.snapshot() if self.mutates else None
+            # a bound program's tensor arguments (a cursor, result rows) are
+            # the graph's to write: the warm-up's writes to them are undone too
+            written = ([(t, t.detach().clone()) for t in args if torch.is_tensor(t)]
+                       if self.bound else [])
+            stream = owner.stream
+            stream.wait_stream(torch.cuda.current_stream(owner.device))
+            with torch.cuda.stream(stream):
+                with counting:
+                    self.body(*static_args)  # warm-up: builds kernels, lazy state
+                if snap is not None:
+                    owner.restore(snap)
+                with torch.no_grad():  # a tail's arguments include the parameters
+                    for t, before in written:
+                        t.copy_(before)
+            torch.cuda.current_stream(owner.device).wait_stream(stream)
+            if self.kind != "tail":
+                _TALLY["warm_steps" if self.kind == "step" else "warm_forwards"] += self.bodies(args)
+            graph = torch.cuda.CUDAGraph()
+            if owner.generator is not None:
+                graph.register_generator_state(owner.generator)
+            before = ops.launch_counts()
+            with torch.cuda.graph(graph, pool=owner.pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                out = self.body(*static_args)
         launches = {k: v - before[k] for k, v in ops.launch_counts().items()}
         ops.add_launches({k: -v for k, v in launches.items()})
         self._count_capture()
+        # the run's compile signal: the capture's seconds, the kernels'
+        # first-launch builds in the warm-up included
+        obs_runtime.note_compile(time.perf_counter() - t0)
+        if probe is not None:
+            probe.finish(out)
         keep = [t for t in tree_leaves(out) if torch.is_tensor(t)] + owner.persistent()
         if self.bound:
             keep += static
@@ -297,6 +377,9 @@ class ProgramSet:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.model, self.optimizer, self.generator = model, optimizer, generator
         self.programs: Dict[str, Program] = {}
+        # an obs.runtime.StepTimer while a pass is timed: each training
+        # step's replay is marked with a pair of CUDA events
+        self.timer = None
         if self.device.type == "cuda":
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(self.device)

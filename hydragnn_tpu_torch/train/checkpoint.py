@@ -22,7 +22,9 @@ older weights). :class:`AsyncCheckpointWriter` moves serialisation and
 I/O to a background thread; the caller keeps only the snapshot, an owned
 host copy of every tensor. After each write ``utils.faults.corrupt_checkpoint``
 may flip a byte of the primary file (``HYDRAGNN_FAULT_CORRUPT_CHECKPOINT``),
-which the load's CRC check and rolling fallback then meet.
+which the load's CRC check and rolling fallback then meet. Each write and
+each load is a ``checkpoint_saved`` / ``checkpoint_restored`` event of the
+active run (``obs/runtime.py``).
 """
 
 import binascii
@@ -37,6 +39,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from hydragnn_tpu_torch.obs import runtime as obs
 from hydragnn_tpu_torch.train import msgpack_codec
 from hydragnn_tpu_torch.utils import faults
 
@@ -145,14 +148,22 @@ def save_model(state_or_dict, name: str, path: str = "./logs/",
     sd = _to_host(sd, copy=writer is not None)
     snapshot_s = time.perf_counter() - t0
     keep = _resolve_keep_last(keep_last)
+    resumable = train_meta is not None
     if writer is None:
-        nbytes, write_s = _serialize_and_write(sd, path, name, keep)
+        nbytes, write_s = _serialize_and_write(sd, path, name, keep, resumable, snapshot_s)
         return {"bytes": nbytes, "snapshot_s": snapshot_s, "write_s": write_s}
-    writer.submit(lambda: _serialize_and_write(sd, path, name, keep))
+    queued = time.perf_counter()
+    writer.submit(lambda: _serialize_and_write(sd, path, name, keep, resumable, snapshot_s,
+                                               queued))
     return {"bytes": None, "snapshot_s": snapshot_s, "write_s": None}
 
 
-def _serialize_and_write(sd, path: str, name: str, keep: int):
+def _serialize_and_write(sd, path: str, name: str, keep: int, resumable: bool = False,
+                         snapshot_s: float = 0.0, queued: Optional[float] = None):
+    """Encode, write durably, keep the rolling copies; inline for a sync
+    save, on the writer's thread for an async one. The ``checkpoint_saved``
+    event carries the snapshot and write seconds (and, async, the queue
+    wait): the goodput ledger's checkpoint category."""
     t0 = time.perf_counter()
     out_dir = os.path.join(path, name)
     os.makedirs(out_dir, exist_ok=True)
@@ -162,7 +173,12 @@ def _serialize_and_write(sd, path: str, name: str, keep: int):
     if keep > 0:
         _retain_rolling(out_dir, name, payload, keep)
     faults.corrupt_checkpoint(final)  # HYDRAGNN_FAULT_CORRUPT_CHECKPOINT; else nothing
-    return len(payload), time.perf_counter() - t0
+    write_s = time.perf_counter() - t0
+    obs.checkpoint_saved(
+        name, kind="best" if name.endswith("-best") else "primary", resumable=resumable,
+        bytes=len(payload), snapshot_s=round(snapshot_s, 6), write_s=round(write_s, 6),
+        **({} if queued is None else {"async": True, "queued_s": round(t0 - queued, 6)}))
+    return len(payload), write_s
 
 
 class AsyncCheckpointWriter:
@@ -324,7 +340,9 @@ def load_state_dict(name: str, path: str = "./logs/", fallback: bool = True) -> 
     try:
         with open(fname, "rb") as f:
             raw = f.read()
-        return parse_checkpoint_bytes(raw, fname)
+        restored = parse_checkpoint_bytes(raw, fname)
+        obs.checkpoint_restored(name, source="primary")
+        return restored
     except (ValueError, OSError) as primary_err:
         refused = isinstance(primary_err, ValueError) and "format version" in str(primary_err)
         if not fallback or refused:
@@ -341,6 +359,7 @@ def load_state_dict(name: str, path: str = "./logs/", fallback: bool = True) -> 
                 f"checkpoint {fname} unreadable ({primary_err}); restored the last good "
                 f"rolling checkpoint {os.path.basename(roll)}"
             )
+            obs.checkpoint_restored(name, source=f"rolling:{os.path.basename(roll)}")
             return restored
         raise
 

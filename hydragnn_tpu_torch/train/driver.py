@@ -10,6 +10,12 @@ run itself (``Training.continue``), the epochs (``train/epoch_driver.py``)
 and the final checkpoint ``./logs/<name>/<name>.pk`` beside the saved
 ``config.json``.
 
+The run records its telemetry (``obs/runtime.py``): ``events.jsonl``
+(manifest, epochs, checkpoints, guard, compiles, goodput, ``tracer_totals``
+and ``run_end``, ``failed`` when anything raised), the per-epoch scalars
+(``obs/scalars.py``), the tracer's regions under ``./logs/<name>/trace``,
+and the live endpoint when a port is asked for.
+
 ``run_prediction_impl`` rebuilds the model from the same config, loads
 the run's checkpoint strictly (no rolling fallback: a prediction never
 reports older weights), and returns ``(error, per-head errors, true
@@ -26,6 +32,8 @@ import numpy as np
 from hydragnn_tpu_torch.data.loaders import dataset_loading_and_splitting
 from hydragnn_tpu_torch.models.bridge import restore_state
 from hydragnn_tpu_torch.models.create import create_model_config
+from hydragnn_tpu_torch.obs import runtime as obs
+from hydragnn_tpu_torch.obs.scalars import ScalarWriter
 from hydragnn_tpu_torch.train.checkpoint import (
     checkpoint_exists,
     drain_async,
@@ -42,7 +50,9 @@ from hydragnn_tpu_torch.utils.config import (
     save_config,
     update_config,
 )
+from hydragnn_tpu_torch.utils import tracer as tr
 from hydragnn_tpu_torch.utils.device import resolve_device
+from hydragnn_tpu_torch.utils.timers import Timer, print_timers
 
 
 def _arch_for_factory(config) -> dict:
@@ -80,41 +90,77 @@ def _prepare(config, device):
     return dev, verbosity, loaders, config
 
 
-def run_training_impl(config, device=None):
+def run_training_impl(config, device=None, telemetry_port=None):
     """Train the run of ``config``; returns the final ``TrainState``, with
     the run's name, per-epoch history, last checkpoint write, the chunks'
-    readbacks and the divergence guard's counters in its ``info``."""
+    readbacks and the divergence guard's counters in its ``info``.
+    ``telemetry_port``: the live endpoint's port (beats
+    ``HYDRAGNN_OBS_PORT`` and ``Telemetry.port``; 0 an ephemeral one)."""
     t0 = time.perf_counter()
+    timer = Timer("run_training")
+    timer.start()
+    tr.initialize()
     dev, verbosity, (train_loader, val_loader, test_loader), config = _prepare(config, device)
+    tr.set_device(dev)
     log_name = get_log_name_config(config)
     save_config(config, log_name)
-    _, trainer, state = build_model_and_trainer(config, train_loader, dev)
-    training = config["NeuralNetwork"]["Training"]
-    resume_meta = None
-    if training.get("continue"):
-        model_name = training.get("startfrom", log_name)
-        if checkpoint_exists(model_name) or rolling_checkpoints(model_name):
-            restored = load_state_dict(model_name)
-            # a startfrom of another run is a warm start at epoch 0: its
-            # loop state is dropped; a resume of this run keeps it
-            meta = pop_train_meta(restored)
-            if model_name == log_name:
-                resume_meta = meta
-            state = trainer.place_state(restore_state(state, restored))
+    # the run's telemetry: events.jsonl and the training metrics, and the
+    # live endpoint when a port is asked for; HYDRAGNN_TELEMETRY=0 disables
+    telemetry = obs.init_run_telemetry(config, log_name, port=telemetry_port, device=dev)
+    if getattr(train_loader, "plan_event", None):
+        obs.emit("bucket_plan", **train_loader.plan_event)
+    writer = None
     try:
+        _, trainer, state = build_model_and_trainer(config, train_loader, dev)
+        training = config["NeuralNetwork"]["Training"]
+        resume_meta = None
+        if training.get("continue"):
+            model_name = training.get("startfrom", log_name)
+            if checkpoint_exists(model_name) or rolling_checkpoints(model_name):
+                restored = load_state_dict(model_name)
+                # a startfrom of another run is a warm start at epoch 0: its
+                # loop state is dropped; a resume of this run keeps it
+                meta = pop_train_meta(restored)
+                if model_name == log_name:
+                    resume_meta = meta
+                state = trainer.place_state(restore_state(state, restored))
+        writer = ScalarWriter.for_run(log_name)
         state = train_validate_test(
             trainer, state, train_loader, val_loader, test_loader, config["NeuralNetwork"],
-            log_name, verbosity,
+            log_name, verbosity, writer=writer,
             create_plots=config.get("Visualization", {}).get("create_plots", False),
             resume_meta=resume_meta)
         if not trainer.final_state_saved:
             trainer.last_save = save_model(state, log_name, train_meta=trainer.final_train_meta)
+        timer.stop()
+        if verbosity:
+            print_timers(verbosity)
+        tr.save(f"./logs/{log_name}/trace")
+        # the region totals: always to the scalars, to the events with a run
+        regions = tr.totals()
+        if regions:
+            if writer is not None:
+                writer.add_regions(regions, step=training["num_epoch"])
+            if telemetry is not None:
+                telemetry.emit("tracer_totals",
+                               regions={k: round(v, 6) for k, v in regions.items()})
     except BaseException:
+        # the stream records that the run died: run_end "failed"
         try:
-            drain_async(timeout=60.0)
-        except Exception:
-            pass  # the original failure is the one to raise
+            try:
+                drain_async(timeout=60.0)
+            except Exception:
+                pass  # the original failure is the one to raise
+            if writer is not None:
+                writer.close()
+        finally:
+            obs.deactivate(status="failed")
         raise
+    try:
+        if writer is not None:
+            writer.close()
+    finally:
+        obs.deactivate(status="complete")  # run_end, even if a backend fails to close
     state.info.update(log_name=log_name, history=trainer.history,
                       last_save=getattr(trainer, "last_save", None),
                       wall_s=time.perf_counter() - t0, fit_readbacks=trainer.fit_readbacks,

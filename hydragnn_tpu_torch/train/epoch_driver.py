@@ -60,8 +60,14 @@ resumable save is also snapshotted into the serving side's
 epoch and the validation loss in the manifest. With the async writer the
 snapshot rides the writer's queue behind the save, so only a durable
 checkpoint is published. A publish that fails with ``OSError`` is printed
-and the run goes on. The port's driver keeps no event stream: the manifest
-is the record (the JAX package also emits ``candidate_published``).
+and the run goes on; a published one is a ``candidate_published`` event.
+
+Telemetry (``obs/runtime.py``; no-ops without an active run): each epoch
+(or chunk) opens a goodput window (``epoch_start``), the evaluation is
+its eval span, each logged epoch is an ``epoch`` event with its throughput
+and padding waste (and its losses go to ``writer``, the run's scalars),
+and a resume, a chunk, an early stop and a wall-clock stop are events; a
+chunk or a staged epoch ticks the trace capture.
 
 Elastic runs and plots raise where a config or the environment asks for
 them (``ROADMAP.md``, queue 1).
@@ -73,6 +79,7 @@ import time
 import numpy as np
 import torch
 
+from hydragnn_tpu_torch.obs import runtime as obs
 from hydragnn_tpu_torch.parallel.distributed import check_remaining
 from hydragnn_tpu_torch.train.checkpoint import drain_async, resolve_async_writer, save_model
 from hydragnn_tpu_torch.train.common import FIT_SCHED_FIELDS, SchedState, _env_flag, _is_oom
@@ -122,12 +129,15 @@ def _candidate_publisher(training: dict, log_name: str, writer, verbosity: int):
             from hydragnn_tpu_torch.serve.registry import publish_candidate
 
             try:
-                publish_candidate(publish_dir, log_name, "./logs/", keep_last=keep,
-                                  epoch=int(epoch),
-                                  val_loss=None if val_loss is None else float(val_loss))
+                manifest = publish_candidate(
+                    publish_dir, log_name, "./logs/", keep_last=keep, epoch=int(epoch),
+                    val_loss=None if val_loss is None else float(val_loss))
             except OSError as e:
                 # an unwritable channel must not end a run that would finish
                 print_distributed(verbosity, f"candidate publish failed: {e}")
+                return
+            obs.emit("candidate_published", candidate=int(manifest["seq"]),
+                     checkpoint=manifest["checkpoint"], epoch=int(epoch))
 
         # behind the save on the writer's queue: only a durable file is copied
         if writer is not None:
@@ -136,6 +146,32 @@ def _candidate_publisher(training: dict, log_name: str, writer, verbosity: int):
             job()
 
     return publish
+
+
+def _epoch_complete(train_loader, epoch, train_loss, val_loss, test_loss, t_train, mode):
+    """The epoch's record for the active run: throughput and padding waste
+    from the loader's epoch plan (JAX ``epoch_driver.py:387-415``)."""
+    graphs_per_sec = nodes_per_sec = waste = None
+    stats = None
+    if hasattr(train_loader, "epoch_padding_stats"):
+        try:
+            stats = train_loader.epoch_padding_stats()
+        except Exception:
+            stats = None
+    if stats is not None and stats[1]:
+        waste = 1.0 - stats[0] / stats[1]
+    if t_train:
+        try:
+            n = len(train_loader.dataset)
+        except TypeError:
+            n = 0
+        if n:
+            graphs_per_sec = n / t_train
+        if stats is not None:
+            nodes_per_sec = stats[0] / t_train
+    obs.epoch_complete(epoch, train_loss, val_loss, test_loss, seconds=t_train,
+                       graphs_per_sec=graphs_per_sec, nodes_per_sec=nodes_per_sec,
+                       padding_waste=waste, mode=mode)
 
 
 def build_train_meta(epoch, rng, scheduler, early, ckpt, guard=None, sched=None,
@@ -175,14 +211,15 @@ def mirror_sched(sched: dict, scheduler, early, lr: float):
 
 
 def train_validate_test(trainer, state, train_loader, val_loader, test_loader,
-                        config_nn: dict, log_name: str, verbosity: int = 0,
+                        config_nn: dict, log_name: str, verbosity: int = 0, writer=None,
                         create_plots: bool = False, resume_meta=None):
     """Run the epochs of ``config_nn["Training"]`` from epoch 0, or from the
     epoch after ``resume_meta["epoch"]`` with its trackers when resuming.
     Returns the state; ``trainer.history`` holds each epoch's losses,
     walls and host collation seconds, ``trainer.final_train_meta`` the last ``train_meta`` and
     ``trainer.final_state_saved`` whether the state is already in the
-    primary checkpoint."""
+    primary checkpoint. ``writer`` (``add_scalar(tag, value, step)``, the
+    run's ``obs.scalars.ScalarWriter``) takes each epoch's losses."""
     training = config_nn["Training"]
     _check_supported(training, create_plots)
     num_epoch = training["num_epoch"]
@@ -194,7 +231,7 @@ def train_validate_test(trainer, state, train_loader, val_loader, test_loader,
     rng = prng_key(seed)
     resume_every = int(os.getenv("HYDRAGNN_RESUME_EVERY", str(training.get("resume_every", 1))))
     keep_last = int(os.getenv("HYDRAGNN_CKPT_KEEP", str(training.get("checkpoint_keep_last", 3))))
-    writer = resolve_async_writer(training)
+    ckpt_writer = resolve_async_writer(training)
 
     guard = getattr(trainer, "guard", None)
     skip_valtest = int(os.getenv("HYDRAGNN_VALTEST", "1")) == 0
@@ -224,21 +261,23 @@ def train_validate_test(trainer, state, train_loader, val_loader, test_loader,
             start_epoch = num_epoch
         print_distributed(verbosity, f"Resuming training at epoch {start_epoch} "
                                      f"(lr {scheduler.lr:.3e})")
+        obs.emit("resume", start_epoch=int(start_epoch), lr=float(scheduler.lr))
         trainer.final_state_saved = start_epoch >= num_epoch
 
-    publish = _candidate_publisher(training, log_name, writer, verbosity)
+    publish = _candidate_publisher(training, log_name, ckpt_writer, verbosity)
 
     def save_resumable(epoch, sched=None, val_loss=None):
         meta = build_train_meta(epoch, rng, scheduler, early, ckpt, guard, sched,
                                 trainer.perm_generator.get_state())
         trainer.last_save = save_model(state, log_name, train_meta=meta, keep_last=keep_last,
-                                       writer=writer)
+                                       writer=ckpt_writer)
         trainer.final_train_meta = meta
         trainer.final_state_saved = True
         if publish is not None:
             publish(epoch, val_loss)
 
-    def log_epoch(epoch, train_loss, val_loss, test_loss, train_tasks, t_train, extra):
+    def log_epoch(epoch, train_loss, val_loss, test_loss, train_tasks, t_train, extra,
+                  mode="stream"):
         print_distributed(
             verbosity,
             f"Epoch: {epoch:04d}, Train Loss: {train_loss:.8f}, Val Loss: {val_loss:.8f}, "
@@ -249,6 +288,14 @@ def train_validate_test(trainer, state, train_loader, val_loader, test_loader,
             "test_loss": float(test_loss), "train_tasks": np.atleast_1d(train_tasks).tolist(),
             "train_s": t_train, **extra,
         })
+        if writer is not None:
+            writer.add_scalar("train error", train_loss, epoch)
+            writer.add_scalar("validate error", val_loss, epoch)
+            writer.add_scalar("test error", test_loss, epoch)
+            for itask, tl in enumerate(np.atleast_1d(train_tasks)):
+                writer.add_scalar(f"train error of task {itask}", float(tl), epoch)
+        if obs.active() is not None:
+            _epoch_complete(train_loader, epoch, train_loss, val_loss, test_loss, t_train, mode)
 
     staged = None
     if _env_flag("HYDRAGNN_DEVICE_RESIDENT", training, "device_resident_dataset"):
@@ -298,6 +345,8 @@ def train_validate_test(trainer, state, train_loader, val_loader, test_loader,
     for epoch in range(start_epoch, num_epoch) if not ran_fit else ():
         t0 = time.time()
         trainer.final_state_saved = False
+        # the goodput window and HYDRAGNN_PROFILE_AT_STEP's <epoch>:<step>
+        obs.epoch_start(epoch)
         train_loader.set_epoch(epoch)
         collate0 = trainer.collate_s
         if staged is not None:
@@ -309,7 +358,11 @@ def train_validate_test(trainer, state, train_loader, val_loader, test_loader,
         if skip_valtest:
             val_loss = test_loss = train_loss
         else:
-            val_loss, test_loss = evaluate_both()
+            obs.eval_start()  # the goodput ledger's eval span
+            try:
+                val_loss, test_loss = evaluate_both()
+            finally:
+                obs.eval_complete()
         if guard is not None:
             if not (np.isfinite(train_loss) and np.isfinite(val_loss)):
                 print_distributed(
@@ -331,15 +384,18 @@ def train_validate_test(trainer, state, train_loader, val_loader, test_loader,
             save_resumable(epoch, val_loss=val_loss)
         log_epoch(epoch, train_loss, val_loss, test_loss, train_tasks, t_train, {
             "train_collate_s": collate_s, "epoch_s": time.time() - t0,
-            "lr": float(get_learning_rate(state.optimizer))})
+            "lr": float(get_learning_rate(state.optimizer))},
+            mode="staged" if staged is not None else "stream")
         if stopping:
             print_distributed(verbosity, f"Early stopping at epoch {epoch}")
+            obs.emit("early_stop", epoch=int(epoch))
             break
         if not check_remaining(time.time() - t0):
             # a wall-clock stop is when a resumable checkpoint matters
             if resume_every > 0 and not trainer.final_state_saved:
                 save_resumable(epoch, val_loss=val_loss)
             print_distributed(verbosity, "Stopping: not enough job wall-clock time left")
+            obs.emit("wallclock_stop", epoch=int(epoch))
             break
     drain_async()
     return state
@@ -366,6 +422,8 @@ def _fit_chunks(trainer, state, staged, train_loader, val_loader, test_loader, t
     epoch0 = start_epoch
     while epoch0 < num_epoch:
         n = min(fit_chunk, num_epoch - epoch0)
+        # a chunk is one dispatch: its goodput window and profile arming
+        obs.epoch_start(epoch0)
         if restage and epoch0 > 0:
             train_loader.set_epoch(epoch0)
             # in place: the chunk's graphs are bound to the stack's addresses
@@ -376,6 +434,10 @@ def _fit_chunks(trainer, state, staged, train_loader, val_loader, test_loader, t
             state, staged, n, staged_val=staged_val, staged_test=staged_test, sched=sched,
             best_state=best_state, pad_to=fit_chunk)
         chunk_time = time.time() - t0
+        obs.emit("fit_chunk", epoch_start=int(epoch0), epochs=int(n),
+                 wall_time_s=round(chunk_time, 6))
+        # the trace capture ticks per chunk (no per-step hook inside one)
+        obs.dispatch_boundary()
         host = series["sched"]
         for i in range(n):
             if np.isnan(series["train_loss"][i]):
@@ -384,7 +446,7 @@ def _fit_chunks(trainer, state, staged, train_loader, val_loader, test_loader, t
             log_epoch(epoch0 + i, series["train_loss"][i], series["val_loss"][i],
                       series["test_loss"][i], series["train_tasks"][i], chunk_time / n,
                       {"train_collate_s": 0.0, "epoch_s": chunk_time / n,
-                       "lr": float(series["lr"][i]), "chunk": epoch0})
+                       "lr": float(series["lr"][i]), "chunk": epoch0}, mode="fit")
         if guard is not None:
             # a trailing NaN row with no early stop: the chunk diverged
             if not bool(host["stopped"]) and not np.isfinite(series["train_loss"][n - 1]):
@@ -406,9 +468,11 @@ def _fit_chunks(trainer, state, staged, train_loader, val_loader, test_loader, t
         if bool(host["stopped"]):
             ep_stop = epoch0 - n + int(np.argmax(series["stopped"]))
             print_distributed(verbosity, f"Early stopping at epoch {ep_stop}")
+            obs.emit("early_stop", epoch=int(ep_stop))
             break
         # the next chunk is indivisible: it needs a whole chunk's time
         if not check_remaining(chunk_time):
             print_distributed(verbosity, "Stopping: not enough job wall-clock time left")
+            obs.emit("wallclock_stop", epoch=int(epoch0 - 1))
             break
     return state

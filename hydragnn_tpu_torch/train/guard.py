@@ -21,13 +21,18 @@ a dispatch (``steps_per_dispatch`` 1), so that a bad step can be isolated.
 
 Knobs (the environment over the config): ``HYDRAGNN_GUARD_MAX_BAD_STEPS``
 / ``guard_max_bad_steps`` (3), ``HYDRAGNN_GUARD_MAX_RESTORES`` /
-``guard_max_restores`` (2), and ``guard_lr_factor`` (0.5). The JAX
-guard's telemetry events and elastic lease counter wait for the port's
-observability and elastic runs (``ROADMAP.md``, queue 1, items 10 and 8);
-the counters stay on the guard (``skipped``, ``restores``).
+``guard_max_restores`` (2), and ``guard_lr_factor`` (0.5). Each skip is a
+``guard_skip`` event and each restore a ``guard_restore`` event with its
+seconds, the goodput ledger's guard recovery (``obs/runtime.py``); the
+JAX guard's elastic lease counter waits for elastic runs (``ROADMAP.md``,
+queue 1, item 8). The counters stay on the guard (``skipped``,
+``restores``).
 """
 
 import os
+import time
+
+from hydragnn_tpu_torch.obs import runtime as obs
 
 from hydragnn_tpu_torch.train.capture import copy_state, state_tensors
 from hydragnn_tpu_torch.train.optimizer import (
@@ -98,6 +103,7 @@ class DivergenceGuard:
         ``state``; raises ``RuntimeError`` past the restore bound."""
         self.bad_streak += 1
         self.skipped += 1
+        obs.guard_skip("step", self.skipped, streak=self.bad_streak)
         if self.bad_streak < self.max_bad_steps or self.last_good is None:
             return prev.put(state)
         return self._restore(state)
@@ -108,6 +114,7 @@ class DivergenceGuard:
         lowered. With nothing committed yet ``state`` stays, but the
         epoch still counts against the restore bound."""
         self.skipped += 1
+        obs.guard_skip("epoch", self.skipped)
         if self.last_good is None:
             self.restores += 1
             if self.restores > self.max_restores:
@@ -128,10 +135,13 @@ class DivergenceGuard:
                 "steps skipped) — refusing to keep spending the allocation; "
                 "inspect the data/LR, or raise guard_max_restores")
         self.bad_streak = 0
+        t0 = time.perf_counter()
         self.last_good.put(state)
-        set_learning_rate(state.optimizer, get_learning_rate(state.optimizer) * self.lr_factor)
+        lr = get_learning_rate(state.optimizer) * self.lr_factor
+        set_learning_rate(state.optimizer, lr)
         # keep halving across successive restores, not oscillating back up
         self.last_good.take(state)
+        obs.guard_restore(self.restores, lr, seconds=time.perf_counter() - t0)
         return state
 
     def state_dict(self) -> dict:

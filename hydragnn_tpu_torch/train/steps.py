@@ -47,6 +47,11 @@ skips such an epoch with ``lax.cond``, and the port leaves the state and
 node in the graph. The chunk's buffers (:class:`FitBuffers`) are fixed:
 every program reads and writes them in place.
 
+Every program is instrumented (``obs/introspect.instrument``): while a
+telemetry run is active each novel shape key leaves one ``compile`` record
+(its FLOPs, bytes and capture seconds); the precision goes to the goodput
+ledger (``ledger.note_precision``), whose MFU it picks the peak for.
+
 With ``HYDRAGNN_NAN_SENTINEL=1`` the ``train_step`` and ``train_multi``
 programs are wrapped by ``analysis.guards.nan_sentinel`` over
 :func:`sentinel_tree`: a readback of the metrics and the state after each
@@ -61,6 +66,7 @@ import torch
 from torch.profiler import record_function
 
 from hydragnn_tpu_torch.graph.batch import GraphBatch
+from hydragnn_tpu_torch.obs import introspect, ledger
 from hydragnn_tpu_torch.train.capture import ProgramSet, copy_state, rate_tensors, state_tensors
 from hydragnn_tpu_torch.train.common import SchedState, TrainState
 from hydragnn_tpu_torch.train.optimizer import ensure_optimizer_state
@@ -269,6 +275,8 @@ class CapturedSteps(ProgramSet):
         super().__init__(trainer.device, state.model, state.optimizer, trainer.generator)
         self.guarded = trainer.guarded
         self.mixed = trainer.precision["mixed"]
+        # the MFU's peak follows the precision (obs/ledger.PEAK_FLOPS)
+        ledger.note_precision(self.mixed, source=trainer.precision["source"])
         self.fit = None
         self.fit_config = fit_constants(trainer.training_config)
         if int(os.getenv("HYDRAGNN_NAN_SENTINEL", "0")):
@@ -277,6 +285,15 @@ class CapturedSteps(ProgramSet):
             tree = lambda m: sentinel_tree(self.model, self.optimizer, m)  # noqa: E731
             self.train_step = nan_sentinel(self.train_step, scope="train_step", tree_of=tree)
             self.train_multi = nan_sentinel(self.train_multi, scope="train_multi", tree_of=tree)
+
+    def program(self, name, body, kind="forward", mutates=False, bodies=lambda args: 1,
+                bound=False):
+        """:meth:`ProgramSet.program`, every program instrumented
+        (``obs/introspect.py``: one record a novel shape key while a
+        telemetry run is active)."""
+        new = name not in self.programs
+        prog = super().program(name, body, kind, mutates, bodies, bound)
+        return introspect.instrument(prog) if new else prog
 
     def _train(self, batch):
         return train_body(self.model, self.optimizer, batch, self.guarded, self.mixed,

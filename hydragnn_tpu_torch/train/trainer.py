@@ -55,6 +55,13 @@ leaves the batch out of the epoch's mean. The fault hooks
 the host step count ``_host_step``; a chunk calls ``kill_at_step`` for
 each step it ran, after its readback.
 
+With a telemetry run active (``obs/runtime.py``) a pass times its
+training replays with CUDA events (``ProgramSet.timer``, resolved at the
+pass's readback), counts its dispatches, ticks the trace capture (a
+staged epoch at its end) and reports the time it waited on its data
+(tracer regions ``train``, ``train_step``, ``dataload``); ``stage_batches``
+is a ``staged`` event.
+
 Every host batch ships in the compact wire format unless
 ``compact_transfer`` (or ``HYDRAGNN_COMPACT_TRANSFER``) is off
 (``train/transfer.py``: int16 ids, a position placeholder for a model
@@ -74,6 +81,7 @@ import torch
 
 from hydragnn_tpu_torch.graph.batch import GraphBatch, stack_batches
 from hydragnn_tpu_torch.models.create import resolve_precision
+from hydragnn_tpu_torch.obs import runtime as obs
 from hydragnn_tpu_torch.train.capture import copy_state, state_tensors
 from hydragnn_tpu_torch.train.common import (
     FIT_SCHED_FIELDS,
@@ -90,6 +98,7 @@ from hydragnn_tpu_torch.train.predict import PredictMixin
 from hydragnn_tpu_torch.train.steps import CapturedSteps, Staged
 from hydragnn_tpu_torch.train.transfer import compact_for_transfer, needs_pos
 from hydragnn_tpu_torch.utils import faults
+from hydragnn_tpu_torch.utils import tracer as tr
 
 
 class Trainer(PredictMixin):
@@ -119,6 +128,7 @@ class Trainer(PredictMixin):
         self._steps = None
         self._copy_stream = None
         self._fit_pending = None
+        self._fit_timer = None
         self.fit_readbacks = 0  # chunks read back (one readback each)
 
     def init_state(self, example_batch: GraphBatch) -> TrainState:
@@ -308,8 +318,22 @@ class Trainer(PredictMixin):
             yield payload, count
 
     def _dispatches(self, loader, K):
-        return self._prefetch_put(self._group_plan(self._batches(loader, _nbatch(loader)), K),
-                                  self.device_prefetch)
+        """``(payload, count)`` per dispatch of a pass; the time the loop
+        waits for each (collation, stacking, the prefetch queue) is the
+        ``dataload`` tracer region and the goodput ledger's data stall."""
+        it = self._prefetch_put(self._group_plan(self._batches(loader, _nbatch(loader)), K),
+                                self.device_prefetch)
+        while True:
+            tr.start("dataload")
+            t0 = time.perf_counter()
+            try:
+                item = next(it, None)
+            finally:
+                obs.data_wait(time.perf_counter() - t0)
+                tr.stop("dataload")
+            if item is None:
+                return
+            yield item
 
     def train_epoch(self, state: TrainState, loader):
         """One pass of training steps over ``loader``; returns ``(state,
@@ -321,11 +345,19 @@ class Trainer(PredictMixin):
         if guard is not None and guard.last_good is None:
             guard.commit(state)
         acc = None
+        tr.start("train")
+        # resolved once a pass: with no run active the step path pays one read
+        telemetry = obs.active()
+        timer = self._timed(state, telemetry)
         for payload, count in self._dispatches(loader, K):
+            tr.start("train_step")
             if count > 1:
                 for s in range(self._host_step, self._host_step + count):
                     faults.slow_step(s)
                 state, metrics = self.train_multi(state, payload)
+                if telemetry is not None:
+                    telemetry.on_dispatch(count)
+                tr.stop("train_step")
                 acc = self._acc_add(acc, metrics, multi=True)
                 first = self._host_step
                 self._host_step += count
@@ -337,6 +369,9 @@ class Trainer(PredictMixin):
             prev = None if guard is None else guard.snapshot(state)
             faults.slow_step(self._host_step)
             state, metrics = self.train_step(state, payload)
+            if telemetry is not None:
+                telemetry.on_dispatch()
+            tr.stop("train_step")
             # the guard's documented cost: one scalar read back a step
             if guard is not None and not bool(metrics["finite"]):
                 # a poisoned update: put the copy back (or last-good, with
@@ -348,8 +383,24 @@ class Trainer(PredictMixin):
                 acc = self._acc_add(acc, metrics)
             faults.kill_at_step(self._host_step)
             self._host_step += 1
-        loss, tasks = self._acc_read(acc)
+        loss, tasks = self._acc_read(acc)  # the pass's one readback
+        if timer is not None:
+            self._steps.timer = None
+            timer.flush()
+        tr.stop("train")
         return state, loss, tasks
+
+    def _timed(self, state, telemetry):
+        """With a run active, a ``StepTimer`` on this pass's programs: each
+        training replay is marked (``capture.Program``), and the pass's
+        readback resolves the marks (:meth:`StepTimer.flush`)."""
+        if telemetry is None:
+            if self._steps is not None:
+                self._steps.timer = None  # a pass that raised may have left one
+            return None
+        timer = telemetry.step_timer(self.device)
+        self.programs(state).timer = timer
+        return timer
 
     def evaluate(self, state: TrainState, loader):
         """``(mean loss, per-task mean losses)`` of the model in eval mode
@@ -367,6 +418,8 @@ class Trainer(PredictMixin):
     def stage_batches(self, batches) -> Staged:
         """Stack same-shape collated batches and keep them on the card
         (JAX ``stage_batches``); raises ``ValueError`` on ragged batches."""
+        batches = list(batches)
+        obs.emit("staged", num_batches=len(batches))
         return Staged(self.put_batch(stack_batches(batches)), self.model.num_heads)
 
     def restage(self, staged: Staged, batches) -> Staged:
@@ -408,9 +461,20 @@ class Trainer(PredictMixin):
         perm = torch.as_tensor(perm, dtype=torch.int64)
         n_use = perm.shape[0]
         staged.perm[:n_use].copy_(perm, non_blocking=False)
+        tr.start("train")
+        telemetry = obs.active()
+        timer = self._timed(state, telemetry)
         self.programs(state).epoch_scan(staged, n_use)
+        if timer is not None:
+            self._steps.timer = None
+            telemetry.on_dispatch(n_use, tick=False)
         state.step += n_use
-        loss, tasks = self._rows_mean(staged.rows[:n_use])
+        loss, tasks = self._rows_mean(staged.rows[:n_use])  # the epoch's one readback
+        if timer is not None:
+            timer.flush()
+        tr.stop("train")
+        # one dispatch an epoch: the trace capture ticks per staged epoch
+        obs.dispatch_boundary()
         return state, loss, tasks
 
     def evaluate_staged(self, state: TrainState, staged: Staged):
@@ -481,8 +545,10 @@ class Trainer(PredictMixin):
             fit.best_state.step = best_state.step
         val_n = None if staged_val is None else self._staged_count(staged_val)
         test_n = None if staged_test is None else self._staged_count(staged_test)
+        self._fit_timer = self._timed(state, obs.active())
         steps.fit_dispatch(staged_train, n_use, perms, num_epoch, staged_val, val_n, staged_test,
                            test_n)
+        steps.timer = None
         # the pinned order stays referenced until the readback
         self._fit_pending = (perms, int(num_epoch), n_use, staged_train.rows.shape[1] - 2)
         return state, fit.best_state, fit.sched
@@ -501,6 +567,11 @@ class Trainer(PredictMixin):
         rows, tail = host[:num_epoch], host[-1]
         done = int(tail[5])
         ran = (done - fit.epochs_done) * n_use
+        timer, self._fit_timer = self._fit_timer, None
+        if timer is not None:
+            # the steps that trained (not the inert epochs' after a stop)
+            timer.flush(keep=ran)
+            timer.telemetry.on_dispatch(ran, tick=False)
         fit.epochs_done = done
         fit.best_state.step = int(tail[7])
         state.step += ran

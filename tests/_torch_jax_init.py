@@ -7,6 +7,8 @@ step donates its state's buffers.
 
 ``cached_jax_init`` is an autouse fixture for a module that builds many
 JAX trainers: ``from _torch_jax_init import cached_jax_init  # noqa: F401``.
+It also clears the JAX package's registered mesh for each case, which an
+earlier test in the same worker may have left behind.
 """
 
 import os
@@ -16,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import hydragnn_tpu.parallel.mesh as jax_mesh
 import hydragnn_tpu.train.trainer as jax_trainer
 from hydragnn_tpu.models.create import init_model_params
 
@@ -35,3 +38,8 @@ def cached_init_model_params(model, batch, seed=0):
 @pytest.fixture(autouse=True)
 def cached_jax_init(monkeypatch):
     monkeypatch.setattr(jax_trainer, "init_model_params", cached_init_model_params)
+    # each case starts from a fresh process's JAX mesh state: an earlier
+    # test in the same worker may leave its mesh registered, and the JAX
+    # loaders then pad the batches for that mesh's data axis while the
+    # trainer shards them over the default one
+    monkeypatch.setattr(jax_mesh, "_active_mesh", None)

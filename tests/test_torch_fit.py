@@ -284,25 +284,41 @@ def _resume_from(path, tmp, name):
     shutil.copy(path, tmp / "logs" / name / (name + ".pk"))
 
 
+# JAX's starting checkpoint and the port's per-epoch run from it, shared by
+# both cases of the chunked test: the start is one JAX init, and the
+# per-epoch path reads no restage flag
+_PER_EPOCH = {}
+
+
+def _per_epoch_run(config, tmp_path, monkeypatch):
+    """``(start directory, per-epoch run directory, its history)``."""
+    if not _PER_EPOCH:
+        start = tmp_path / "start"
+        per_epoch = _start_checkpoint(config, start, monkeypatch)
+        per_epoch["NeuralNetwork"]["Training"]["fit_chunk_epochs"] = 0
+        _in_dir(monkeypatch, tmp_path / "per_epoch")
+        shutil.copytree(start / "logs", tmp_path / "per_epoch" / "logs")
+        own = hydragnn_tpu_torch.run_training(copy.deepcopy(per_epoch), device="cpu")
+        _PER_EPOCH.update(start=start, run=tmp_path / "per_epoch", history=own.info["history"])
+    return _PER_EPOCH["start"], _PER_EPOCH["run"], _PER_EPOCH["history"]
+
+
 @pytest.mark.parametrize("restage", [False, True])
 def pytest_run_training_in_chunks_matches_jax_and_resumes_across(raw_dirs, tmp_path,  # noqa: F811
                                                                  monkeypatch, restage):
     config = _chunked(raw_dirs, restage)
-    start = tmp_path / "start"
-    warm = _start_checkpoint(config, start, monkeypatch)
-    per_epoch = copy.deepcopy(warm)
-    per_epoch["NeuralNetwork"]["Training"]["fit_chunk_epochs"] = 0
-    for side in ("jax", "port", "per_epoch"):
+    start, per_epoch_dir, own = _per_epoch_run(config, tmp_path, monkeypatch)
+    warm = copy.deepcopy(config)
+    warm["NeuralNetwork"]["Training"].update({"continue": 1, "startfrom": "start"})
+    for side in ("jax", "port"):
         _in_dir(monkeypatch, tmp_path / side)
         shutil.copytree(start / "logs", tmp_path / side / "logs")
         if side == "jax":
             hydragnn_tpu.run_training(copy.deepcopy(warm))
-        elif side == "port":
-            state = hydragnn_tpu_torch.run_training(copy.deepcopy(warm), device="cpu")
         else:
-            own = hydragnn_tpu_torch.run_training(copy.deepcopy(per_epoch), device="cpu")
+            state = hydragnn_tpu_torch.run_training(copy.deepcopy(warm), device="cpu")
     name = state.info["log_name"]
-    history, own = state.info["history"], own.info["history"]
+    history = state.info["history"]
     assert [h["epoch"] for h in history] == [h["epoch"] for h in own] == [0, 1, 2, 3]
     assert [h["chunk"] for h in history] == [0, 0, 2, 2]
     scalars = _scalars(tmp_path / "jax" / "logs" / name / "scalars.jsonl")
@@ -316,7 +332,7 @@ def pytest_run_training_in_chunks_matches_jax_and_resumes_across(raw_dirs, tmp_p
                                    rtol=1e-6, atol=0, err_msg=key)
     lr = float(config["NeuralNetwork"]["Training"]["Optimizer"]["learning_rate"])
     pmeta, jmeta = _hold_final_weights(tmp_path / "port", tmp_path / "jax", name, lr, steps=4)
-    hmeta = _meta(str(tmp_path / "per_epoch" / "logs" / name / (name + ".pk")))
+    hmeta = _meta(str(per_epoch_dir / "logs" / name / (name + ".pk")))
     assert int(pmeta["epoch"]) == int(jmeta["epoch"]) == 3
     for k in FIT_SCHED_FIELDS:
         got, want = np.asarray(pmeta["fit_sched"][k]), np.asarray(jmeta["fit_sched"][k])

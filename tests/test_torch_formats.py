@@ -376,10 +376,26 @@ def pytest_fused_mp_switch_resolves_as_in_jax(monkeypatch, agg, fused_mp, model_
     assert autotune.fused_forced() == jax_autotune.fused_forced()
 
 
-def pytest_obs_port_is_refused(monkeypatch):
+def pytest_obs_port_is_refused(monkeypatch, tmp_path):
+    """The knob works since the training telemetry was ported: a run's
+    telemetry serves ``/healthz`` on the port ``HYDRAGNN_OBS_PORT`` asks for
+    (0: an ephemeral one), as the JAX package's does."""
+    import json
+    import urllib.request
+
+    from hydragnn_tpu.obs import runtime as jax_runtime
+    from hydragnn_tpu_torch.obs import runtime
+
     monkeypatch.setenv("HYDRAGNN_OBS_PORT", "0")
-    with pytest.raises(NotImplementedError, match="HYDRAGNN_OBS_PORT.*item 10"):
-        run_training({"NeuralNetwork": {}}, device="cpu")
+    for mod, name in ((runtime, "port"), (jax_runtime, "jax")):
+        t = mod.init_run_telemetry({}, name, path=str(tmp_path))
+        try:
+            host, port = t.address
+            with urllib.request.urlopen(f"http://{host}:{port}/healthz", timeout=10) as r:
+                assert json.loads(r.read())["run"] == name
+        finally:
+            mod.deactivate()
+        assert t.address is None
 
 
 # ---- the public names ---------------------------------------------------------

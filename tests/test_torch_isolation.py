@@ -43,7 +43,10 @@ def _port_files():
                 "serve/tenants.py", "serve/costs.py", "serve/quality.py", "coord.py",
                 "serve/fleet.py", "serve/router.py", "serve/canary.py", "serve/autoscale.py",
                 "data/elements.py", "data/cfg.py", "data/xyz.py", "data/extxyz.py",
-                "data/mptrj.py", "data/qm9_raw.py", "train/transfer.py"):
+                "data/mptrj.py", "data/qm9_raw.py", "train/transfer.py",
+                "obs/runtime.py", "obs/scalars.py", "obs/introspect.py", "obs/ledger.py",
+                "obs/report.py", "obs/__main__.py", "utils/timers.py", "utils/tracer.py",
+                "utils/profile.py"):
         assert REPO / "hydragnn_tpu_torch" / new in files
     return files
 
@@ -87,7 +90,11 @@ def pytest_importing_the_port_loads_no_jax():
         "import hydragnn_tpu_torch.serve.router, hydragnn_tpu_torch.serve.canary\n"
         "import hydragnn_tpu_torch.serve.autoscale, hydragnn_tpu_torch.obs.drift\n"
         "import hydragnn_tpu_torch.data, hydragnn_tpu_torch.data.cfg, hydragnn_tpu_torch.data.xyz\n"
-        "import hydragnn_tpu_torch.train.transfer\n"
+        "import hydragnn_tpu_torch.train.transfer, hydragnn_tpu_torch.obs.runtime\n"
+        "import hydragnn_tpu_torch.obs.ledger, hydragnn_tpu_torch.obs.report\n"
+        "import hydragnn_tpu_torch.obs.introspect, hydragnn_tpu_torch.obs.scalars\n"
+        "import hydragnn_tpu_torch.obs.__main__, hydragnn_tpu_torch.utils.tracer\n"
+        "import hydragnn_tpu_torch.utils.timers\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'hydragnn_tpu')]\n"
         "assert not bad, bad\n"
     )

@@ -242,7 +242,7 @@ class _Provider:
         return {"status": self.status}
 
 
-def pytest_observability_listener_answers_over_a_socket():
+def pytest_observability_listener_answers_over_a_socket(tmp_path):
     provider = _Provider()
     http = ObservabilityServer(provider, port=0).start()
     try:
@@ -261,6 +261,18 @@ def pytest_observability_listener_answers_over_a_socket():
         http.stop()
     assert http.address is None
     http.stop()  # a second stop is a no-op
+    # a provider with a run: /profile arms its trace capture (200)
+    from hydragnn_tpu_torch.obs.runtime import RunTelemetry
+
+    run = RunTelemetry("profiled", str(tmp_path / "profiled"))
+    http = ObservabilityServer(run, port=0).start()
+    try:
+        host, port = http.address
+        with urllib.request.urlopen(f"http://{host}:{port}/profile?steps=2", timeout=10) as r:
+            assert r.status == 200 and json.loads(r.read())["status"] == "armed"
+    finally:
+        http.stop()
+        run.close()
 
 
 @pytest.mark.parametrize("q", [0.5, 0.9, 0.99])
