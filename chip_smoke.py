@@ -225,7 +225,18 @@ warm-ups alike (``train.capture_counts``).
    ms a step of CUDA events around whole passes of replays, taken outside
    the program layer, :func:`_own_mfu`); then the CLI's
    ``fleet``, ``drift`` and ``trace`` on the serving phases' streams. One
-   ``{"telemetry": ...}`` line a run.
+   ``{"telemetry": ...}`` line a run. Then the streaming data plane
+   (:func:`phase_stream`): ``examples/multidataset/gfm.json`` at its full
+   width through ``run_training`` over three generated shard stores, in
+   ``fused`` mode uninterrupted, killed mid-epoch 2 (a process of its
+   own) and resumed (the restored state bit for bit, cursor and batch
+   digests exact), resumes of the uninterrupted run's epoch-1 checkpoint
+   (parameters, past the loss's null space, within
+   :data:`STREAM_PARAM_FACTOR` times their own spread of its epoch 2, a
+   planted resume with zeroed AdamW moments outside that), and in
+   ``segment`` mode; launches exact, residency within one window per
+   source; the collation pool, ``DistDataset``, ``FeedbackSink`` and the
+   tracer's ``native`` backend. One ``{"stream": ...}`` line a run.
 7. Capture: one ``{"capture": ...}`` line of phase 4's compile counters
    and ``warm_version`` results, one of phase 5's ``bench_model`` rows
    (captured and eager ms a step, the replay's busy share and device ops,
@@ -242,7 +253,7 @@ warm-ups alike (``train.capture_counts``).
    ``library_device_ms``; for K2 and K6, which no one PyTorch call
    computes, ``reference_device_ms``: K1's at the same receivers shape,
    which streams the same ``[E, D]`` bytes; ``launches`` counts phases 4,
-   5 and 6 in this process and, for the fleet, its replica and canary
+   5 and 6 in this process (the streaming phase's in-process runs too) and, for the fleet, its replica and canary
    processes, each from its final lease), and as the last line ``{"ok": true, "device": {"platform":
    "gpu", ...}}``.
 
@@ -251,8 +262,9 @@ plain versions (the fleet's replicas with ``"device": "cpu"``), to check
 the script's control flow without a card. It times nothing on a device and
 never prints the success line. ``--only-fleet`` runs phases 1, 2 and the
 fleet alone, ``--only-formats`` phases 1, 2 and :func:`phase_formats`,
-``--only-telemetry`` phases 1, 2 and :func:`phase_telemetry`, and none of
-them prints the success line.
+``--only-telemetry`` phases 1, 2 and :func:`phase_telemetry`,
+``--only-stream`` phases 1, 2 and :func:`phase_stream`, and none of them
+prints the success line.
 """
 
 import argparse
@@ -332,7 +344,7 @@ from hydragnn_tpu_torch.train import (
     set_learning_rate,
     steps as train_steps,
 )
-from hydragnn_tpu_torch.train.capture import ProgramSet
+from hydragnn_tpu_torch.train.capture import ProgramSet, invalidated_captures
 from hydragnn_tpu_torch.train.checkpoint import save_model
 from hydragnn_tpu_torch.train.common import TrainState
 from hydragnn_tpu_torch.utils import faults
@@ -4838,6 +4850,818 @@ def phase_telemetry(device, card, rehearsal):
     return launches
 
 
+# ---- phase 8: the streaming data plane ----------------------------------------
+
+
+# examples/multidataset/train.py's FAMILIES: elements, atom counts [lo, hi), spread
+STREAM_FAMILIES = {
+    "molecules": dict(elements=[1, 6, 7, 8], n_lo=4, n_hi=16, spread=1.5),
+    "clusters": dict(elements=[26, 28, 78], n_lo=4, n_hi=10, spread=2.2),
+    "oxides": dict(elements=[8, 22, 26], n_lo=6, n_hi=14, spread=2.0),
+}
+STREAM_SAMPLES = 4000  # per family (the users' scale is larger: cut)
+STREAM_SHARDS = 16  # each train split's shards: the 2-shard window really bounds residency
+STREAM_EPOCHS = 3  # gfm.json's 10, cut
+STREAM_QUEUE = 4  # HYDRAGNN_STREAM_QUEUE: the collation thread's batches ahead
+STREAM_WORKERS = 4  # HYDRAGNN_NUM_WORKERS of the pool held against one worker
+STREAM_FEEDBACK = dict(graphs=40, max_graphs=16)  # served graphs, graphs a pack
+STREAM_REHEARSAL = dict(samples=60, shards=4, hidden=8, layers=2, batch=4, dispatch=2)
+# resumes of one checkpoint: their mean parameter distance from the
+# uninterrupted run's epoch 2, over the leaves outside the loss's null space,
+# against their mean distance from one another (on the H100 one pair's
+# distance moves 0.02-0.09 between runs, the ratio 0.9-1.7; AdamW moments
+# zeroed lie 6.6-31x away)
+STREAM_PARAM_FACTOR = 2.5
+STREAM_REJOINS = ("rejoin_a", "rejoin_b", "rejoin_c")
+# a leaf whose gradient (the root mean square of its AdamW nu) is below this
+# share of the median leaf's lies in the loss's null space (_null_leaves)
+STREAM_NULL_GRADIENT = 1e-3
+
+
+def _random_molecule(rng, elements, n_atoms, spread):
+    """``examples/common.py``'s ``random_molecule``: atomic numbers and
+    jittered positions, overlapping atoms pushed apart."""
+    z = rng.choice(elements, size=n_atoms)
+    pos = rng.normal(0.0, spread, (n_atoms, 3))
+    for _ in range(10):
+        d = pos[:, None, :] - pos[None, :, :]
+        dist = np.linalg.norm(d, axis=-1) + np.eye(n_atoms)
+        push = (dist < 0.8) & ~np.eye(n_atoms, dtype=bool)
+        if not push.any():
+            break
+        pos += 0.25 * (d / dist[..., None] * push[..., None]).sum(axis=1)
+    return z.astype(np.float32), pos.astype(np.float32)
+
+
+def _pairwise_energy(z, pos, cutoff=3.0):
+    """``examples/common.py``'s ``pairwise_energy`` label."""
+    zz = np.asarray(z, np.float64)
+    d = np.linalg.norm(pos[:, None, :] - pos[None, :, :], axis=-1)
+    n = len(zz)
+    mask = (d < cutoff) & ~np.eye(n, dtype=bool)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        contrib = np.where(mask, np.sqrt(zz[:, None] * zz[None, :]) / (d + 1.0), 0.0)
+    return float(contrib.sum() / (2 * n))
+
+
+def write_stream_data(root, samples, shards, radius, max_neighbours):
+    """The three families of ``examples/multidataset/train.py`` as shard
+    stores under ``root``: ``samples`` each, split 90/5/5
+    (``split_dataset``), the train split in ``shards`` shards (ranks
+    0..shards-1 of one directory), validation and test in one each.
+    Returns ``{family: {split: directory}}``."""
+    import zlib
+
+    from hydragnn_tpu_torch.data.radius_graph import radius_graph
+    from hydragnn_tpu_torch.data.shard_store import ShardWriter
+    from hydragnn_tpu_torch.data.split import split_dataset
+
+    out = {}
+    for name, spec in STREAM_FAMILIES.items():
+        rng = np.random.default_rng(zlib.crc32(name.encode()))
+        graphs = []
+        for _ in range(samples):
+            z, pos = _random_molecule(rng, spec["elements"],
+                                      int(rng.integers(spec["n_lo"], spec["n_hi"])),
+                                      spec["spread"])
+            d = GraphData(x=z.reshape(-1, 1), pos=pos)
+            d.edge_index = radius_graph(pos, radius, max_neighbours)
+            d.targets = [np.asarray([_pairwise_energy(z, pos)], np.float32)]
+            d.target_types = ["graph"]
+            graphs.append(d)
+        splits = split_dataset(graphs, 0.9, False)
+        out[name] = {}
+        for split, ds in zip(("trainset", "valset", "testset"), splits):
+            label = str(root / f"{name}_{split}")
+            parts = np.array_split(np.arange(len(ds)), shards if split == "trainset" else 1)
+            for rank, part in enumerate(parts):
+                w = ShardWriter(label, rank=rank)
+                w.add([ds[i] for i in part])
+                w.save()
+            out[name][split] = label
+    return out
+
+
+def stream_config(data, rehearsal, epochs, extra_training=None):
+    """``examples/multidataset/gfm.json`` at its full width (rehearsal:
+    tiny), with one shard-store source per family (its ``weights`` as the
+    sources' weights) and ``epochs`` epochs, a resumable save each."""
+    with open(_build.REPO_ROOT / "examples" / "multidataset" / "gfm.json") as f:
+        config = json.load(f)
+    config["Verbosity"]["level"] = 0
+    scfg = config["Dataset"]["streaming"]
+    weights = scfg.pop("weights")
+    scfg["sources"] = [{"format": "shard_store", "name": fam, "train": paths["trainset"],
+                        "validate": paths["valset"], "test": paths["testset"],
+                        "weight": float(weights[fam])} for fam, paths in data.items()]
+    training = config["NeuralNetwork"]["Training"]
+    training.update(num_epoch=epochs, resume_every=1, **(extra_training or {}))
+    if rehearsal:
+        r = STREAM_REHEARSAL
+        config["NeuralNetwork"]["Architecture"].update(hidden_dim=r["hidden"],
+                                                       num_conv_layers=r["layers"])
+        training.update(batch_size=r["batch"], steps_per_dispatch=r["dispatch"])
+    return config
+
+
+def batch_digest(batch):
+    """A short digest of a host batch's tensors (its samples, in order)."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for t in batch.leaves()[1]:
+        h.update(t.contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _stream_run(workdir, config, env, device, digests_path=None, restored=None):
+    """One ``run_training`` of a streaming ``config`` under ``env`` in
+    ``workdir``. Hooks record what the run keeps no record of:
+
+    - ``Trainer._batches``: each training batch with its epoch, held by
+      reference and digested (:func:`batch_digest`) after the run, so no
+      hashing falls in the step loop's timed data wait (with
+      ``digests_path``: digested as it comes and appended to that file line
+      by line, so a killed run leaves them); and the evaluation batches,
+      counted;
+    - ``runtime.stream_epoch_stats``: each epoch's stream statistics (the
+      ``stream_*`` gauges: no event carries them, as in the JAX package);
+    - with ``restored`` (a dict), ``Trainer.train_epoch``: the state and
+      the mix cursor that the first training pass starts from, before its
+      first step.
+
+    The rest comes from the run's own records (:func:`_stream_line`): step
+    times from its ``goodput`` events, captures from its ``compile``
+    events, cursors from its rolling checkpoints. The dispatches are
+    ``Trainer._group_plan`` over each epoch's batches. Returns what it
+    recorded."""
+    from hydragnn_tpu_torch import run_training
+    from hydragnn_tpu_torch.models.bridge import state_dict_of
+    from hydragnn_tpu_torch.obs import runtime
+    from hydragnn_tpu_torch.train.checkpoint import _to_host
+    from hydragnn_tpu_torch.utils import tracer
+
+    rec = {"train": [], "eval": 0, "stats": []}
+    held = []
+    sink = open(digests_path, "a", buffering=1) if digests_path else None
+    orig_batches = Trainer._batches
+
+    def batches(self, loader, nbatch=None):
+        streaming = getattr(loader, "reports_stream_stats", False)
+        for batch in orig_batches(self, loader, nbatch):
+            if not streaming:
+                rec["eval"] += 1
+            elif sink is not None:
+                sink.write(json.dumps([int(loader.epoch), batch_digest(batch)]) + "\n")
+            else:
+                held.append((int(loader.epoch), batch))
+            yield batch
+
+    orig_stats = runtime.stream_epoch_stats
+
+    def stats(**kw):
+        rec["stats"].append(kw)
+        return orig_stats(**kw)
+
+    patches = contextlib.ExitStack()
+    patches.enter_context(_patched(Trainer, "_batches", batches))
+    patches.enter_context(_patched(runtime, "stream_epoch_stats", stats))
+    if restored is not None:
+        orig_epoch = Trainer.train_epoch
+
+        def train_epoch(self, state, loader):
+            if not restored:
+                restored["state"] = _to_host(state_dict_of(state), copy=True)
+                restored["cursor"] = _plain(loader.state_dict())
+            return orig_epoch(self, state, loader)
+        patches.enter_context(_patched(Trainer, "train_epoch", train_epoch))
+    try:
+        with run_directory(workdir, env), patches:
+            reset_launch_counts()
+            reset_capture_counts()
+            t0 = time.perf_counter()
+            state = run_training(copy.deepcopy(config), device=device)
+            rec["wall_s"] = time.perf_counter() - t0
+            rec["launches"], rec["programs"] = launch_counts(), capture_counts()
+            rec["tracers"] = sorted(tracer._tracers)
+    finally:
+        if sink is not None:
+            sink.close()
+    t0 = time.perf_counter()
+    rec["train"] = [[e, batch_digest(b)] for e, b in held]
+    rec["digest_ms_per_batch"] = 1e3 * (time.perf_counter() - t0) / max(len(held), 1)
+    K = int(config["NeuralNetwork"]["Training"].get("steps_per_dispatch", 1))
+    groups = [len(g) for e in sorted({e for e, _ in held})
+              for g in Trainer._group_plan([b for f, b in held if f == e], K)]
+    rec["dispatch"] = {"train_step": sum(1 for n in groups if n == 1),
+                       "train_multi": sum(1 for n in groups if n > 1)}
+    del held
+    rec["history"] = state.info["history"]
+    rec["log_name"] = state.info["log_name"]
+    rec["final_cursor"] = _plain(state_meta_stream(workdir, rec["log_name"])[0])
+    return rec
+
+
+def _plain(tree):
+    """A cursor's nested dict with numpy scalars as ints (comparable, JSON)."""
+    if isinstance(tree, dict):
+        return {str(k): _plain(v) for k, v in tree.items()}
+    return int(np.asarray(tree))
+
+
+def state_meta_stream(workdir, log_name, epoch=None):
+    """``(stream cursor, state dict)`` of the run's newest checkpoint, or
+    of the rolling copy saved after ``epoch``."""
+    from hydragnn_tpu_torch.train.checkpoint import (
+        load_state_dict,
+        parse_checkpoint_bytes,
+        pop_train_meta,
+        rolling_checkpoints,
+    )
+
+    logs = str(pathlib.Path(workdir) / "logs")
+    if epoch is None:
+        sd = load_state_dict(log_name, path=logs + "/")
+        return pop_train_meta(sd)["stream"], sd
+    for path in rolling_checkpoints(log_name, path=logs + "/"):
+        with open(path, "rb") as f:
+            sd = parse_checkpoint_bytes(f.read(), path)
+        meta = pop_train_meta(sd)
+        if int(np.asarray(meta["epoch"])) == epoch:
+            return meta["stream"], sd
+    raise AssertionError(f"no rolling checkpoint of epoch {epoch} under {logs}")
+
+
+def _tree_leaves(tree, prefix=""):
+    """``{path: array}`` of a nested dict's leaves."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree, key=str):
+            out.update(_tree_leaves(tree[k], f"{prefix}/{k}"))
+        return out
+    return {prefix: np.asarray(tree)}
+
+
+def _hold_bitwise(got, want, what):
+    """Two state dicts with the same leaves, dtypes, shapes and bytes."""
+    a, b = _tree_leaves(got), _tree_leaves(want)
+    if a.keys() != b.keys():
+        raise AssertionError(f"{what}: leaves {sorted(a.keys() ^ b.keys())} are not in both")
+    for k in a:
+        if (a[k].dtype, a[k].shape) != (b[k].dtype, b[k].shape) or \
+                a[k].tobytes() != b[k].tobytes():
+            raise AssertionError(f"{what}: {k} differs ({a[k].dtype}{a[k].shape} against "
+                                 f"{b[k].dtype}{b[k].shape})")
+    return len(a)
+
+
+def _adam_nu(sd):
+    """The AdamW second moments of a checkpoint's state dict, as its
+    ``params`` tree (the ``nu`` subtree of ``opt_state``)."""
+    def find(t):
+        if isinstance(t, dict):
+            if "nu" in t:
+                return t["nu"]
+            for v in t.values():
+                found = find(v)
+                if found is not None:
+                    return found
+        return None
+    nu = find(sd["opt_state"])
+    if nu is None:
+        raise AssertionError("the checkpoint's opt_state holds no AdamW nu")
+    return nu
+
+
+def _null_leaves(sd):
+    """``({leaf: reference gradient}, the leaves in the loss's null space)``:
+    a leaf's reference gradient is the root mean square of its AdamW
+    ``nu`` (the running mean of its squared gradients) in ``sd``; a leaf
+    whose reference gradient is below :data:`STREAM_NULL_GRADIENT` times
+    the median leaf's has no gradient but rounding (a bias in front of a
+    BatchNorm, which cancels it): Adam turns that rounding into steps of
+    the learning rate's size in random directions, so two sound runs part
+    there by the rate times the steps, whatever the rest does."""
+    grad = {k: float(np.sqrt(np.mean(np.asarray(v, np.float64))))
+            for k, v in _tree_leaves(_adam_nu(sd)).items()}
+    floor = STREAM_NULL_GRADIENT * float(np.median(list(grad.values())))
+    return grad, sorted(k for k, g in grad.items() if g < floor)
+
+
+def _param_distance(a, b, skip=()):
+    """``(relative L2 over the leaves not in skip, {leaf: relative L2})``
+    between two checkpoints' parameters."""
+    la, lb = _tree_leaves(a["params"]), _tree_leaves(b["params"])
+    per, num, den = {}, 0.0, 0.0
+    for k in la:
+        x, y = np.asarray(la[k], np.float64), np.asarray(lb[k], np.float64)
+        d, n = float(np.sum((x - y) ** 2)), float(np.sum(x ** 2))
+        per[k] = float(np.sqrt(d / max(n, 1e-300)))
+        if k not in skip:
+            num, den = num + d, den + n
+    return float(np.sqrt(num / max(den, 1e-300))), per
+
+
+def _plant_resume(src, dst, log_name, epoch, change=None):
+    """A copy of the run directory ``src`` at ``dst`` that a resume
+    continues after ``epoch``: its primary checkpoint is its rolling copy
+    of that epoch (the later ones removed), altered by ``change(state
+    dict)`` when given (a planted bad resume)."""
+    from hydragnn_tpu_torch.train.checkpoint import (
+        TRAIN_META_KEY,
+        encode,
+        parse_checkpoint_bytes,
+        rolling_checkpoints,
+    )
+
+    shutil.copytree(src, dst)
+    logs = str(pathlib.Path(dst) / "logs") + "/"
+    chosen = None
+    for path in rolling_checkpoints(log_name, path=logs):
+        with open(path, "rb") as f:
+            sd = parse_checkpoint_bytes(f.read(), path)
+        saved = int(np.asarray(sd[TRAIN_META_KEY]["epoch"]))
+        if saved == epoch:
+            chosen = sd
+        elif saved > epoch:
+            os.remove(path)
+    if chosen is None:
+        raise AssertionError(f"no rolling checkpoint of epoch {epoch} under {logs}")
+    if change is not None:
+        change(chosen)
+    (pathlib.Path(logs) / log_name / f"{log_name}.pk").write_bytes(encode(chosen))
+
+
+def _stream_launch_check(label, rec, cfg, mode, device):
+    """The run's K1/K2/K3 launches against its steps and forwards, exactly:
+    (train steps + warm-up steps) times one step's and (evaluation batches
+    + warm-up forwards) times one forward's."""
+    per_step = launches_per_train_step(cfg, mode)
+    per_forward = launches_per_forward(cfg, mode)
+    steps, forwards = len(rec["train"]), rec["eval"]
+    p = rec["programs"]
+    expected = {k: (steps + p["warm_steps"]) * per_step[k]
+                + (forwards + p["warm_forwards"]) * per_forward[k] for k in KERNELS}
+    got = dict(rec["launches"])
+    if device.type == "cuda" and got != expected:
+        raise AssertionError(f"stream run {label}: launched {got}, expected {expected} "
+                             f"({steps} steps, {forwards} forwards, programs {p})")
+    if device.type == "cuda":
+        used = {k for k, v in per_step.items() if v}
+        if not all(got[k] > 0 for k in used):
+            raise AssertionError(f"stream run {label}: a kernel of the path never launched: {got}")
+    return {"steps": steps, "forwards": forwards, "warm_steps": p["warm_steps"],
+            "warm_forwards": p["warm_forwards"], "captures": p["captures"],
+            "launches": {k: v for k, v in got.items() if v}}
+
+
+def _run_events(workdir, rec):
+    """The run's own records in its ``events.jsonl`` (validated): a resumed
+    run appends to the killed run's stream, so from its own manifest on."""
+    stream = pathlib.Path(workdir) / "logs" / rec["log_name"] / "events.jsonl"
+    records = validate_events(str(stream), require=["bucket_plan", "compile", "epoch",
+                                                    "goodput"])
+    start = max(i for i, r in enumerate(records) if r["event"] == "run_manifest")
+    return records[start:]
+
+
+def _captures_by_program(records, first):
+    """``{program: {epoch: captures}}`` from the run's compile events (a
+    capture belongs to the epoch whose event follows it)."""
+    out, epoch = {}, first
+    for r in records:
+        if r["event"] == "epoch":
+            epoch = int(r["epoch"]) + 1
+        elif r["event"] == "compile":
+            per = out.setdefault(r["name"], {})
+            per[epoch] = per.get(epoch, 0) + 1
+    return {name: {str(e): n for e, n in sorted(per.items())} for name, per in out.items()}
+
+
+def _stream_line(label, rec, workdir, window, bound_bytes, launch):
+    """The run's ``{"stream": ...}`` line: per epoch its steps, ms a step
+    (the epoch's ``goodput`` compute, the CUDA-event step times less the
+    captures', over its steps), device busy share (that compute over the
+    epoch's train wall), stall seconds, stream bytes/s, the residency
+    peaks; the tracer's region seconds over the run; the captures by
+    program and epoch; the dispatches; the launches; the cost of one
+    batch's digest (taken after the run). Holds the residency to one
+    window per source."""
+    records = _run_events(workdir, rec)
+    goodput = {int(r["epoch"]): r for r in records if r["event"] == "goodput"}
+    epochs = []
+    for h, st in zip(rec["history"], rec["stats"]):
+        e = h["epoch"]
+        g = goodput[e]
+        compute = g["seconds"]["compute"]
+        epochs.append({
+            "epoch": e, "steps": g["steps"],
+            "ms_per_step": 1e3 * compute / g["steps"] if g["steps"] else None,
+            "busy_share": compute / h["train_s"] if h["train_s"] else None,
+            "compile_s": g["seconds"]["compile"],
+            "train_s": h["train_s"], "stall_s": st["stall_s"],
+            "stream_bytes_per_s": st["bytes_per_sec"],
+            "open_shards_peak": st["open_shards_peak"],
+            "resident_bytes_peak": st["resident_bytes_peak"],
+            "oversize_dropped": st["oversize_dropped"], "samples": st["samples"],
+            "train_loss": h["train_loss"], "val_loss": h["val_loss"],
+        })
+        if st["open_shards_peak"] > window or st["resident_bytes_peak"] > bound_bytes:
+            raise AssertionError(
+                f"stream run {label} epoch {e}: {st['open_shards_peak']} shards and "
+                f"{st['resident_bytes_peak']} bytes resident, past one window per source "
+                f"({window} shards, {bound_bytes} bytes)")
+        if st["oversize_dropped"]:
+            raise AssertionError(f"stream run {label} epoch {e}: {st['oversize_dropped']} "
+                                 "samples fit no bucket")
+        if not np.isfinite(h["train_loss"]) or not np.isfinite(h["val_loss"]):
+            raise AssertionError(f"stream run {label} epoch {e}: a loss is not finite")
+    regions = [r["regions"] for r in records if r["event"] == "tracer_totals"][-1:]
+    first = rec["history"][0]["epoch"] if rec["history"] else 0
+    line = {"run": label, "wall_s": rec["wall_s"], "epochs": epochs,
+            "tracer_regions_s": regions[0] if regions else None,
+            "residency_bound_bytes": bound_bytes,
+            "captures_by_program": _captures_by_program(records, first),
+            "dispatch": rec["dispatch"], "digest_ms_per_batch": rec["digest_ms_per_batch"],
+            "tracers": rec["tracers"], **launch}
+    emit({"stream": line})
+    return line
+
+
+def _stream_worker(spec_path):
+    """``--stream-run SPEC``: one :func:`_stream_run` in a process of its
+    own (the run the fault hook kills); its digests go to the spec's file."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    device = torch.device(spec["device"])
+    _stream_run(pathlib.Path(spec["workdir"]), spec["config"], spec["env"], device,
+                digests_path=spec["digests"])
+    return 0
+
+
+def _free_ports(n):
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def _same_batches(a, b, device, what):
+    """Two loaders' epochs give equal batches (compared on ``device``)."""
+    n = 0
+    for x, y in zip(a, b):
+        for s, t in zip(x.leaves()[1], y.leaves()[1]):
+            if not torch.equal(s.to(device), t.to(device)):
+                raise AssertionError(f"{what}: batch {n} differs")
+        n += 1
+    return n
+
+
+def phase_stream(device, card, rehearsal):
+    """Phase 8, the streaming data plane (``data/stream/``,
+    ``data/shard_store.py``): ``examples/multidataset/gfm.json`` at its full
+    width (PNA, hidden 64, 4 conv layers, a graph head of 2 shared layers of
+    32 and head layers [64, 32], batch 64, AdamW 2e-3, ``steps_per_dispatch``
+    32, a 2-shard window, 4 auto buckets, seed 42, weights 2/1/1) through
+    ``run_training`` with one shard-store source per family
+    (:func:`write_stream_data`: :data:`STREAM_SAMPLES` samples a family,
+    the train splits in :data:`STREAM_SHARDS` shards; samples and epochs
+    cut, widths not), the collation thread on (:data:`STREAM_QUEUE`):
+
+    - ``fused`` (K3 and K1) for :data:`STREAM_EPOCHS` epochs, uninterrupted;
+    - the same killed mid-epoch 2 by ``HYDRAGNN_FAULT_KILL_AT_STEP`` (a
+      process of its own, :func:`_stream_worker`), then resumed: the
+      killed run's saved cursor equals the uninterrupted run's after epoch
+      1, the resumed run's state (parameters, BatchNorm statistics, AdamW
+      moments and step) and cursor before its first step equal the killed
+      run's epoch-1 checkpoint bit for bit, its final cursor is the
+      uninterrupted run's, and the batch digests of both runs equal the
+      uninterrupted run's step for step, exactly;
+    - the parameters after epoch 2, over the leaves outside the loss's null
+      space (:func:`_null_leaves`), from one state: resumes of the
+      uninterrupted run's epoch-1 checkpoint (:data:`STREAM_REJOINS`; their
+      mean mutual distance: the atomics' spread over an epoch) within
+      :data:`STREAM_PARAM_FACTOR` times that spread of the uninterrupted
+      run's epoch 2 on average, and a planted bad resume of it (the AdamW
+      moments zeroed) outside it; the epoch-0 weights resumed and the
+      killed-and-resumed run (the killed run parts from the uninterrupted
+      one before its kill) are reported;
+    - ``fused`` for one epoch with the collation inline
+      (``HYDRAGNN_STREAM_QUEUE=0``: its stall is the data plane's whole host
+      time), its batches the threaded run's;
+    - ``segment`` (K2 and K1) for one epoch.
+
+    Each run's launches are held exactly against its steps and forwards and
+    its residency to one window per source; one ``{"stream": ...}`` line a
+    run. Then the collation pool (:data:`STREAM_WORKERS` workers against
+    one, the same batches), ``DistDataset`` (two stores on free ports feed a
+    ``GraphLoader`` through an epoch; the batches on the card equal the
+    local ones), ``FeedbackSink`` (a server's answered graphs flushed as
+    packs that ``ShardDataset`` reads back equal) and the tracer's
+    ``native`` backend. Returns the launches of the three in-process runs."""
+    from hydragnn_tpu_torch.data.loaders import ConcatDataset, GraphLoader
+    from hydragnn_tpu_torch.data.distdataset import DistDataset
+    from hydragnn_tpu_torch.data.shard_store import ShardDataset
+    from hydragnn_tpu_torch.data.stream import BucketPlanner, ShardStoreSource, sample_nbytes
+    from hydragnn_tpu_torch.serve.quality import FeedbackSink
+
+    t0 = time.perf_counter()
+    root = _build.REPO_ROOT / "build" / "chip_smoke" / "stream"
+    if root.exists():
+        shutil.rmtree(root)
+    r = STREAM_REHEARSAL
+    base = stream_config({}, rehearsal, STREAM_EPOCHS)
+    arch_cfg = base["NeuralNetwork"]["Architecture"]
+    scfg = base["Dataset"]["streaming"]
+    window = int(scfg["window_shards"])
+    data = write_stream_data(root / "dataset", r["samples"] if rehearsal else STREAM_SAMPLES,
+                             r["shards"] if rehearsal else STREAM_SHARDS,
+                             arch_cfg["radius"], arch_cfg["max_neighbours"])
+    t_data = time.perf_counter() - t0
+    # one window per source: the two largest shards of each train store
+    bound_bytes = 0
+    for paths in data.values():
+        src = ShardStoreSource(paths["trainset"])
+        sizes = sorted(sum(sample_nbytes(d) for d in src.read_shard(i))
+                       for i in range(src.num_shards()))
+        bound_bytes += sum(sizes[-window:])
+    cfg = dict(arch_cfg, equivariance=False)
+    fused_env = {"HYDRAGNN_AGG": "fused", "HYDRAGNN_STREAM_QUEUE": str(STREAM_QUEUE)}
+    config = stream_config(data, rehearsal, STREAM_EPOCHS)
+    launches = {name: 0 for name in KERNELS}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    full = _stream_run(root / "full", config, fused_env, device)
+    full_launch = _stream_launch_check("full", full, cfg, "fused", device)
+    add(full["launches"])
+    _stream_line("full", full, root / "full", window, bound_bytes, full_launch)
+    per_epoch = [sum(1 for e, _ in full["train"] if e == k) for k in range(STREAM_EPOCHS)]
+    kill_step = per_epoch[0] + per_epoch[1] + per_epoch[2] // 2
+    log_name = full["log_name"]
+
+    # the killed run: a process of its own, killed mid-epoch 2
+    killed_dir = root / "killed"
+    killed_dir.mkdir(parents=True)
+    spec = {"workdir": str(killed_dir), "config": config, "device": str(device),
+            "env": dict(fused_env, HYDRAGNN_FAULT_KILL_AT_STEP=str(kill_step)),
+            "digests": str(root / "killed_digests.jsonl")}
+    spec_path = root / "killed_spec.json"
+    spec_path.write_text(json.dumps(spec))
+    t_kill = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(pathlib.Path(__file__).resolve()),
+                           "--stream-run", str(spec_path)], cwd=str(_build.REPO_ROOT),
+                          capture_output=True, text=True, timeout=600)
+    t_kill = time.perf_counter() - t_kill
+    if proc.returncode != faults.KILL_EXIT_CODE:
+        raise AssertionError(f"the killed stream run exited {proc.returncode}, not "
+                             f"{faults.KILL_EXIT_CODE}:\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    killed = [json.loads(ln) for ln in (root / "killed_digests.jsonl").read_text().splitlines()]
+    if killed != full["train"][: len(killed)] or len(killed) < kill_step + 1:
+        raise AssertionError(f"the killed run's {len(killed)} batch digests differ from the "
+                             f"uninterrupted run's (killed at step {kill_step})")
+    cursor_killed, sd_killed = state_meta_stream(killed_dir, log_name, epoch=1)
+    cursor_full_1, sd_full_1 = state_meta_stream(root / "full", log_name, epoch=1)
+    if _plain(cursor_killed) != _plain(cursor_full_1):
+        raise AssertionError(f"the killed run saved cursor {_plain(cursor_killed)} after epoch "
+                             f"1, the uninterrupted run {_plain(cursor_full_1)}")
+
+    # the resume, from the killed run's checkpoint: its state and cursor
+    # before the first step are the checkpoint's, bit for bit
+    resume_config = copy.deepcopy(config)
+    resume_config["NeuralNetwork"]["Training"]["continue"] = 1
+    restored = {}
+    resumed = _stream_run(killed_dir, resume_config, fused_env, device, restored=restored)
+    restored_leaves = _hold_bitwise(restored["state"], sd_killed,
+                                    "the resumed run's state before its first step against "
+                                    "the killed run's epoch-1 checkpoint")
+    # the saved cursor, its epoch moved on to the first resumed one
+    start_cursor = _plain(cursor_killed)
+    start_cursor["epoch"] = start_cursor["mix"]["epoch"] = 2
+    if restored["cursor"] != start_cursor:
+        raise AssertionError(f"the resumed run started epoch 2 from cursor "
+                             f"{restored['cursor']}, not the killed run's saved {start_cursor}")
+    resumed_launch = _stream_launch_check("resumed", resumed, cfg, "fused", device)
+    add(resumed["launches"])
+    _stream_line("resumed", resumed, killed_dir, window, bound_bytes, resumed_launch)
+    tail = [item for item in full["train"] if item[0] == 2]
+    if resumed["train"] != tail:
+        raise AssertionError(f"the resumed run's {len(resumed['train'])} batch digests differ "
+                             f"from the uninterrupted run's epoch 2 ({len(tail)})")
+    if resumed["final_cursor"] != full["final_cursor"]:
+        raise AssertionError(f"the resumed run's final cursor {resumed['final_cursor']} is not "
+                             f"the uninterrupted run's {full['final_cursor']}")
+
+    # the parameters: the killed run parts from the uninterrupted one
+    # before its kill (the atomics, amplified by training), so its resume
+    # is held on the data and the restored state above. The parameter hold
+    # runs from one state: resumes of the uninterrupted run's epoch-1
+    # checkpoint (:data:`STREAM_REJOINS`; their mutual distance: the
+    # atomics' spread over one epoch) against its own epoch 2, and a
+    # planted bad resume of it (the AdamW moments zeroed) outside; another
+    # (the epoch-0 weights with the moments, step and cursor of epoch 1) is
+    # reported, a wrong-epoch load failing the restored-state hold above.
+    # Distances over the leaves outside the loss's null space
+    # (:func:`_null_leaves`). Each run sees the uninterrupted run's epoch-2
+    # batches.
+    _, sd_full_0 = state_meta_stream(root / "full", log_name, epoch=0)
+    _, sd_killed_0 = state_meta_stream(killed_dir, log_name, epoch=0)
+
+    def zeros(tree):
+        return ({k: zeros(v) for k, v in tree.items()} if isinstance(tree, dict)
+                else np.zeros_like(np.asarray(tree)))
+
+    def zero_moments(sd):
+        def walk(t):
+            for k, v in t.items():
+                if k in ("mu", "nu"):
+                    t[k] = zeros(v)
+                elif isinstance(v, dict):
+                    walk(v)
+        walk(sd["opt_state"])
+
+    def stale_weights(sd):
+        sd["params"], sd["batch_stats"] = sd_full_0["params"], sd_full_0["batch_stats"]
+
+    plants = {**{name: None for name in STREAM_REJOINS}, "zeroed": zero_moments,
+              "stale": stale_weights}
+    sds = {"full": state_meta_stream(root / "full", log_name, epoch=2)[1],
+           "resumed": state_meta_stream(killed_dir, log_name, epoch=2)[1]}
+    losses = {"full": full["history"][2]["train_loss"],
+              "resumed": resumed["history"][0]["train_loss"]}
+    for name, change in plants.items():
+        _plant_resume(root / "full", root / name, log_name, 1, change)
+        run = _stream_run(root / name, resume_config, fused_env, device)
+        add(_stream_launch_check(name, run, cfg, "fused", device)["launches"])
+        if run["train"] != tail:
+            raise AssertionError(f"the {name} run's batch digests differ from the "
+                                 "uninterrupted run's epoch 2")
+        sds[name] = state_meta_stream(root / name, log_name, epoch=2)[1]
+        losses[name] = run["history"][0]["train_loss"]
+    grads, null = _null_leaves(sds["full"])
+    names = list(sds)
+    pairs = {f"{x}~{y}": _param_distance(sds[x], sds[y], null)
+             for i, x in enumerate(names) for y in names[i + 1:]}
+    spread = float(np.mean([pairs[f"{x}~{y}"][0] for i, x in enumerate(STREAM_REJOINS)
+                            for y in STREAM_REJOINS[i + 1:]]))
+    distance = float(np.mean([pairs[f"full~{x}"][0] for x in STREAM_REJOINS]))
+    tolerance = STREAM_PARAM_FACTOR * spread
+    _, per_all = _param_distance(sds["full"], sds["rejoin_a"])
+    sq = {k: d ** 2 * float(np.sum(np.asarray(x, np.float64) ** 2))
+          for (k, d), x in zip(per_all.items(), _tree_leaves(sds["full"]["params"]).values())}
+    null_share = sum(sq[k] for k in null) / max(sum(sq.values()), 1e-300)
+    resume = {"kill_step": kill_step, "killed_steps": len(killed), "kill_run_s": t_kill,
+              "digests_equal": True, "cursor_equal": True, "steps_per_epoch": per_epoch,
+              "restored_bitwise_leaves": restored_leaves,
+              "null_leaves": null, "null_gradient_ratio": STREAM_NULL_GRADIENT,
+              "null_share_of_distance": null_share,
+              "killed_rel_spread": {"epoch0": _param_distance(sd_full_0, sd_killed_0, null)[0],
+                                    "epoch1": _param_distance(sd_full_1, sd_killed, null)[0],
+                                    "epoch2": pairs["full~resumed"][0]},
+              "rel_distance": {k: d for k, (d, _) in pairs.items()},
+              "param_distance": distance, "param_spread": spread,
+              "param_factor": STREAM_PARAM_FACTOR,
+              "param_tolerance": tolerance, "train_loss_epoch2": losses}
+    emit({"stream_resume": resume})
+    emit({"stream_resume_leaves": {
+        k: {"grad": grads[k], "null": k in null,
+            **{p: pairs[p][1][k] for p in ("full~rejoin_a", "rejoin_a~rejoin_b",
+                                           "full~zeroed", "full~stale", "full~resumed")}}
+        for k in grads}})
+    if distance > tolerance:
+        raise AssertionError(f"resumes of the uninterrupted run's epoch-1 checkpoint lie "
+                             f"{distance} from its epoch 2 on average, past {tolerance} "
+                             f"({STREAM_PARAM_FACTOR} x their mean distance {spread})")
+    if pairs["full~zeroed"][0] <= tolerance:
+        raise AssertionError(f"the planted resume with zeroed moments lies "
+                             f"{pairs['full~zeroed'][0]} from the uninterrupted run, within "
+                             f"the hold's {tolerance}: the hold cannot tell a bad resume")
+
+    # the collation inline (no thread): its stall is the whole data plane's
+    # host time; its batches are the threaded run's
+    inline_env = {"HYDRAGNN_AGG": "fused", "HYDRAGNN_STREAM_QUEUE": "0"}
+    inline = _stream_run(root / "inline", stream_config(data, rehearsal, 1), inline_env, device)
+    inline_launch = _stream_launch_check("inline", inline, cfg, "fused", device)
+    add(inline["launches"])
+    _stream_line("inline", inline, root / "inline", window, bound_bytes, inline_launch)
+    if inline["train"] != [item for item in full["train"] if item[0] == 0]:
+        raise AssertionError("the inline run's epoch-0 batches differ from the threaded run's")
+
+    # segment mode: K2 and K1, one epoch
+    seg_env = {"HYDRAGNN_AGG": "segment", "HYDRAGNN_STREAM_QUEUE": str(STREAM_QUEUE)}
+    seg = _stream_run(root / "segment", stream_config(data, rehearsal, 1), seg_env, device)
+    seg_launch = _stream_launch_check("segment", seg, cfg, "segment", device)
+    add(seg["launches"])
+    _stream_line("segment", seg, root / "segment", window, bound_bytes, seg_launch)
+    if seg["train"] != [item for item in full["train"] if item[0] == 0]:
+        raise AssertionError("the segment run's epoch-0 batches differ from the fused run's")
+
+    # the collation pool against one worker, over the train stores with the run's plan
+    sources = [ShardStoreSource(p["trainset"], name=f) for f, p in data.items()]
+    val = ConcatDataset([ShardDataset(p["valset"]) for p in data.values()])
+    test = ConcatDataset([ShardDataset(p["testset"]) for p in data.values()])
+    batch_size = int(config["NeuralNetwork"]["Training"]["batch_size"])
+    planner = BucketPlanner(sources, batch_size, num_buckets=int(scfg["num_buckets"]),
+                            extra_datasets=[val, test])
+    layout = planner.plan(emit=False)
+    train_all = ConcatDataset([ShardDataset(p["trainset"]) for p in data.values()])
+    pool = {}
+    for workers in (1, STREAM_WORKERS):
+        with run_directory(root / "pool", {"HYDRAGNN_NUM_WORKERS": str(workers)}):
+            loader = GraphLoader(train_all, batch_size, layout, shuffle=True)
+            t = time.perf_counter()
+            digests = [batch_digest(b) for b in loader]
+            pool[workers] = (digests, time.perf_counter() - t)
+    if pool[1][0] != pool[STREAM_WORKERS][0]:
+        raise AssertionError(f"{STREAM_WORKERS} collation workers gave other batches than one")
+
+    # DistDataset: two stores on free ports, one GraphLoader epoch through the card
+    local = [val[i] for i in range(len(val))]
+    half = len(local) // 2
+    addrs = [f"127.0.0.1:{p}" for p in _free_ports(2)]
+    nodes = max(d.num_nodes for d in local)
+    edges = max(d.num_edges for d in local)
+    stores = [DistDataset(part, rank=k, world=2, addresses=addrs,
+                          samples_per_rank=[half, len(local) - half],
+                          max_counts={"nodes": nodes, "edges": edges})
+              for k, part in enumerate((local[:half], local[half:]))]
+    try:
+        for s in stores:
+            s.epoch_begin()
+        t = time.perf_counter()
+        n_dist = _same_batches(GraphLoader(stores[0], batch_size, layout, shuffle=True),
+                               GraphLoader(local, batch_size, layout, shuffle=True), device,
+                               "DistDataset")
+        t_dist = time.perf_counter() - t
+    finally:
+        for s in stores:
+            s.epoch_end()
+            s.close()
+
+    # FeedbackSink: a server's answered graphs, flushed as packs and read back
+    feedback_dir = root / "feedback"
+    served = [test[i] for i in range(min(STREAM_FEEDBACK["graphs"], len(test)))]
+    with run_directory(root / "full", {"HYDRAGNN_FEEDBACK_DIR": str(feedback_dir),
+                                       "HYDRAGNN_FEEDBACK_MAX_GRAPHS":
+                                           str(STREAM_FEEDBACK["max_graphs"])}):
+        registry = ModelRegistry()
+        entry = registry.load_checkpoint(full["log_name"], device=device)
+        plan = plan_from_samples(served, max_batch_graphs=batch_size)
+        sink = FeedbackSink.from_env()
+        with InferenceServer(registry, plan, device=device,
+                             queue_capacity=len(served) + 1) as server:
+            futures = [server.submit(g, model=entry.name) for g in served]
+            answers = [f.result(120) for f in futures]
+        for g, heads in zip(served, answers):
+            if not all(np.all(np.isfinite(np.asarray(h))) for h in heads):
+                raise AssertionError("a served answer is not finite")
+            sink.offer(g, drifted=True)
+        sink.offer(served[0], drifted=True)  # a duplicate: deduplicated
+        sink.close()
+    stats = sink.stats()
+    back = ShardDataset(str(feedback_dir))
+    if len(back) != len(served) or stats["deduped"] != 1:
+        raise AssertionError(f"feedback packs hold {len(back)} graphs of {len(served)} "
+                             f"(stats {stats})")
+    for k, g in enumerate(served):
+        b = back[k]
+        if not (np.array_equal(b.x, g.x) and np.array_equal(b.pos, g.pos)
+                and np.array_equal(b.edge_index, g.edge_index)
+                and np.array_equal(b.targets[0], np.asarray(g.targets[0]).ravel())):
+            raise AssertionError(f"feedback graph {k} reads back other than it was served")
+    back.close()
+    if "native" not in full["tracers"]:
+        raise AssertionError(f"the tracer registered {full['tracers']}, not the native timer")
+
+    emit({"stream_phase": {
+        "card": card, "data_s": t_data, "samples_per_family": (
+            r["samples"] if rehearsal else STREAM_SAMPLES),
+        "plan": _plan_event(root / "full", full),
+        "collation_s": {"1": pool[1][1], str(STREAM_WORKERS): pool[STREAM_WORKERS][1]},
+        "collation_batches": len(pool[1][0]),
+        "distdataset": {"batches": n_dist, "seconds": t_dist, "samples": len(local)},
+        "feedback": {**stats, "packs_read": len(list(feedback_dir.glob("shard.*.gpk")))},
+        "tracers": full["tracers"], "wall_s": time.perf_counter() - t0,
+    }})
+    return launches
+
+
+def _plan_event(workdir, rec):
+    """The run's ``bucket_plan`` event: bounds, ``est_waste`` and buckets."""
+    plan = next(r for r in _run_events(workdir, rec) if r["event"] == "bucket_plan")
+    return {k: plan[k] for k in ("bounds", "est_waste", "buckets", "per_source",
+                                 "samples_scanned")}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -4849,6 +5673,10 @@ def main(argv=None):
     ap.add_argument("--only-telemetry", action="store_true",
                     help="phases 1, 2 and the telemetry phase (phase_telemetry) only; no success "
                          "line")
+    ap.add_argument("--only-stream", action="store_true",
+                    help="phases 1, 2 and the streaming phase (phase_stream) only; no success "
+                         "line")
+    ap.add_argument("--stream-run", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--workdir", default=None,
                     help="the fleet phase's files (default build/chip_smoke/fleet)")
     ap.add_argument("--step1-bucket", action="store_true",
@@ -4857,6 +5685,8 @@ def main(argv=None):
                          "300 s wall)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
+    if args.stream_run:  # the streaming phase's killed run, in a process of its own
+        return _stream_worker(args.stream_run)
 
     if args.cpu_rehearsal:
         device, size, card = torch.device("cpu"), TINY, "cpu rehearsal (no device time)"
@@ -4868,6 +5698,11 @@ def main(argv=None):
     if args.only_formats:
         add_formats = phase_formats(device, card, rehearsal=args.cpu_rehearsal)
         print(f"only the formats: launches {add_formats}; "
+              f"wall {time.perf_counter() - t_start:.1f} s; no success line", flush=True)
+        return 0
+    if args.only_stream:
+        add_stream = phase_stream(device, card, rehearsal=args.cpu_rehearsal)
+        print(f"only the stream: launches {add_stream}; "
               f"wall {time.perf_counter() - t_start:.1f} s; no success line", flush=True)
         return 0
     if args.only_telemetry:
@@ -4995,6 +5830,8 @@ def main(argv=None):
     lap("run_training (formats, periodic cells, optimizers, conv checkpointing)")
     add(phase_telemetry(device, card, rehearsal=args.cpu_rehearsal))
     lap("run_training (telemetry: events, /metrics, /profile, goodput, MFU, report)")
+    add(phase_stream(device, card, rehearsal=args.cpu_rehearsal))
+    lap("run_training (streaming data plane: shard stores, mix, plan, kill and resume)")
     phase_capture(plan, graphs, device, card, served, benched)
     lap("capture")
 
@@ -5059,6 +5896,8 @@ def main(argv=None):
                 "library_device_ms": median(rule["library_device_ms"]),
             }
     print(f"wall: {time.perf_counter() - t_start:.1f} s", flush=True)
+    # a capture broken from outside is recorded once more (train/capture.py)
+    print(f"captures invalidated and recorded again: {invalidated_captures()}", flush=True)
     if args.cpu_rehearsal:
         emit({"kernels": summary})
         print("cpu rehearsal finished: no device was measured", flush=True)

@@ -21,9 +21,12 @@ shuffled within each bucket and the buckets' order shuffled, so that
 same-shape batches stay adjacent for ``steps_per_dispatch``. With
 ``HYDRAGNN_PREFETCH`` > 0 a background thread collates that many batches
 ahead (:func:`prefetch_iter`, the JAX package's pipeline stage, which the
-trainer's device prefetch shares). Worker pools with CPU pinning
-(``HYDRAGNN_NUM_WORKERS`` > 1) and sharding across processes are not
-ported yet (``ROADMAP.md``, queue 1, items 8 and 9) and raise.
+trainer's device prefetch and the streaming loader share). With
+``HYDRAGNN_NUM_WORKERS`` > 1 sample fetch and collation run on an ordered
+pool of that many threads (results in the plan's order, a worker's error
+raised on the consumer's side), each pinned to its ``OMP_PLACES`` place
+when ``HYDRAGNN_AFFINITY=1``. Sharding across processes is not ported yet
+(``ROADMAP.md``, queue 1, item 8).
 """
 
 import bisect
@@ -97,7 +100,8 @@ def budget_bucket_layout(nodes, edges, trips, batch_size: int, mult: int,
     """One bucket sized at ``batch_size`` times its mean (at least its
     largest sample): the packer fills batches under these budgets, so
     every batch fits, and ``g_pad`` admits as many of its smallest graphs
-    as the node budget holds."""
+    as the node budget holds. The streaming planner
+    (``data/stream/planner.py``) sizes its buckets with the same rule."""
     n_pad = _round_up(int(max(batch_size * float(nodes.mean()), nodes.max()) + 1), mult)
     e_pad = _round_up(int(max(batch_size * float(edges.mean()), edges.max(), 1)), mult)
     g_pad = max(batch_size, n_pad // max(int(nodes.min()), 1)) + 1
@@ -155,6 +159,32 @@ def _pack_indices(idx, nodes, edges, trips, layout: BatchLayout,
     return batches
 
 
+class ConcatDataset:
+    """Read-only concatenation of list-like datasets (in-memory lists,
+    ``ShardDataset``, ``DistDataset``): one global index over them."""
+
+    def __init__(self, datasets):
+        self.datasets = list(datasets)
+        self._cum = np.cumsum([len(d) for d in self.datasets])
+
+    def __len__(self):
+        return int(self._cum[-1]) if len(self._cum) else 0
+
+    def __getitem__(self, idx):
+        n = len(self)
+        if idx < 0:
+            idx += n
+        if not 0 <= idx < n:
+            raise IndexError(idx)
+        which = int(np.searchsorted(self._cum, idx, side="right"))
+        local = idx - (int(self._cum[which - 1]) if which else 0)
+        return self.datasets[which][local]
+
+    def __iter__(self):
+        for ds in self.datasets:
+            yield from ds
+
+
 def head_schema(sample) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
     """``(head types, head dims)`` of a sample's targets."""
     return (tuple(sample.target_types),
@@ -167,10 +197,6 @@ class GraphLoader:
     def __init__(self, dataset, batch_size: int, layout, shuffle: bool = True,
                  seed: int = 42, contiguous_buckets: Optional[bool] = None,
                  bucket_graph_cap: str = "batch"):
-        if _env_int("HYDRAGNN_NUM_WORKERS", 1) > 1:
-            raise NotImplementedError(
-                "HYDRAGNN_NUM_WORKERS (a pool of collation workers) is not ported yet: "
-                "see ROADMAP.md, queue 1, items 8 and 9")
         self.prefetch = _env_int("HYDRAGNN_PREFETCH", 0)
         env_contig = os.getenv("HYDRAGNN_BUCKET_CONTIGUOUS")
         if env_contig is not None:
@@ -279,29 +305,133 @@ class GraphLoader:
     def collate(self, layout, chunk):
         return collate_for_layout([self.dataset[i] for i in chunk], layout, *self.heads)
 
+    def _collate_task(self, task):
+        return self.collate(*task)
+
     def _batches(self):
         for layout, chunk in self.batch_tasks():
             yield self.collate(layout, chunk)
 
     def __iter__(self):
+        # HYDRAGNN_NUM_WORKERS > 1: sample fetch and collation fan out over
+        # an ordered pool of threads, each pinned to its OMP_PLACES place
+        # with HYDRAGNN_AFFINITY=1 (the JAX package's loaders.py:791-1000)
+        workers = _env_int("HYDRAGNN_NUM_WORKERS", 1)
+        if workers > 1:
+            return prefetch_iter(self.batch_tasks(), max(self.prefetch, workers),
+                                 fn=self._collate_task, workers=workers,
+                                 name="graphloader-worker")
         if self.prefetch <= 0:
             return self._batches()
         return prefetch_iter(self._batches(), self.prefetch, name="graphloader-prefetch")
 
 
-def prefetch_iter(source, depth: int, fn=None, name: str = "prefetch"):
+def _parse_omp_places(spec: Optional[str] = None):
+    """``OMP_PLACES`` as a list of core sets, one per place: the forms
+    ``{0:4},{4:4}`` (start:length[:stride]) and ``{0,2,4}``. Input that
+    does not parse gives no places (no pinning)."""
+    import re
+
+    if spec is None:
+        spec = os.environ.get("OMP_PLACES", "")
+    places = []
+    try:
+        for m in re.finditer(r"\{([^}]*)\}", spec):
+            cores = []
+            for part in m.group(1).split(","):
+                part = part.strip()
+                if not part:
+                    continue
+                if ":" in part:
+                    bits = [int(x) for x in part.split(":")]
+                    start, length = bits[0], bits[1]
+                    stride = bits[2] if len(bits) > 2 else 1
+                    cores.extend(range(start, start + length * stride, stride))
+                else:
+                    cores.append(int(part))
+            if cores:
+                places.append(cores)
+    except ValueError:
+        return []
+    return places
+
+
+def _pin_worker(index: int, places) -> None:
+    """Pin the calling thread to place ``index % len(places)``; nothing
+    without places, without OS support, or when the OS refuses."""
+    if not places or not hasattr(os, "sched_setaffinity"):
+        return
+    try:
+        os.sched_setaffinity(0, set(places[index % len(places)]))
+    except OSError:
+        pass
+
+
+def _affinity_places():
+    """The places pool workers pin to, when ``HYDRAGNN_AFFINITY=1``."""
+    if os.getenv("HYDRAGNN_AFFINITY", "0") != "1":
+        return []
+    return _parse_omp_places()
+
+
+def _ordered_pool_map(source, fn, workers, depth, name, places):
+    """``fn`` over ``source`` on a pool of ``workers`` threads, at most
+    ``max(depth, workers)`` in flight, results in source order. The
+    consumer's thread walks ``source``; a worker's error is raised when
+    its result comes up. Stopping early cancels the queued work and the
+    pool's exit joins its threads."""
+    import itertools
+    from concurrent.futures import ThreadPoolExecutor
+
+    counter = itertools.count()
+
+    def _init():
+        _pin_worker(next(counter), places)
+
+    window = []
+    with ThreadPoolExecutor(max_workers=workers, thread_name_prefix=name,
+                            initializer=_init) as ex:
+        try:
+            limit = max(depth, workers)
+            for item in source:
+                window.append(ex.submit(fn, item))
+                if len(window) >= limit:
+                    yield window.pop(0).result()
+            while window:
+                yield window.pop(0).result()
+        finally:
+            for f in window:
+                f.cancel()
+            # the source is suspended in this thread, never running: closing
+            # it here drops what its frame holds
+            closer = getattr(source, "close", None)
+            if callable(closer):
+                try:
+                    closer()
+                except Exception:
+                    pass
+
+
+def prefetch_iter(source, depth: int, fn=None, name: str = "prefetch", workers: int = 1,
+                  probe=None):
     """A bounded background stage (port of ``data/loaders.py::
-    prefetch_iter``, one worker): ``fn`` (identity if None) applied to
-    each item of ``source`` on a thread, up to ``depth`` results ahead of
-    the consumer, yielded in order. The worker's puts are stop-aware, so
-    a consumer that stops early (an exception, ``HYDRAGNN_MAX_NUM_BATCH``)
-    leaks no thread holding batches; a worker's error is raised on the
-    consumer's side."""
+    prefetch_iter``): ``fn`` (identity if None) applied to each item of
+    ``source`` on a thread, up to ``depth`` results ahead of the
+    consumer, yielded in order. ``workers`` > 1 runs ``fn`` on an ordered
+    pool of threads (:func:`_ordered_pool_map`). ``probe``, when given, is
+    called with the queue's depth at each of the consumer's gets (one
+    worker only: the streaming loader's ``stream_queue_depth``). The
+    worker's puts are stop-aware, so a consumer that stops early (an
+    exception, ``HYDRAGNN_MAX_NUM_BATCH``) leaks no thread holding
+    batches; a worker's error is raised on the consumer's side."""
     import queue
     import threading
 
     if fn is None:
         fn = lambda x: x  # noqa: E731
+    if workers > 1:
+        yield from _ordered_pool_map(source, fn, workers, depth, name, _affinity_places())
+        return
     q: "queue.Queue" = queue.Queue(maxsize=max(depth, 1))
     sentinel = object()
     stop = threading.Event()
@@ -330,6 +460,8 @@ def prefetch_iter(source, depth: int, fn=None, name: str = "prefetch"):
     t.start()
     try:
         while True:
+            if probe is not None:
+                probe(q.qsize())
             item = q.get()
             if item is sentinel:
                 break

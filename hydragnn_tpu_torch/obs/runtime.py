@@ -122,8 +122,8 @@ class FlightRecorder:
 class TrainingMetrics:
     """The training run's live series: everything ``/metrics`` reports (the
     JAX package's families, in its order, but for those of paths not ported
-    yet: the streaming data plane, elastic worlds and their fleet view, the
-    autotuner's choice and mesh collectives)."""
+    yet: elastic worlds and their fleet view, the autotuner's choice and
+    mesh collectives)."""
 
     def __init__(self, device=None):
         self.device = device
@@ -147,6 +147,17 @@ class TrainingMetrics:
         r.labeled_gauge("flops_per_step",
                         "Captured-program FLOPs (FlopCounterMode over the warm-up)")
         r.labeled_gauge("hbm_peak_bytes", "Captured-program peak device memory (warm-up and capture)")
+        # the streaming data plane (data/stream/): per-epoch pipeline health
+        r.gauge("stream_queue_depth", "Collated batches ready ahead of the consumer")
+        r.gauge("stream_stall_seconds",
+                "Seconds the consumer waited on the stream pipeline last epoch")
+        r.gauge("stream_bytes_per_second", "Streamed sample bytes/sec last epoch")
+        r.gauge("stream_open_shards_peak", "Most shards any source held resident at once")
+        r.gauge("stream_resident_bytes_peak", "Peak host bytes pinned by stream window buffers")
+        r.counter("stream_samples_total", "Samples drawn from the stream mix")
+        r.counter("stream_oversize_dropped_total",
+                  "Samples dropped because no bucket of the plan could hold them")
+        r.labeled_gauge("stream_source_fraction", "Fraction of last epoch's draws per mix source")
         r.labeled_gauge("goodput_fraction", "Last epoch's wall-time fraction per goodput category")
         r.labeled_gauge("mfu", "Model FLOPs utilization per train bucket (vs device peak)")
         r.gauge("device_bytes_in_use", "Live device memory in use")
@@ -614,6 +625,34 @@ def checkpoint_restored(name: str, source: str):
     if t is None:
         return
     t.emit("checkpoint_restored", name=name, source=source)
+
+
+def stream_epoch_stats(queue_depth: int = 0, stall_s: float = 0.0, bytes_per_sec: float = 0.0,
+                       open_shards_peak: int = 0, resident_bytes_peak: int = 0, samples: int = 0,
+                       oversize_dropped: int = 0,
+                       source_counts: Optional[Dict[str, int]] = None):
+    """One epoch of the streaming data plane completed (``data/stream/``):
+    the ``stream_*`` gauges, and its stall seconds as the goodput ledger's
+    data stall (the trainer does not time a loader that reports its own
+    waits). No event: the epoch event carries the epoch's story."""
+    t = _active
+    if t is None:
+        return
+    t.ledger.data_wait(stall_s)
+    r = t.metrics.registry
+    r.set("stream_queue_depth", float(queue_depth))
+    r.set("stream_stall_seconds", float(stall_s))
+    r.set("stream_bytes_per_second", float(bytes_per_sec))
+    r.set("stream_open_shards_peak", float(open_shards_peak))
+    r.set("stream_resident_bytes_peak", float(resident_bytes_peak))
+    if samples:
+        r.inc("stream_samples_total", int(samples))
+    if oversize_dropped:
+        r.inc("stream_oversize_dropped_total", int(oversize_dropped))
+    if source_counts:
+        total = max(sum(source_counts.values()), 1)
+        for name, n in source_counts.items():
+            r.set_labeled("stream_source_fraction", n / total, source=name)
 
 
 def data_wait(seconds: float):

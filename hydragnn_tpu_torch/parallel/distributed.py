@@ -1,8 +1,25 @@
-"""The SLURM wall-clock guard (port of ``parallel/distributed.py``'s
-``check_remaining`` and ``_parse_slurm_timeleft``; the rest of that
-module is ``ROADMAP.md``'s queue 1, item 8)."""
+"""The SLURM wall-clock guard and the data plane's counts exchange (port of
+``parallel/distributed.py``'s ``check_remaining``, ``_parse_slurm_timeleft``
+and ``host_allgather_int``; the rest of that module is ``ROADMAP.md``'s
+queue 1, item 8). The exchange goes over ``torch.distributed`` when a group
+is initialised and is the identity in one process."""
 
 import os
+from typing import List
+
+from hydragnn_tpu_torch.utils.timers import comm_size_and_rank
+
+
+def host_allgather_int(value: int) -> List[int]:
+    """Every process's ``value``, in rank order."""
+    world, _ = comm_size_and_rank()
+    if world == 1:
+        return [int(value)]
+    import torch.distributed as dist
+
+    out = [None] * world
+    dist.all_gather_object(out, int(value))
+    return [int(v) for v in out]
 
 
 def check_remaining(elapsed_per_epoch: float) -> bool:

@@ -1714,6 +1714,16 @@ def build_server_from_spec(spec: Dict):
     return server, spec.get("arch"), name
 
 
+def feedback_dir(queue_dir: str, role: str, rid: int) -> str:
+    """Where one process's feedback packs go: ``<queue_dir>/<role><rid>``.
+    Packs are per-process state (a sink's pack ranks count from 0), so each
+    process writes into a directory of its own. A replica's is the JAX
+    package's ``replica<rid>``; a canary's is ``canary<rid>``, where the
+    JAX package writes ``replica<rid>`` for a canary too: a canary and a
+    replica of the same id would both write ``shard.00000.gpk`` there."""
+    return os.path.join(queue_dir, f"{role}{int(rid)}")
+
+
 def replica_main(spec_path: str) -> int:
     """Body of one supervised replica process (the CLI with
     ``HYDRAGNN_FLEET_REPLICA`` set): build the server from the spec,
@@ -1753,7 +1763,10 @@ def replica_main(spec_path: str) -> int:
         os.path.join(coord_dir, f"drift-{role}{rid}"), emit=cost_events.emit
     )
     replica.drift = drift
-    replica.sink = FeedbackSink.from_env(emit=cost_events.emit)
+    sink = FeedbackSink.from_env(emit=cost_events.emit)
+    if sink is not None:
+        sink.queue_dir = feedback_dir(sink.queue_dir, role, rid)
+    replica.sink = sink
     if drift is not None:
         # promote/rollback re-pins the reference to the activated
         # version; the initial call adopts (or loads) v_active's window

@@ -1,6 +1,5 @@
-"""Per-request uncertainty scoring (port of the JAX package's
-``serve/quality.py``: ``UncertaintyScorer``; ``FeedbackSink`` waits for the
-data plane).
+"""Per-request uncertainty scoring and the labelled-on-demand feedback
+sink (port of the JAX package's ``serve/quality.py``).
 
 :class:`UncertaintyScorer` gives every dispatched batch a per-head
 predictive variance from K samples, in one of two modes:
@@ -45,7 +44,7 @@ from hydragnn_tpu_torch.obs.metrics import MetricsRegistry
 from hydragnn_tpu_torch.obs import introspect
 from hydragnn_tpu_torch.train.capture import ProgramSet
 from hydragnn_tpu_torch.utils.device import resolve_device
-from hydragnn_tpu_torch.utils.envparse import env_int
+from hydragnn_tpu_torch.utils.envparse import env_float, env_int
 
 MODES = ("dropout", "ensemble")
 
@@ -232,22 +231,138 @@ class UncertaintyScorer:
                    seed=env_int("HYDRAGNN_UNC_SEED", 0), registry=registry, device=device)
 
 
-_SINK_NOT_PORTED = ("FeedbackSink needs data/shard_store, which is not ported yet: see "
-                    "ROADMAP.md, queue 1, item 9")
-
-
 class FeedbackSink:
-    """The JAX package's labelled-on-demand feedback sink persists graphs
-    as ``data/shard_store`` packs, which the port does not have yet."""
+    """Dedup + bound + persist the graphs worth labeling.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_SINK_NOT_PORTED)
+    ``offer`` admits a graph when the request was drifted (detector
+    alert active) or its max per-head predictive variance clears
+    ``min_unc``; admitted graphs dedup by ``canonical_graph_key`` (an
+    LRU seen-set, so permuted duplicates of the same graph never enqueue
+    twice), buffer up to ``max_graphs`` and flush as one shard_store
+    pack (``shard.<packs:05d>.gpk``) under ``queue_dir`` — which is then
+    directly consumable by ``ShardStoreSource``/``ShardDataset`` of
+    either package. At most ``max_packs`` packs are ever written
+    (bounded disk), after which offers count as dropped.
+    """
+
+    def __init__(
+        self,
+        queue_dir: str,
+        *,
+        max_graphs: int = 256,
+        max_packs: int = 16,
+        min_unc: float = 0.0,
+        emit=None,
+    ):
+        self.queue_dir = queue_dir
+        self.max_graphs = max(int(max_graphs), 1)
+        self.max_packs = max(int(max_packs), 1)
+        self.min_unc = float(min_unc)
+        self.emit = emit
+        self._lock = threading.Lock()
+        self._buf: List = []
+        self._seen: "dict" = {}  # canonical key -> True, LRU-bounded
+        self._seen_cap = max(4 * self.max_graphs, 1024)
+        self.offered = 0
+        self.accepted = 0
+        self.deduped = 0
+        self.dropped = 0
+        self.graphs = 0  # persisted
+        self.packs = 0
+        self._next_rank = 0  # reserved under the lock: concurrent
+        # flushes must never write the same shard.<rank>.gpk
+
+    def offer(self, graph, uncertainty=None, drifted: bool = False) -> bool:
+        """Consider one served graph; returns True when it was buffered
+        for labeling. Never raises into the request path."""
+        try:
+            return self._offer(graph, uncertainty, drifted)
+        except Exception:
+            return False
+
+    def _offer(self, graph, uncertainty, drifted) -> bool:
+        admit = bool(drifted)
+        if not admit and uncertainty is not None:
+            finite = [
+                float(v) for v in uncertainty
+                if v is not None and math.isfinite(float(v))
+            ]
+            admit = bool(finite) and max(finite) >= self.min_unc
+        with self._lock:
+            self.offered += 1
+            if not admit:
+                return False
+            from hydragnn_tpu_torch.serve.cache import canonical_graph_key
+
+            key = canonical_graph_key(graph)
+            if key in self._seen:
+                self._seen.pop(key)
+                self._seen[key] = True  # refresh LRU position
+                self.deduped += 1
+                return False
+            if self.packs >= self.max_packs:
+                self.dropped += 1
+                return False
+            self._seen[key] = True
+            while len(self._seen) > self._seen_cap:
+                self._seen.pop(next(iter(self._seen)))
+            self._buf.append(graph.clone())
+            self.accepted += 1
+            flush = len(self._buf) >= self.max_graphs
+        if flush:
+            self.flush()
+        return True
+
+    def flush(self):
+        """Persist the buffered graphs as one pack (tmp + rename via
+        ShardWriter, so a reader never sees a torn pack)."""
+        with self._lock:
+            if not self._buf or self._next_rank >= self.max_packs:
+                return
+            buf, self._buf = self._buf, []
+            rank = self._next_rank
+            self._next_rank += 1
+        from hydragnn_tpu_torch.data.shard_store import ShardWriter
+
+        writer = ShardWriter(self.queue_dir, rank=rank)
+        writer.add(buf)
+        writer.save()
+        with self._lock:
+            self.packs += 1
+            self.graphs += len(buf)
+        if self.emit is not None:
+            self.emit("feedback_sink", **self.stats())
+
+    def close(self):
+        self.flush()
+
+    def stats(self) -> Dict:
+        with self._lock:
+            return {
+                "offered": self.offered,
+                "accepted": self.accepted,
+                "deduped": self.deduped,
+                "dropped": self.dropped,
+                "graphs": self.graphs,
+                "packs": self.packs,
+                "buffered": len(self._buf),
+            }
 
     @classmethod
     def from_env(cls, emit=None) -> Optional["FeedbackSink"]:
-        """None while ``HYDRAGNN_FEEDBACK_DIR`` is unset (the sink off, as
-        in the JAX package); set, it raises ``NotImplementedError``: the
-        port cannot persist the packs yet."""
-        if not os.getenv("HYDRAGNN_FEEDBACK_DIR"):
+        """``HYDRAGNN_FEEDBACK_DIR`` (unset = sink off) + bounded-size
+        knobs, all via ``utils/envparse``."""
+        queue_dir = os.getenv("HYDRAGNN_FEEDBACK_DIR")
+        if not queue_dir:
             return None
-        raise NotImplementedError(_SINK_NOT_PORTED)
+        return cls(
+            queue_dir,
+            max_graphs=env_int(
+                "HYDRAGNN_FEEDBACK_MAX_GRAPHS", 256, minimum=1
+            ),
+            max_packs=env_int(
+                "HYDRAGNN_FEEDBACK_MAX_PACKS", 16, minimum=1
+            ),
+            min_unc=env_float("HYDRAGNN_FEEDBACK_MIN_UNC", 0.0),
+            emit=emit,
+        )

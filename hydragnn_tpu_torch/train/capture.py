@@ -28,7 +28,10 @@ The capture recipe, per new key:
    with the set's generator registered with the graph (GAT's dropout).
    The tensors a graph writes and keeps beyond one replay (its outputs,
    the parameters' gradients) are held with the graph, so that no later
-   capture in the shared pool takes their memory.
+   capture in the shared pool takes their memory. A capture that CUDA
+   invalidates from outside the body (another thread's device-wide
+   synchronisation does that) is recorded once more, into a new pool
+   (:meth:`Program._record`).
 
 A replay copies its outputs out (a clone of each), so that the next
 replay cannot overwrite what a caller holds.
@@ -66,7 +69,9 @@ process-wide as the launch counts are.
 
 import contextlib
 import dataclasses
+import threading
 import time
+import warnings
 from typing import Callable, Dict, List, Optional
 
 import torch
@@ -82,10 +87,53 @@ from hydragnn_tpu_torch.obs import runtime as obs_runtime
 # training-step and forward bodies that capture warm-ups ran on the card
 _TALLY = {"captures": 0, "replays": 0, "warm_steps": 0, "warm_forwards": 0}
 
+# a capture recorded at most this many times in a row (Program._record)
+CAPTURE_ATTEMPTS = 2
+
+# the graphs of invalidated captures, kept alive: the allocator's routing of
+# the capture's allocations into the pool may still refer to its graph
+_FAILED_GRAPHS: list = []
+
 
 def capture_counts() -> Dict[str, int]:
     """``{"captures", "replays", "warm_steps", "warm_forwards"}`` so far."""
     return dict(_TALLY)
+
+
+def invalidated_captures() -> int:
+    """Captures that CUDA invalidated in this process, each recorded again
+    (:meth:`Program._record`); never reset."""
+    return len(_FAILED_GRAPHS)
+
+
+def _take_back(before: Dict[str, int]) -> Dict[str, int]:
+    """The kernel launches since ``before``, taken back off the counts."""
+    launches = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    ops.add_launches({k: -v for k, v in launches.items()})
+    return launches
+
+
+def _invalidated(error: BaseException) -> bool:
+    """``error`` and every error it was raised while handling are
+    ``cudaErrorStreamCaptureInvalidated``: the capture was broken from
+    outside, and neither the body nor anything else failed on its own."""
+    while error is not None:
+        text = str(error)
+        if not ("cudaErrorStreamCaptureInvalidated" in text
+                or "operation failed due to a previous error during capture" in text):
+            return False
+        error = error.__cause__ or error.__context__
+    return True
+
+
+def _end_pool_routing(owner: "ProgramSet"):
+    """Stop routing allocations into ``owner``'s pool after a capture whose
+    end failed: its ``capture_end`` raised before it stopped the routing (a
+    no-op where none is left)."""
+    try:
+        torch._C._cuda_endAllocateToPool(owner.device.index, owner.pool)
+    except RuntimeError:
+        pass
 
 
 def reset_capture_counts():
@@ -344,15 +392,7 @@ class Program:
             torch.cuda.current_stream(owner.device).wait_stream(stream)
             if self.kind != "tail":
                 _TALLY["warm_steps" if self.kind == "step" else "warm_forwards"] += self.bodies(args)
-            graph = torch.cuda.CUDAGraph()
-            if owner.generator is not None:
-                graph.register_generator_state(owner.generator)
-            before = ops.launch_counts()
-            with torch.cuda.graph(graph, pool=owner.pool, stream=stream,
-                                  capture_error_mode="thread_local"):
-                out = self.body(*static_args)
-        launches = {k: v - before[k] for k, v in ops.launch_counts().items()}
-        ops.add_launches({k: -v for k, v in launches.items()})
+            graph, out, launches = self._record(static_args, stream)
         self._count_capture()
         # the run's compile signal: the capture's seconds, the kernels'
         # first-launch builds in the warm-up included
@@ -363,6 +403,53 @@ class Program:
         if self.bound:
             keep += static
         return _Graph(graph, static, buffer, out, launches, keep)
+
+    def _record(self, static_args, stream):
+        """``(graph, out, launches)``: the body captured on ``stream`` into
+        a new graph in the set's pool, and the kernel launches of the
+        capture pass (taken back off the counts: a capture launches
+        nothing).
+
+        A capture that CUDA invalidated from outside the body (another
+        thread's device-wide synchronisation does that) fails with
+        ``cudaErrorStreamCaptureInvalidated`` at the body's next launch or
+        at the capture's end; it is recorded once more into a new graph, and
+        a second such failure raises. An error of the body's own (an
+        operation a capture does not permit, anything else) is never
+        retried."""
+        owner = self.owner
+        current = torch.cuda.current_stream(owner.device)
+        try:
+            for attempt in range(CAPTURE_ATTEMPTS):
+                graph = torch.cuda.CUDAGraph()
+                if owner.generator is not None:
+                    graph.register_generator_state(owner.generator)
+                before = ops.launch_counts()
+                try:
+                    with torch.cuda.graph(graph, pool=owner.pool, stream=stream,
+                                          capture_error_mode="thread_local"):
+                        out = self.body(*static_args)
+                    return graph, out, _take_back(before)
+                except RuntimeError as e:
+                    _take_back(before)
+                    if not _invalidated(e):
+                        raise
+                    _end_pool_routing(owner)
+                    # the allocator still counts the failed capture as
+                    # recording to its pool, which then takes no other
+                    # capture: the set's later captures go to a new pool
+                    owner.pool = torch.cuda.graph_pool_handle()
+                    _FAILED_GRAPHS.append(graph)
+                    if attempt + 1 == CAPTURE_ATTEMPTS:
+                        raise RuntimeError(f"{self.name}: {CAPTURE_ATTEMPTS} captures in a row "
+                                           f"were invalidated: {e}") from e
+                    threads = [t.name for t in threading.enumerate()]
+                    warnings.warn(f"{self.name}: the capture was invalidated ({e}; the "
+                                  f"process's threads {threads}); capturing again",
+                                  RuntimeWarning, stacklevel=3)
+        finally:
+            # a failed capture_end leaves the capture's stream current
+            torch.cuda.set_stream(current)
 
 
 class ProgramSet:

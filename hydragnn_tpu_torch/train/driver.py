@@ -1,7 +1,11 @@
 """``run_training`` and ``run_prediction`` (port of ``train/driver.py``'s
-single-process, non-streaming path).
+single-process path).
 
-``run_training_impl``: the data path (``data/loaders.py``), the derived
+``run_training_impl``: the data path (``data/loaders.py``, or for a
+``Dataset.streaming`` section the streaming data plane,
+``data/stream/``: the train split streams through the weighted mix and
+the auto bucket plan, the evaluation splits are loaded, and the config is
+derived over the stream's probe window), the derived
 config (``utils/config.py``), the model on the card (``aggregation``:
 :func:`~hydragnn_tpu_torch.utils.config.model_aggregation`; the batches
 carry the dense lists where the config's branch says so) and its
@@ -63,15 +67,10 @@ def _arch_for_factory(config) -> dict:
     return arch
 
 
-def _check_supported(config):
-    if config.get("Dataset", {}).get("streaming"):
-        raise NotImplementedError(
-            "streaming datasets are not ported yet: see ROADMAP.md, queue 1, item 9")
-
-
 def build_model_and_trainer(config, train_loader, device):
     """The model of ``config``'s derived Architecture on ``device``, its
-    ``Trainer`` and a fresh state (from the loader's first batch)."""
+    ``Trainer`` and a fresh state (from the loader's first batch: for a
+    streaming run, the probe loader's, which consumes no stream)."""
     arch = _arch_for_factory(config)
     model = create_model_config(arch, device=device,
                                 aggregation=model_aggregation(arch.get("model_type")))
@@ -82,12 +81,22 @@ def build_model_and_trainer(config, train_loader, device):
 
 
 def _prepare(config, device):
-    _check_supported(config)
+    """``(device, verbosity, (train, val, test loaders), derived config,
+    probe loader)``. A ``Dataset.streaming`` config never materialises its
+    train split: the config is derived over the stream's cursor-neutral
+    probe window (JAX ``driver.py:232-249``), whose loader is returned
+    for the trainer's example batch; otherwise the probe is None."""
+    from hydragnn_tpu_torch.data.stream import build_stream_loaders, streaming_requested
+
     dev = resolve_device(device)
     verbosity = config.get("Verbosity", {}).get("level", 0)
+    if streaming_requested(config):
+        train_loader, val_loader, test_loader, probe = build_stream_loaders(config)
+        config = update_config(config, probe, val_loader, test_loader)
+        return dev, verbosity, (train_loader, val_loader, test_loader), config, probe
     loaders = dataset_loading_and_splitting(config)
     config = update_config(config, *loaders)
-    return dev, verbosity, loaders, config
+    return dev, verbosity, loaders, config, None
 
 
 def run_training_impl(config, device=None, telemetry_port=None):
@@ -100,7 +109,8 @@ def run_training_impl(config, device=None, telemetry_port=None):
     timer = Timer("run_training")
     timer.start()
     tr.initialize()
-    dev, verbosity, (train_loader, val_loader, test_loader), config = _prepare(config, device)
+    dev, verbosity, (train_loader, val_loader, test_loader), config, probe = _prepare(
+        config, device)
     tr.set_device(dev)
     log_name = get_log_name_config(config)
     save_config(config, log_name)
@@ -111,7 +121,7 @@ def run_training_impl(config, device=None, telemetry_port=None):
         obs.emit("bucket_plan", **train_loader.plan_event)
     writer = None
     try:
-        _, trainer, state = build_model_and_trainer(config, train_loader, dev)
+        _, trainer, state = build_model_and_trainer(config, probe or train_loader, dev)
         training = config["NeuralNetwork"]["Training"]
         resume_meta = None
         if training.get("continue"):
@@ -169,9 +179,9 @@ def run_training_impl(config, device=None, telemetry_port=None):
 
 
 def run_prediction_impl(config, device=None):
-    dev, _, (train_loader, _, test_loader), config = _prepare(config, device)
+    dev, _, (train_loader, _, test_loader), config, probe = _prepare(config, device)
     log_name = get_log_name_config(config)
-    _, trainer, state = build_model_and_trainer(config, train_loader, dev)
+    _, trainer, state = build_model_and_trainer(config, probe or train_loader, dev)
     if not checkpoint_exists(log_name):
         raise FileNotFoundError(f"No trained model found: {log_name}")
     restored = load_state_dict(log_name, fallback=False)

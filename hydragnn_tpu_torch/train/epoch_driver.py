@@ -17,7 +17,9 @@ for the threefry key. The JAX package accepts either on resume. The port
 adds ``perm_rng``, the state of ``Trainer.perm_generator`` (the staged
 epochs' microbatch order, uint8), which the JAX package does not read: a
 resumed staged or chunked run then draws the orders the uninterrupted run
-would have.
+would have. A streaming train loader (``data/stream/``) adds ``stream``,
+its mix cursor, which a resumed run restores before its first epoch; such a
+loader is never staged (``device_resident_dataset`` streams it).
 
 With ``device_resident_dataset`` (or ``HYDRAGNN_DEVICE_RESIDENT``) the
 training set is staged on the device once and every epoch runs
@@ -175,13 +177,17 @@ def _epoch_complete(train_loader, epoch, train_loss, val_loss, test_loss, t_trai
 
 
 def build_train_meta(epoch, rng, scheduler, early, ckpt, guard=None, sched=None,
-                     perm_rng=None):
+                     perm_rng=None, stream=None):
     """The format-2 training-loop state after epoch ``epoch``; ``guard``
     adds the guard's counters, ``sched`` (a chunk's ``fit_sched``: numpy
-    0-d arrays by JAX's field names) the device schedulers' state and
-    ``perm_rng`` the order generator's state."""
+    0-d arrays by JAX's field names) the device schedulers' state,
+    ``perm_rng`` the order generator's state and ``stream`` the streaming
+    loader's mix cursor (JAX ``epoch_driver.py:57-73``), so that a resumed
+    streaming run draws the samples the uninterrupted run would have."""
     meta = {"format": 2, "epoch": int(epoch), "rng": np.asarray(rng, np.uint32),
             "plateau": scheduler.state_dict()}
+    if stream is not None:
+        meta["stream"] = stream
     if perm_rng is not None:
         meta["perm_rng"] = np.asarray(perm_rng.numpy(), np.uint8)
     if early is not None:
@@ -259,6 +265,10 @@ def train_validate_test(trainer, state, train_loader, val_loader, test_loader,
         if early is not None and early.early_stop:
             print_distributed(verbosity, "Resume: early stopping had already triggered")
             start_epoch = num_epoch
+        if resume_meta.get("stream") is not None and hasattr(train_loader, "load_state_dict"):
+            # the mix cursor before the first epoch: the resumed run draws
+            # the sample sequence the uninterrupted one would have
+            train_loader.load_state_dict(resume_meta["stream"])
         print_distributed(verbosity, f"Resuming training at epoch {start_epoch} "
                                      f"(lr {scheduler.lr:.3e})")
         obs.emit("resume", start_epoch=int(start_epoch), lr=float(scheduler.lr))
@@ -266,9 +276,14 @@ def train_validate_test(trainer, state, train_loader, val_loader, test_loader,
 
     publish = _candidate_publisher(training, log_name, ckpt_writer, verbosity)
 
+    def stream_state():
+        """A streaming loader's mix cursor; None for any other loader."""
+        sd = getattr(train_loader, "state_dict", None)
+        return sd() if callable(sd) else None
+
     def save_resumable(epoch, sched=None, val_loss=None):
         meta = build_train_meta(epoch, rng, scheduler, early, ckpt, guard, sched,
-                                trainer.perm_generator.get_state())
+                                trainer.perm_generator.get_state(), stream=stream_state())
         trainer.last_save = save_model(state, log_name, train_meta=meta, keep_last=keep_last,
                                        writer=ckpt_writer)
         trainer.final_train_meta = meta
@@ -278,11 +293,14 @@ def train_validate_test(trainer, state, train_loader, val_loader, test_loader,
 
     def log_epoch(epoch, train_loss, val_loss, test_loss, train_tasks, t_train, extra,
                   mode="stream"):
+        try:
+            rate = f", {len(train_loader.dataset) / max(t_train, 1e-9):.0f} graphs/sec"
+        except TypeError:  # a streaming loader has no dataset to count
+            rate = ""
         print_distributed(
             verbosity,
             f"Epoch: {epoch:04d}, Train Loss: {train_loss:.8f}, Val Loss: {val_loss:.8f}, "
-            f"Test Loss: {test_loss:.8f}, Train Time: {t_train:.2f}s, "
-            f"{len(train_loader.dataset) / max(t_train, 1e-9):.0f} graphs/sec")
+            f"Test Loss: {test_loss:.8f}, Train Time: {t_train:.2f}s{rate}")
         trainer.history.append({
             "epoch": epoch, "train_loss": float(train_loss), "val_loss": float(val_loss),
             "test_loss": float(test_loss), "train_tasks": np.atleast_1d(train_tasks).tolist(),
@@ -299,13 +317,19 @@ def train_validate_test(trainer, state, train_loader, val_loader, test_loader,
 
     staged = None
     if _env_flag("HYDRAGNN_DEVICE_RESIDENT", training, "device_resident_dataset"):
-        try:
-            staged = trainer.stage_batches(list(train_loader))
-        except ValueError:
-            print_distributed(
-                verbosity,
-                "device_resident_dataset: batches are not shape-uniform "
-                "(bucketed layout?) — falling back to streaming")
+        if getattr(train_loader, "reports_stream_stats", False):
+            # a stream never materialises: staging would read a whole
+            # epoch off the cursor before the first one trains
+            print_distributed(verbosity, "device_resident_dataset: a streaming train split "
+                                         "does not stage — streaming")
+        else:
+            try:
+                staged = trainer.stage_batches(list(train_loader))
+            except ValueError:
+                print_distributed(
+                    verbosity,
+                    "device_resident_dataset: batches are not shape-uniform "
+                    "(bucketed layout?) — falling back to streaming")
 
     ran_fit = staged is not None and fit_chunk > 0
     if ran_fit:

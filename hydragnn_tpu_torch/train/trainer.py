@@ -320,16 +320,20 @@ class Trainer(PredictMixin):
     def _dispatches(self, loader, K):
         """``(payload, count)`` per dispatch of a pass; the time the loop
         waits for each (collation, stacking, the prefetch queue) is the
-        ``dataload`` tracer region and the goodput ledger's data stall."""
+        ``dataload`` tracer region and the goodput ledger's data stall,
+        unless the loader reports its own waits (the streaming loader's
+        ``stream_epoch_stats``), which must not count twice."""
         it = self._prefetch_put(self._group_plan(self._batches(loader, _nbatch(loader)), K),
                                 self.device_prefetch)
+        ledger_waits = not getattr(loader, "reports_stream_stats", False)
         while True:
             tr.start("dataload")
             t0 = time.perf_counter()
             try:
                 item = next(it, None)
             finally:
-                obs.data_wait(time.perf_counter() - t0)
+                if ledger_waits:
+                    obs.data_wait(time.perf_counter() - t0)
                 tr.stop("dataload")
             if item is None:
                 return

@@ -7,9 +7,10 @@ boundaries for honest attribution, and a ``@profile`` decorator. Backends:
 * ``torch``: each region as a ``torch.profiler.record_function`` range, so
   that it shows in a profiler trace (the JAX package's ``jax`` backend,
   ``TraceAnnotation``).
-* ``native``: the JAX package's C++ region timer is not ported yet
-  (``ROADMAP.md``, queue 1, item 9); asking for it registers ``timer``, as
-  the JAX package does when its toolchain is missing.
+* ``native``: the C++ region timer (``native/regiontimer.py``, built with
+  g++ at first use): call-tree paths (``train/train_step``), a text summary
+  and a chrome-trace export. It falls back to ``timer`` only when the
+  library cannot be built, as in the JAX package.
 
 ``HYDRAGNN_TRACE_LEVEL=1`` synchronises the run's device
 (``torch.cuda.synchronize``; :func:`set_device`) at every region boundary,
@@ -84,10 +85,17 @@ class TorchProfilerTracer:
 
 def initialize(trace_backends=("native",), verbosity: int = 0):
     for b in trace_backends:
-        if b in ("timer", "native"):
+        if b == "timer":
             _tracers["timer"] = TimerTracer()
         elif b in ("torch", "jax"):
             _tracers["torch"] = TorchProfilerTracer()
+        elif b == "native":
+            try:
+                from hydragnn_tpu_torch.native.regiontimer import NativeRegionTimer
+
+                _tracers["native"] = NativeRegionTimer()
+            except Exception:  # no toolchain: the Python timer
+                _tracers["timer"] = TimerTracer()
     return list(_tracers)
 
 
@@ -160,17 +168,25 @@ def profile(name):
 
 
 def totals() -> Dict[str, float]:
-    """Accumulated seconds per region of the ``timer`` backend (the
-    ``torch`` backend only annotates traces): the run's ``tracer_totals``
-    event and the ``tracer/<region>_seconds`` scalars."""
-    t = _tracers.get("timer")
-    if t is None:
-        return {}
-    return {k: float(v) for k, v in t.acc.items()}
+    """Accumulated seconds per region of one accumulating backend,
+    ``native`` (call-tree paths) before ``timer`` (the ``torch`` backend
+    only annotates traces; summing backends would count each region
+    twice): the run's ``tracer_totals`` event and the
+    ``tracer/<region>_seconds`` scalars."""
+    for name in ("native", "timer"):
+        t = _tracers.get(name)
+        if t is None:
+            continue
+        if hasattr(t, "totals"):
+            return {k: float(v) for k, v in t.totals().items()}
+        return {k: float(v) for k, v in t.acc.items()}
+    return {}
 
 
 def save(prefix: str = "./logs/trace"):
-    """Per-process region dump, ``<prefix>[.<backend>].<rank>``."""
+    """Per-process region dump, ``<prefix>[.<backend>].<rank>``; the
+    ``native`` backend also writes a chrome://tracing JSON,
+    ``<prefix>[.native].<rank>.trace.json``."""
     from hydragnn_tpu_torch.utils.timers import comm_size_and_rank
 
     _, rank = comm_size_and_rank()
@@ -178,3 +194,5 @@ def save(prefix: str = "./logs/trace"):
         # with several file-writing backends each gets its own file
         tag = f".{name}" if len(_tracers) > 1 else ""
         t.pr_file(f"{prefix}{tag}.{rank}")
+        if hasattr(t, "chrome_trace"):
+            t.chrome_trace(f"{prefix}{tag}.{rank}.trace.json", pid=rank)

@@ -366,3 +366,36 @@ def pytest_server_counts_compiles_per_version_and_bucket_and_warm_version_verifi
         server.submit(graphs[0]).result(30)
         assert server.metrics.snapshot()["compiles_total"] == 2 * plan.num_buckets
     assert server._programs is None  # stop freed them
+
+
+def _chained(*messages):
+    """An error raised while handling the one before it, for each message."""
+    error = None
+    for m in messages:
+        try:
+            try:
+                if error is not None:
+                    raise error
+            finally:
+                raise RuntimeError(m)
+        except RuntimeError as e:
+            error = e
+    return error
+
+
+@pytest.mark.parametrize("messages, again", [
+    # broken from outside: seen at the capture's end, or first at a launch
+    (["CUDA error: operation failed due to a previous error during capture"], True),
+    (["CUDA error: operation failed due to a previous error during capture\n"
+      "Search for `cudaErrorStreamCaptureInvalidated'"] * 2, True),
+    # the body's own illegal operation, then the capture's end: never again
+    (["CUDA error: operation not permitted when stream is capturing",
+      "CUDA error: operation failed due to a previous error during capture"], False),
+    (["shapes do not match", "CUDA error: operation failed due to a previous error during capture"],
+     False),
+    (["CUDA error: an illegal memory access was encountered"], False),
+])
+def pytest_only_a_capture_broken_from_outside_is_recorded_again(messages, again):
+    from hydragnn_tpu_torch.train.capture import _invalidated
+
+    assert _invalidated(_chained(*messages)) is again

@@ -40,6 +40,7 @@ test without one. Run on the card with
 """
 
 import copy
+import threading
 
 import numpy as np
 import pytest
@@ -63,6 +64,7 @@ from hydragnn_tpu_torch.train import (
     set_learning_rate,
     steps,
 )
+from hydragnn_tpu_torch.train import capture
 from hydragnn_tpu_torch.train.capture import ProgramSet
 
 pytestmark = pytest.mark.cuda
@@ -293,3 +295,70 @@ def pytest_bridge_round_trip_of_a_replayed_trainer(card):
     state, met = trainer.train_step(state, batch)
     assert trainer.programs(state).counts()["train_step"]["captures"] == 1
     _hold_step(state, eagers, met["loss"], start)
+
+
+def _sync_from_another_thread():
+    """A device-wide synchronisation on another thread: it breaks a capture
+    under way on this one (``capture_error_mode="thread_local"`` included)."""
+    def other():
+        try:
+            torch.cuda.synchronize()
+        except RuntimeError:
+            pass
+    t = threading.Thread(target=other)
+    t.start()
+    t.join()
+
+
+def pytest_a_capture_invalidated_from_outside_is_recorded_again(card, monkeypatch):
+    clean, clean_state, batch = _setup("PNA", card)
+    trainer, state, _ = _setup("PNA", card)
+    left = {"n": 1}
+    body = steps.eval_body
+
+    def broken_once(model, b):
+        out = body(model, b)
+        if torch.cuda.is_current_stream_capturing() and left["n"]:
+            left["n"] -= 1
+            _sync_from_another_thread()
+        return out
+
+    before = ops.launch_counts()
+    want = clean.eval_step(clean_state, batch)
+    clean_launches = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    monkeypatch.setattr(steps, "eval_body", broken_once)
+    invalidated = capture.invalidated_captures()
+    before = ops.launch_counts()
+    with pytest.warns(RuntimeWarning, match="capture was invalidated"):
+        got = trainer.eval_step(state, batch)
+    assert capture.invalidated_captures() == invalidated + 1
+    assert left["n"] == 0
+    # the warm-up and one replay, as a capture that went through the first time
+    assert {k: v - before[k] for k, v in ops.launch_counts().items()} == clean_launches
+    assert trainer.programs(state).counts()["eval_step"] == {"captures": 1, "replays": 1}
+    assert torch.cuda.current_stream(card) == torch.cuda.default_stream(card)
+    for k in ("loss", "tasks"):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-6)
+    again = trainer.eval_step(state, batch)  # a replay of the graph recorded again
+    torch.testing.assert_close(again["loss"], got["loss"], rtol=1e-5, atol=1e-6)
+
+
+def pytest_two_invalidated_captures_in_a_row_raise(card):
+    programs = ProgramSet(card)
+
+    def body(t):
+        y = t.sin()
+        if torch.cuda.is_current_stream_capturing():
+            _sync_from_another_thread()
+        return y
+
+    prog = programs.program("always_broken", body)
+    x = torch.randn(1024, device=card)
+    with pytest.warns(RuntimeWarning, match="capture was invalidated"):
+        with pytest.raises(RuntimeError, match="always_broken: 2 captures in a row"):
+            prog(x)
+    assert torch.cuda.current_stream(card) == torch.cuda.default_stream(card)
+    # the set captures again afterwards, into its new pool
+    ok = programs.program("after", lambda t: t.cos())
+    torch.testing.assert_close(ok(x), x.cos())
+    programs.release()

@@ -773,8 +773,28 @@ def pytest_feedback_sink_from_env(monkeypatch, tmp_path):
     monkeypatch.delenv("HYDRAGNN_FEEDBACK_DIR", raising=False)
     assert FeedbackSink.from_env() is None
     monkeypatch.setenv("HYDRAGNN_FEEDBACK_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+    monkeypatch.setenv("HYDRAGNN_FEEDBACK_MAX_GRAPHS", "3")
+    sink = FeedbackSink.from_env()
+    from hydragnn_tpu.serve.quality import FeedbackSink as JaxFeedbackSink
+
+    want = JaxFeedbackSink.from_env()
+    assert sink.queue_dir == want.queue_dir == str(tmp_path)
+    assert (sink.max_graphs, sink.max_packs, sink.min_unc) == (
+        want.max_graphs, want.max_packs, want.min_unc) == (3, 16, 0.0)
+    monkeypatch.setenv("HYDRAGNN_FEEDBACK_MAX_GRAPHS", "0")
+    with pytest.raises(ValueError, match="HYDRAGNN_FEEDBACK_MAX_GRAPHS"):
         FeedbackSink.from_env()
+
+
+def pytest_feedback_dir_per_process(tmp_path):
+    from hydragnn_tpu_torch.serve.fleet import CANARY, REPLICA, feedback_dir
+
+    # a replica's directory is the JAX package's replica<rid>
+    assert feedback_dir(str(tmp_path), REPLICA, 1) == str(tmp_path / "replica1")
+    # a canary's is its own: the JAX package's replica<rid> would be shared
+    # with replica <rid>, whose first pack has the same name
+    assert feedback_dir(str(tmp_path), CANARY, 1) == str(tmp_path / "canary1")
+    assert feedback_dir(str(tmp_path), CANARY, 1) != feedback_dir(str(tmp_path), REPLICA, 1)
 
 
 def pytest_is_warm_and_warm_tenant(tmp_path):

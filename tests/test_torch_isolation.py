@@ -46,7 +46,10 @@ def _port_files():
                 "data/mptrj.py", "data/qm9_raw.py", "train/transfer.py",
                 "obs/runtime.py", "obs/scalars.py", "obs/introspect.py", "obs/ledger.py",
                 "obs/report.py", "obs/__main__.py", "utils/timers.py", "utils/tracer.py",
-                "utils/profile.py"):
+                "utils/profile.py", "native/build.py", "native/graphpack.py",
+                "native/regiontimer.py", "data/shard_store.py", "data/distdataset.py",
+                "data/pickledataset.py", "data/stream/source.py", "data/stream/mix.py",
+                "data/stream/planner.py", "data/stream/loader.py", "data/stream/config.py"):
         assert REPO / "hydragnn_tpu_torch" / new in files
     return files
 
@@ -94,7 +97,10 @@ def pytest_importing_the_port_loads_no_jax():
         "import hydragnn_tpu_torch.obs.ledger, hydragnn_tpu_torch.obs.report\n"
         "import hydragnn_tpu_torch.obs.introspect, hydragnn_tpu_torch.obs.scalars\n"
         "import hydragnn_tpu_torch.obs.__main__, hydragnn_tpu_torch.utils.tracer\n"
-        "import hydragnn_tpu_torch.utils.timers\n"
+        "import hydragnn_tpu_torch.utils.timers, hydragnn_tpu_torch.data.stream\n"
+        "import hydragnn_tpu_torch.data.shard_store, hydragnn_tpu_torch.data.distdataset\n"
+        "import hydragnn_tpu_torch.data.pickledataset, hydragnn_tpu_torch.native.graphpack\n"
+        "import hydragnn_tpu_torch.native.regiontimer\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'hydragnn_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -102,6 +108,66 @@ def pytest_importing_the_port_loads_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def pytest_port_names_no_source_of_the_jax_package():
+    """No string in the port names the JAX package's directory as a path
+    (``hydragnn_tpu/native``, or ``"hydragnn_tpu"`` as a path component):
+    the port keeps its own copies of the C++ it builds."""
+    bad = []
+    for path in _port_files():
+        text = path.read_text()
+        tree = ast.parse(text, filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Constant) and isinstance(node.value, str):
+                s = node.value
+                if s == "hydragnn_tpu" or "hydragnn_tpu/native" in s or \
+                        "hydragnn_tpu\\native" in s:
+                    bad.append(f"{path.relative_to(REPO)}:{node.lineno}: {s[:60]!r}")
+    assert not bad, bad
+
+
+def pytest_builders_compile_only_the_ports_sources(monkeypatch, tmp_path):
+    """The g++ build (``native/build.py``) and the nvcc build
+    (``ops/_build.py``) hand their compilers sources inside
+    ``hydragnn_tpu_torch/`` only."""
+    from hydragnn_tpu_torch.native import build
+    from hydragnn_tpu_torch.ops import _build
+
+    port = (REPO / "hydragnn_tpu_torch").resolve()
+    commands = []
+
+    def run(cmd, **kw):
+        commands.append(cmd)
+        out = cmd[cmd.index("-o") + 1]
+        Path(out).write_bytes(b"")
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(build, "REPO_ROOT", tmp_path)
+    monkeypatch.setattr(build.subprocess, "run", run)
+    for name, sources in (("graphpack", ["graphpack.cpp"]), ("diststore", ["diststore.cpp"]),
+                          ("regiontimer", ["regiontimer.cpp"])):
+        assert build.build_library(name, sources).startswith(str(tmp_path))
+
+    class Proc:
+        returncode = 0
+
+        def __init__(self, cmd, **kw):
+            commands.append(cmd)
+            Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+
+        def communicate(self):
+            return "", ""
+
+    monkeypatch.setattr(_build, "build_dir", lambda: tmp_path / "kernels")
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "Popen", Proc)
+    _build.build_all()
+    compiled = [Path(a).resolve() for cmd in commands for a in cmd
+                if a.endswith((".cpp", ".cu", ".cc", ".c"))]
+    assert len(compiled) == 6, commands
+    outside = [str(c) for c in compiled if port not in c.parents]
+    assert not outside, outside
 
 
 def pytest_entry_points_refuse_the_cpu_unless_asked(monkeypatch):

@@ -331,8 +331,10 @@ def pytest_tracer_region_file_as_jax(monkeypatch, tmp_path):
         mod._tracers["timer"].pr_file(path)
         files.append(open(path).read())
     assert files[0] == files[1]
-    monkeypatch.setattr(tracer, "_tracers", {})
-    assert tracer.initialize(("native",)) == ["timer"]  # the C++ timer is not ported
+    # the C++ region timer registers in both packages (g++ is here)
+    for mod in (tracer, jax_tracer):
+        monkeypatch.setattr(mod, "_tracers", {})
+    assert tracer.initialize(("native",)) == jax_tracer.initialize(("native",)) == ["native"]
 
 
 def pytest_hooks_are_noops_when_inactive(tmp_path):
